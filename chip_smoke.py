@@ -8,23 +8,29 @@ numbers in PERF.md).  It imports nothing of JAX or of the JAX package.
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
-2. build the hand-written kernels from `src/repro_torch/kernels/csrc` (nvcc);
+2. build the hand-written kernels from `src/repro_torch/kernels/csrc` (one
+   nvcc per source, all started together, then one link);
 3. each kernel against its plain PyTorch version on the card, bit for bit, at
-   the main path's shape (one 65,536-row row group: 16 blocks) and over a
-   stack of 92 row groups (1,472 blocks), plus the edge cases (k = 1, 31, 32,
-   a dictionary too large for shared memory, DELTA wraparound); each timed
-   with CUDA events (cold L2, median of single launches) beside its bound
-   and the plain version's time;
-4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) into a
-   temporary directory;
-5. run Q1, Q6, Q12, Q14 and Q15 through DatapathEngine(device="cuda") with
-   every kernel launch count set to 0 just before and read just after;
+   the main path's shape (one 65,536-row row group: 16 packed blocks or 64
+   RLE/probe blocks; the part table's 196 blocks for compaction) and over a
+   stack of 92 row groups (1,472 or 5,888 blocks), plus the edge cases (k =
+   1, 31, 32, a dictionary too large for shared memory, DELTA wraparound,
+   the fused_scan dictionary arm, 128-run RLE windows, all/none/last-row
+   compaction masks, 2^10- and 2^17-byte filters); each timed with CUDA
+   events (cold L2, median of single launches) beside its bound, the plain
+   version's time and, where one exists, one PyTorch call's time;
+4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) twice
+   into temporary directories: unsorted, and sorted (lineitem on l_shipdate,
+   whose pages are then RLE in every row group);
+5. on each file order, run Q1, Q6, Q12, Q14, Q15 and Q19 through
+   DatapathEngine(device="cuda") with every kernel launch count set to 0 just
+   before and read just after;
 6. run the same queries on device="cpu" and compare: integers exactly,
    floats within rtol 1e-4 (Q15's supplier only outside a near tie);
-7. print per-query wall time, peak device memory and, from torch.profiler,
-   the device's busy time and idle share;
-8. print one JSON line with every kernel's record (its launches on the query
-   path must be > 0);
+7. print per (query, file order) wall time, peak device memory and, from
+   torch.profiler, the device's busy time and idle share;
+8. print one JSON line with every kernel's record (its launches, summed over
+   both file orders, must be > 0);
 9. print the device line last.
 """
 
@@ -48,8 +54,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import DatapathEngine, agreement, tpch  # noqa: E402
 from repro_torch.core import queries as Q  # noqa: E402
-from repro_torch.kernels import bitunpack, build, delta_decode, dict_decode, fused_scan  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import bitunpack, bloom_probe, build, delta_decode  # noqa: E402
+from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
+from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
+from repro_torch.lakeformat.encodings import rle_encode  # noqa: E402
 from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -60,21 +68,37 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # instruction throughput, compute capability 9.0): a quarter of the rate.
 INT32_OPS_PER_S = 67e12 / 4
 SF = 10.0  # the generator's scale for TPC-H SF1: 6,000,000 lineitem rows
-PATH_BLOCKS = 16  # one 65,536-row row group
+PATH_BLOCKS = 16  # one row group in 4,096-value packed blocks
 STACK_BLOCKS = 1472  # 92 row groups: all of SF1 lineitem's
+RLE_PATH_BLOCKS = 64  # one row group in 1,024-value RLE / probe blocks
+RLE_STACK_BLOCKS = 5888  # 92 row groups
+PART_BLOCKS = 196  # the part table's 200,704 padded rows, Q19's compacted scan
 # 32-bit integer issue slots per decoded value, counted from each kernel's
 # source, on top of the k-bit unpack's 2 (a funnel shift and a mask; none for
 # k = 32).  A shuffle takes 2 slots, as it issues at half the integer rate.
-#   dict_decode   clip (max, min) and the entry's address
-#   delta_decode  un-zigzag 3; per scan step (5) a shuffle and an add; the
-#                 row offset's add
-#   fused_scan    two compares, the mask byte, the survivor count
+#   dict_decode     clip (max, min) and the entry's address
+#   delta_decode    un-zigzag 3; per scan step (5) a shuffle and an add; the
+#                   row offset's add
+#   fused_scan      two compares, the mask byte, the survivor count; with a
+#                   dictionary also its clip and the entry's address
+#   rle_decode      per search step (7) the index add, the compare and the
+#                   conditional add; the value's address
+#   filter_compact  the mask test, the ballot, the lane mask's and, the
+#                   popcount, the slot's add and the store's address, the
+#                   zero-fill compare and the survivor's branch
+#   bloom_probe     per key 21 + 5 per hash (csrc/bloom_probe.cu's note)
 EXTRA_OPS_PER_VALUE = {"bitunpack": 0, "dict_decode": 3, "delta_decode": 3 + 5 * 3 + 1,
-                       "fused_scan": 4}
+                       "fused_scan": 4, "fused_scan_dict": 4 + 3}
+RLE_OPS_PER_VALUE = 7 * 3 + 1
+COMPACT_OPS_PER_VALUE = 8
 
 
 def ops_per_value(name: str, k: int) -> int:
     return EXTRA_OPS_PER_VALUE[name] + (2 if k < 32 else 0)
+
+
+def bloom_ops_per_key(n_hashes: int) -> int:
+    return 21 + 5 * n_hashes
 
 
 def log(msg: str) -> None:
@@ -125,10 +149,19 @@ def max_abs_err(got, want) -> float:
     return err
 
 
+def case(cases, name, label, blocks, run, plain, nbytes, nops, library=None, stage=None):
+    """One timed comparison: `run` (the kernel) against `plain` (its plain
+    version), with the bytes and integer operations its bound counts, and
+    optionally one PyTorch call (`library`) and the engine stage around the
+    kernel (`stage`) on the same inputs."""
+    cases.append({"name": name, "label": label, "blocks": blocks, "run": run,
+                  "plain": plain, "bytes": nbytes, "ops": nops, "library": library,
+                  "stage": stage})
+
+
 def kernel_cases(rng):
-    """(kernel, label, blocks, k, kernel fn, plain fn, bytes moved) per case.
-    The first case of each kernel is its main-path shape, the second the
-    92-row-group stack; the rest are edge cases."""
+    """Every kernel's cases.  The first case of each kernel is its main-path
+    shape, the second the 92-row-group stack; the rest are edge cases."""
     cases = []
 
     def packed_bytes(nb, k):
@@ -139,10 +172,10 @@ def kernel_cases(rng):
                          ("k=1", PATH_BLOCKS, 1), ("k=31", PATH_BLOCKS, 31),
                          ("k=32", PATH_BLOCKS, 32)]:
         p = make_words(rng, nb, k)
-        cases.append(("bitunpack", label, nb, k,
-                      lambda p=p, k=k: bitunpack.bitunpack(p, k),
-                      lambda p=p, k=k: ref.bitunpack(p, k),
-                      packed_bytes(nb, k) + nb * 4096 * 4))
+        case(cases, "bitunpack", label, nb,
+             lambda p=p, k=k: bitunpack.bitunpack(p, k),
+             lambda p=p, k=k: ref.bitunpack(p, k),
+             packed_bytes(nb, k) + nb * 4096 * 4, nb * 4096 * ops_per_value("bitunpack", k))
 
     # dict_decode: l_orderkey at SF1 is DICT k=14 with ~16.1K int entries
     # (> 48 KiB of shared memory); l_discount is DICT k=4 over 11 floats
@@ -152,10 +185,11 @@ def kernel_cases(rng):
             d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32)).cuda()
         else:
             d = torch.from_numpy(rng.integers(-2**31, 2**31, d_len).astype(np.int32)).cuda()
-        cases.append(("dict_decode", label, nb, k,
-                      lambda: dict_decode.dict_decode(p, d, k),
-                      lambda: ref.dict_decode(p, d, k),
-                      packed_bytes(nb, k) + d_len * 4 + nb * 4096 * 4))
+        case(cases, "dict_decode", label, nb,
+             lambda: dict_decode.dict_decode(p, d, k),
+             lambda: ref.dict_decode(p, d, k),
+             packed_bytes(nb, k) + d_len * 4 + nb * 4096 * 4,
+             nb * 4096 * ops_per_value("dict_decode", k))
 
     dict_case("path k=14 D=16143 shared", PATH_BLOCKS, 14, 16_143, "int32")
     dict_case("stack k=14 D=16143 shared", STACK_BLOCKS, 14, 16_143, "int32")
@@ -173,10 +207,11 @@ def kernel_cases(rng):
         else:
             b = np.arange(nb) * 4096
         b = torch.from_numpy(b.astype(np.int32)).cuda()
-        cases.append(("delta_decode", label, nb, k,
-                      lambda: delta_decode.delta_decode(p, b, k),
-                      lambda: ref.delta_decode(p, b, k),
-                      packed_bytes(nb, k) + nb * 4 + nb * 4096 * 4))
+        case(cases, "delta_decode", label, nb,
+             lambda: delta_decode.delta_decode(p, b, k),
+             lambda: ref.delta_decode(p, b, k),
+             packed_bytes(nb, k) + nb * 4 + nb * 4096 * 4,
+             nb * 4096 * ops_per_value("delta_decode", k))
 
     delta_case("path k=2", PATH_BLOCKS, 2, False)
     delta_case("stack k=2", STACK_BLOCKS, 2, False)
@@ -184,17 +219,133 @@ def kernel_cases(rng):
     delta_case("k=31 wraparound", PATH_BLOCKS, 31, True)
     delta_case("k=32 wraparound", PATH_BLOCKS, 32, True)
 
-    # fused_scan: l_shipdate codes at SF1 are DICT k=12; Q1 keeps codes <= 2466
-    for label, nb, k, lo, hi in [("path k=12", PATH_BLOCKS, 12, 0, 2466),
-                                 ("stack k=12", STACK_BLOCKS, 12, 1000, 1029),
-                                 ("k=1 full", PATH_BLOCKS, 1, 0, 1),
-                                 ("k=12 empty", PATH_BLOCKS, 12, 1, 0),
-                                 ("k=32 negative", PATH_BLOCKS, 32, -2**31, -1)]:
+    # fused_scan: l_shipdate codes at SF1 are DICT k=12; Q1 keeps codes <= 2466.
+    # The dictionary arm (not on the engine's path) with int32 and float32
+    # dictionaries whose codes run past their end.
+    for label, nb, k, lo, hi, d_len, dtype in [
+            ("path k=12", PATH_BLOCKS, 12, 0, 2466, 0, None),
+            ("stack k=12", STACK_BLOCKS, 12, 1000, 1029, 0, None),
+            ("k=1 full", PATH_BLOCKS, 1, 0, 1, 0, None),
+            ("k=12 empty", PATH_BLOCKS, 12, 1, 0, 0, None),
+            ("k=32 negative", PATH_BLOCKS, 32, -2**31, -1, 0, None),
+            ("dictionary arm k=12 D=2557 int32", PATH_BLOCKS, 12, 365, 729, 2557, "int32"),
+            ("dictionary arm k=4 D=11 float32", PATH_BLOCKS, 4, 0, 0, 11, "float32"),
+            ("dictionary arm k=12 D=3000 float32, stack", STACK_BLOCKS, 12, -1, 1, 3000,
+             "float32")]:
         p = make_words(rng, nb, k)
-        cases.append(("fused_scan", label, nb, k,
-                      lambda p=p, k=k, lo=lo, hi=hi: fused_scan.fused_scan(p, k, lo, hi),
-                      lambda p=p, k=k, lo=lo, hi=hi: ref.fused_scan(p, k, lo, hi),
-                      packed_bytes(nb, k) + nb * 4096 + nb * 4))
+        d = None
+        if dtype == "int32":
+            d = torch.from_numpy(np.sort(rng.integers(0, 2557, d_len)).astype(np.int32)).cuda()
+        elif dtype == "float32":
+            d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32)).cuda()
+        case(cases, "fused_scan", label, nb,
+             lambda p=p, k=k, lo=lo, hi=hi, d=d: fused_scan.fused_scan(p, k, lo, hi, d),
+             lambda p=p, k=k, lo=lo, hi=hi, d=d: ref.fused_scan(p, k, lo, hi, d),
+             packed_bytes(nb, k) + nb * 4096 + nb * 4 + d_len * 4,
+             nb * 4096 * ops_per_value("fused_scan" if d is None else "fused_scan_dict", k))
+
+    # rle_decode: sorted l_shipdate at SF1, 2,346 rows a day, is one or two
+    # runs per block; the writer's own encoder makes those pages.  Then
+    # random windows of up to 128 runs (positions on a run's end included),
+    # exactly 128 runs, one run per block, float32 runs.
+    def rle_pages(values):
+        bufs = rle_encode(values)
+        return (torch.from_numpy(bufs["rle_values"]).cuda(),
+                torch.from_numpy(bufs["rle_ends"]).cuda())
+
+    def rle_case(label, nb, vals, ends):
+        case(cases, "rle_decode", label, nb,
+             lambda: rle_decode.rle_decode(vals, ends),
+             lambda: ref.rle_decode(vals, ends),
+             nb * (512 + 512 + 4096), nb * 1024 * RLE_OPS_PER_VALUE)
+
+    for label, nb in [("path: sorted dates, 1-2 runs a block", RLE_PATH_BLOCKS),
+                      ("stack: sorted dates", RLE_STACK_BLOCKS)]:
+        days = nb * 1024 // 2346 + 1
+        dates = np.sort(rng.integers(0, days, nb * 1024)).astype(np.int32)
+        rle_case(label, nb, *rle_pages(dates))
+
+    def random_windows(nb, dtype, runs=None):
+        if runs is None:
+            ends = np.sort(rng.integers(0, 1025, (nb, 128)), axis=1)
+        else:
+            ends = np.broadcast_to(np.minimum(np.arange(1, 129) * (1024 // runs), 1024), (nb, 128))
+        vals = (rng.standard_normal((nb, 128)).astype(np.float32) if dtype == "float32"
+                else rng.integers(-2**31, 2**31, (nb, 128)).astype(np.int32))
+        return (torch.from_numpy(vals).cuda(),
+                torch.from_numpy(np.ascontiguousarray(ends, dtype=np.int32)).cuda())
+
+    rle_case("random windows int32", RLE_PATH_BLOCKS, *random_windows(RLE_PATH_BLOCKS, "int32"))
+    rle_case("random windows float32 (bits)", RLE_PATH_BLOCKS,
+             *random_windows(RLE_PATH_BLOCKS, "float32"))
+    rle_case("exactly 128 runs", RLE_PATH_BLOCKS,
+             *random_windows(RLE_PATH_BLOCKS, "int32", runs=128))
+    rle_case("one run per block", RLE_PATH_BLOCKS,
+             *random_windows(RLE_PATH_BLOCKS, "float32", runs=1))
+
+    # filter_compact: Q19's part scan keeps ~0.6% of 200,000 parts, int32
+    # keys; then the stack, all/none/last-row masks, int32 beyond +-2^24
+    # (negative too) and float32.  One PyTorch call, masked_select over the
+    # flat column, computes what the kernel and the engine's stitch produce
+    # together (less the zero fill): it is the yardstick of the `_compact`
+    # stage, timed beside it, not of the kernel alone.
+    engine = DatapathEngine(device="cuda")
+
+    def compact_case(label, nb, values, mask):
+        flat_v, flat_m = values.reshape(-1), mask.reshape(-1)
+        case(cases, "filter_compact", label, nb,
+             lambda: filter_compact.filter_compact(values, mask),
+             lambda: ref.filter_compact(values, mask),
+             nb * (4096 + 1024 + 4096 + 4), nb * 1024 * COMPACT_OPS_PER_VALUE,
+             library=lambda: torch.masked_select(flat_v, flat_m),
+             stage=lambda: engine._compact({"c": flat_v}, flat_m))
+
+    def ints(nb):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, (nb, 1024)).astype(np.int32)).cuda()
+
+    def bern(nb, p):
+        return torch.from_numpy(rng.random((nb, 1024)) < p).cuda()
+
+    compact_case("path: part keys, 0.6% kept", PART_BLOCKS, ints(PART_BLOCKS),
+                 bern(PART_BLOCKS, 0.006))
+    compact_case("stack, 30% kept", RLE_STACK_BLOCKS, ints(RLE_STACK_BLOCKS),
+                 bern(RLE_STACK_BLOCKS, 0.3))
+    full = torch.ones((PART_BLOCKS, 1024), dtype=torch.bool, device="cuda")
+    compact_case("all kept", PART_BLOCKS, ints(PART_BLOCKS), full)
+    compact_case("none kept", PART_BLOCKS, ints(PART_BLOCKS), ~full)
+    last = ~full
+    last[:, -1] = True
+    compact_case("last row only", PART_BLOCKS, ints(PART_BLOCKS), last)
+    compact_case("float32, 50% kept", PART_BLOCKS,
+                 torch.from_numpy(rng.standard_normal((PART_BLOCKS, 1024)).astype(np.float32)
+                                  ).cuda(), bern(PART_BLOCKS, 0.5))
+
+    # bloom_probe: Q19 probes l_partkey (in [0, 200,000)) against a 2^15-byte
+    # filter of the ~1,200 part keys its build scan keeps, with 4 hashes
+    def bloom_case(label, nb, n_bits, n_hashes, keys, build_keys):
+        bits = ref.bloom_build(build_keys, n_bits, n_hashes)
+        member = ref.bloom_probe(build_keys, bits, n_hashes)
+        if not bool(member.all()):
+            raise AssertionError(f"bloom {label}: a build key is not in its own filter")
+        case(cases, "bloom_probe", label, nb,
+             lambda: bloom_probe.bloom_probe(keys, bits, n_hashes),
+             lambda: ref.bloom_probe(keys, bits, n_hashes),
+             nb * 1024 * 5 + n_bits, nb * 1024 * bloom_ops_per_key(n_hashes))
+
+    def part_keys(nb):
+        return torch.from_numpy(rng.integers(0, 200_000, (nb, 1024)).astype(np.int32)).cuda()
+
+    build_keys = torch.from_numpy(rng.choice(200_000, 1_200, replace=False).astype(np.int32)).cuda()
+    bloom_case("path n_bits=2^15 h=4", RLE_PATH_BLOCKS, 1 << 15, 4,
+               part_keys(RLE_PATH_BLOCKS), build_keys)
+    bloom_case("stack n_bits=2^15 h=4", RLE_STACK_BLOCKS, 1 << 15, 4,
+               part_keys(RLE_STACK_BLOCKS), build_keys)
+    edge = ints(RLE_PATH_BLOCKS)
+    edge[0, :4] = torch.tensor([-2**31, 2**31 - 1, 0, -1], dtype=torch.int32)
+    edge_build = edge[0, :512].contiguous()  # keys at +-2^31 among them
+    bloom_case("n_bits=2^17 (shared-memory maximum) h=7", RLE_PATH_BLOCKS, 1 << 17, 7,
+               edge, edge_build)
+    bloom_case("n_bits=2^10 h=1", RLE_PATH_BLOCKS, 1 << 10, 1, edge, edge_build)
     return cases
 
 
@@ -209,23 +360,29 @@ def check_kernels(seed: int) -> dict:
         torch.cuda.synchronize()
     del a
     records: dict = {}
-    for name, label, nb, k, run, plain, nbytes in kernel_cases(rng):
-        err = max_abs_err(run(), plain())
+    for c in kernel_cases(rng):
+        name, nb = c["name"], c["blocks"]
+        err = max_abs_err(c["run"](), c["plain"]())
         torch.cuda.synchronize()
-        iters = 30 if nb == PATH_BLOCKS else 10
-        ms = median_ms(run, iters, flush)
-        plain_ms = median_ms(plain, max(3, iters // 3), flush)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nb * 4096 * ops_per_value(name, k) / INT32_OPS_PER_S * 1e3
+        iters = 10 if nb >= STACK_BLOCKS else 30
+        ms = median_ms(c["run"], iters, flush)
+        plain_ms = median_ms(c["plain"], max(3, iters // 3), flush)
+        library_ms = median_ms(c["library"], iters, flush) if c["library"] else None
+        stage_ms = median_ms(c["stage"], iters, flush) if c["stage"] else None
+        bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = c["ops"] / INT32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        log(f"  {name:12s} {label:44s} blocks={nb:5d} exact (max|err|={err}) "
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        extra = "" if library_ms is None else (
+            f" library_ms={library_ms:.4f} stage_ms={stage_ms:.4f}")
+        log(f"  {name:14s} {c['label']:44s} blocks={nb:5d} exact (max|err|={err}) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
-            f"({nbytes} B, by {'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            f"({c['bytes']} B, {c['ops']} ops, by {bound_by}){extra}")
         rec = records.setdefault(name, {"max_abs_err": 0.0, "cases": []})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["cases"].append({"label": label, "blocks": nb, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms,
-                             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        rec["cases"].append({"label": c["label"], "blocks": nb, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms, "stage_ms": stage_ms})
     del flush
     return records
 
@@ -301,50 +458,69 @@ def main(argv=None) -> int:
 
     # phase 4
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tpch_") as d:
-        t0 = time.perf_counter()
-        paths = tpch.write_tables(d, sf=SF, seed=args.seed)
-        readers = {k: LakeReader(p) for k, p in paths.items()}
-        log(f"[4] wrote TPC-H sf={SF} seed={args.seed} in "
-            f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
-                f"{k} {r.n_rows} rows / {r.n_row_groups} row groups"
-                for k, r in readers.items()))
+        passes = {}
+        for order, sorted_data in (("unsorted", False), ("sorted", True)):
+            t0 = time.perf_counter()
+            paths = tpch.write_tables(os.path.join(d, order), sf=SF, seed=args.seed,
+                                      sorted_data=sorted_data)
+            readers = {k: LakeReader(p) for k, p in paths.items()}
+            log(f"[4] wrote {order} TPC-H sf={SF} seed={args.seed} in "
+                f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+                    f"{k} {r.n_rows} rows / {r.n_row_groups} row groups"
+                    for k, r in readers.items()))
+            li = readers["lineitem"]
+            encs = [li.row_group_meta(rg)["columns"]["l_shipdate"]["encoding"]
+                    for rg in range(li.n_row_groups)]
+            log(f"      l_shipdate pages: {sorted(set(encs))}")
+            if sorted_data and set(encs) != {"rle"}:
+                raise AssertionError(f"sorted l_shipdate is not RLE in every row group: {encs}")
+            passes[order] = readers
 
-        # phase 5: the main path on the card
-        gpu = DatapathEngine(device="cuda")
-        ops.reset_kernel_launches()
-        ops.reset_dispatch_count()
-        got, first_ms, peaks, per_query = run_queries(gpu, readers, Q.QUERIES, True)
-        launches = ops.kernel_launches()
-        dispatches = ops.dispatch_count()
-        log(f"[5] queries on the card: launches {launches}, dispatches {dispatches}")
-        for name, per in per_query.items():
-            log(f"      {name}: {per}")
-        _, warm_ms, _, _ = run_queries(gpu, readers, Q.QUERIES, True)
-        busy = device_busy(gpu, readers, Q.QUERIES)
+        # phases 5-7 on each file order
+        launches = {}
+        report = {}
+        for order, readers in passes.items():
+            # phase 5: the main path on the card
+            gpu = DatapathEngine(device="cuda")
+            ops.reset_kernel_launches()
+            ops.reset_dispatch_count()
+            got, first_ms, peaks, per_query = run_queries(gpu, readers, Q.QUERIES, True)
+            launches[order] = ops.kernel_launches()
+            dispatches = ops.dispatch_count()
+            log(f"[5] {order}: queries on the card: launches {launches[order]}, "
+                f"dispatches {dispatches}")
+            for name, per in per_query.items():
+                log(f"      {name}: {per}")
+            _, warm_ms, _, _ = run_queries(gpu, readers, Q.QUERIES, True)
+            busy = device_busy(gpu, readers, Q.QUERIES)
 
-        # phase 6: the same queries on the CPU
-        cpu = DatapathEngine(device="cpu")
-        t0 = time.perf_counter()
-        want, cpu_ms, _, _ = run_queries(cpu, readers, Q.QUERIES, False)
-        log(f"[6] queries on the CPU in {time.perf_counter() - t0:.1f} s")
-        per_supp = agreement.per_supplier_revenue(readers["lineitem"])
-        if len(want["q1"]) != 6:
-            raise AssertionError(f"q1 has {len(want['q1'])} groups at SF1, not 6")
-        for name in Q.QUERIES:
-            agreement.compare(name, got[name], want[name], per_supp)
-            log(f"      {name} agrees: {got[name]}")
+            # phase 6: the same queries on the CPU
+            cpu = DatapathEngine(device="cpu")
+            t0 = time.perf_counter()
+            want, cpu_ms, _, _ = run_queries(cpu, readers, Q.QUERIES, False)
+            log(f"[6] {order}: queries on the CPU in {time.perf_counter() - t0:.1f} s")
+            per_supp = agreement.per_supplier_revenue(readers["lineitem"])
+            if len(want["q1"]) != 6:
+                raise AssertionError(f"q1 has {len(want['q1'])} groups at SF1, not 6")
+            if want["q19"]["rows"] <= 0:
+                raise AssertionError("q19 selects no row at SF1")
+            for name in Q.QUERIES:
+                agreement.compare(name, got[name], want[name], per_supp)
+                log(f"      {name} agrees: {got[name]}")
+            report[order] = (first_ms, warm_ms, cpu_ms, peaks, busy)
 
     # phase 7
-    log("[7] per query on the card (wall ms after synchronize; first run, warm run;"
-        " peak device memory):")
-    for name in Q.QUERIES:
-        log(f"      {name}: first_ms={first_ms[name]:.2f} warm_ms={warm_ms[name]:.2f} "
-            f"cpu_ms={cpu_ms[name]:.2f} peak_bytes={peaks[name]}")
-    log("[7] device busy per query (torch.profiler, one more warm run; idle share"
-        " against warm_ms):")
-    for name, (busy_ms, top) in busy.items():
-        idle = 1 - busy_ms / warm_ms[name] if busy_ms else float("nan")
-        log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
+    for order, (first_ms, warm_ms, cpu_ms, peaks, busy) in report.items():
+        log(f"[7] {order}: per query on the card (wall ms after synchronize; first run,"
+            " warm run; peak device memory):")
+        for name in Q.QUERIES:
+            log(f"      {name}: first_ms={first_ms[name]:.2f} warm_ms={warm_ms[name]:.2f} "
+                f"cpu_ms={cpu_ms[name]:.2f} peak_bytes={peaks[name]}")
+        log(f"[7] {order}: device busy per query (torch.profiler, one more warm run;"
+            " idle share against warm_ms):")
+        for name, (busy_ms, top) in busy.items():
+            idle = 1 - busy_ms / warm_ms[name] if busy_ms else float("nan")
+            log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
 
     # phase 8
     kernels = []
@@ -352,13 +528,18 @@ def main(argv=None) -> int:
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
         kernels.append({
             "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": launches[name], "max_abs_err": records[name]["max_abs_err"],
+            "launches": sum(launches[o][name] for o in launches),
+            "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
-            "bound_by": path["bound_by"], "library_ms": None,
+            "bound_by": path["bound_by"], "library_ms": path["library_ms"],
             "blocks": path["blocks"], "stack_blocks": stack["blocks"],
             "stack_ms": stack["ms"], "stack_plain_ms": stack["plain_ms"],
-            "stack_bound_ms": stack["bound_ms"],
+            "stack_bound_ms": stack["bound_ms"], "stack_library_ms": stack["library_ms"],
+            "launches_by_order": {o: launches[o][name] for o in launches},
         })
+        if path["stage_ms"] is not None:
+            kernels[-1].update(library="torch.masked_select (yardstick of the _compact stage)",
+                               stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

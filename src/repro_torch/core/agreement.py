@@ -77,5 +77,8 @@ def compare(name: str, got: dict, want: dict, per_supp: Optional[np.ndarray] = N
     elif name == "q15":
         if not q15_agrees(got, want, per_supp):
             raise AssertionError(f"q15 {got} vs {want}")
+    elif name == "q19":
+        if got["rows"] != want["rows"] or not close(got["revenue"], want["revenue"]):
+            raise AssertionError(f"q19 {got} vs {want}")
     else:
         raise KeyError(name)

@@ -6,10 +6,12 @@ Port of `repro.core.engine`, sequential scan with the `raw` offload mode:
          │
     encoded bytes ────► checksum check ──► decode on the card (CUDA kernels)
          │                                        │
-         │                             pushed-down predicate, or the fused
-         │                             decode + range filter on packed words
+         │                             pushed-down predicate (bloom semijoin
+         │                             included), or the fused decode + range
+         │                             filter on packed words
          ▼                                        ▼
-    consumer ◄──────── decoded columns + survivor mask + count
+    consumer ◄──── decoded columns + survivor mask + count, or, with
+                   compact=True, the survivors packed to the front
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`, which routes every kernel to its plain PyTorch version).
@@ -17,9 +19,9 @@ Asking for the card without one raises; nothing falls back to the CPU.
 
 What later slices bring raises NotImplementedError naming its ROADMAP.md
 item: other offload modes, a block cache, decode pools, batched decode,
-compaction, aggregate pushdown, bloom semijoins, RLE pages and the `host`
-backend.  Every ScanStats field is kept, so scans compare field for field
-with the JAX engine; the fields of the unported features stay 0.
+aggregate pushdown and the `host` backend.  Every ScanStats field is kept,
+so scans compare field for field with the JAX engine; the fields of the
+unported features stay 0.
 """
 
 from __future__ import annotations
@@ -43,11 +45,15 @@ from repro_torch.core.plan import (
 )
 from repro_torch.core.zonemap import prune_row_groups
 from repro_torch.kernels import ops
-from repro_torch.lakeformat.encodings import EncodedColumn, Encoding, padded_rows
+from repro_torch.lakeformat.encodings import (
+    RLE_OUT_BLOCK,
+    EncodedColumn,
+    Encoding,
+    padded_rows,
+)
 from repro_torch.lakeformat.integrity import CorruptPageError, page_checksum
 
 # ROADMAP.md section A items that the NotImplementedError messages name
-Q19_PATH = "A.1 Q19: filter_compact, bloom_probe and rle_decode"
 BATCHED = "A.2 batched decode"
 PUSHDOWN = "A.3 operator pushdown"
 SERVICE = "A.4 datapath service and BlockCache/BlockStore"
@@ -168,7 +174,10 @@ class DatapathEngine:
                 col.k,
             ).reshape(-1)
         elif e == Encoding.RLE:
-            raise _later("RLE decode (sorted files)", Q19_PATH)
+            arr = ops.rle_decode(
+                self._put(col.buffers["rle_values"]),
+                self._put(col.buffers["rle_ends"]),
+            ).reshape(-1)
         else:
             raise ValueError(e)
         if arr.shape[0] < L:
@@ -189,7 +198,8 @@ class DatapathEngine:
     # ------------------------------------------------------------------
     # predicate evaluation (on decoded device columns)
     # ------------------------------------------------------------------
-    def _eval(self, e: Expr, cols: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _eval(self, e: Expr, cols: Dict[str, torch.Tensor],
+              blooms: Dict[str, torch.Tensor]) -> torch.Tensor:
         # Python constants compare in the column's dtype (float32 columns in
         # float32), as JAX's weakly typed scalars do.
         if isinstance(e, Cmp):
@@ -213,24 +223,31 @@ class DatapathEngine:
                 m = m | (v == val)
             return m
         if isinstance(e, BloomProbe):
-            raise _later("bloom semijoin predicates", Q19_PATH)
+            # the keys in rows of RLE_OUT_BLOCK, as the probe kernel takes them
+            keys = cols[e.column].to(torch.int32)
+            L = keys.shape[0]
+            pad = (-L) % RLE_OUT_BLOCK
+            if pad:
+                keys = torch.nn.functional.pad(keys, (0, pad))
+            m = ops.bloom_probe(keys.reshape(-1, RLE_OUT_BLOCK), blooms[e.name], e.n_hashes)
+            return m.reshape(-1)[:L]
         if isinstance(e, And):
-            m = self._eval(e.children[0], cols)
+            m = self._eval(e.children[0], cols, blooms)
             for c in e.children[1:]:
-                m = m & self._eval(c, cols)
+                m = m & self._eval(c, cols, blooms)
             return m
         if isinstance(e, Or):
-            m = self._eval(e.children[0], cols)
+            m = self._eval(e.children[0], cols, blooms)
             for c in e.children[1:]:
-                m = m | self._eval(c, cols)
+                m = m | self._eval(c, cols, blooms)
             return m
         raise TypeError(e)
 
-    def _eval_mask(self, pred: Optional[Expr], cols, L: int) -> torch.Tensor:
+    def _eval_mask(self, pred: Optional[Expr], cols, blooms, L: int) -> torch.Tensor:
         """Predicate mask over L rows (all true without a predicate)."""
         if pred is None:
             return torch.ones((L,), dtype=torch.bool, device=self.device)
-        return self._eval(pred, cols)
+        return self._eval(pred, cols, blooms)
 
     # ------------------------------------------------------------------
     # fused decode+filter fast path
@@ -309,10 +326,11 @@ class DatapathEngine:
         rg: int,
         plan: ScanPlan,
         pred: Optional[Expr],
+        blooms: Dict[str, torch.Tensor],
         stats: ScanStats,
     ):
         """Decode + filter ONE row group.  `pred` must already be bound
-        (bind_expr).
+        (bind_expr); `blooms` maps each BloomProbe's name to its filter.
 
         Returns (cols, mask): `cols` maps each needed column to its decoded
         tensor, or None for a predicate-only column skipped under fusion;
@@ -337,7 +355,7 @@ class DatapathEngine:
         else:
             for name in need:
                 cols[name] = self._decode_column(enc[name], L, stats)
-            mask = self._eval_mask(pred, cols, L)
+            mask = self._eval_mask(pred, cols, blooms, L)
 
         mask = mask & (torch.arange(L, device=self.device) < n)  # row validity
         for name in need:
@@ -348,20 +366,45 @@ class DatapathEngine:
         self,
         reader,
         plan: ScanPlan,
+        blooms: Optional[Dict[str, torch.Tensor]] = None,
         pool: Optional[Dict] = None,
         batched: bool = False,
     ) -> ScanResult:
         """Full pushed-down scan, as a ResumableScan driven to completion in
-        one shot.  A shared decode `pool` and `batched=True` belong to later
-        slices."""
+        one shot.  `blooms` maps each BloomProbe's name to its (n_bits,)
+        uint8 filter on the engine's device.  A shared decode `pool` and
+        `batched=True` belong to later slices."""
         if batched:
             raise _later("batched=True", BATCHED)
         if pool is not None:
             raise _later("shared decode pools", SERVICE)
-        rs = ResumableScan(self, reader, plan)
+        rs = ResumableScan(self, reader, plan, blooms=blooms)
         if rs.result is None:
             rs.advance(tuple(rs.pending))
         return rs.result
+
+    def _compact(self, cols: Dict[str, torch.Tensor], mask: torch.Tensor):
+        """Global stream compaction: each column compacted per block by
+        `ops.filter_compact`, then the blocks stitched by an exclusive scan of
+        their counts.  Returns (columns with the survivors packed to the
+        front and zeros after them, the mask of the first `total` rows,
+        total as an int32 scalar)."""
+        L = mask.shape[0]
+        nblk = L // RLE_OUT_BLOCK
+        m2 = mask.reshape(nblk, RLE_OUT_BLOCK)
+        slot = torch.arange(RLE_OUT_BLOCK, device=mask.device)[None, :]
+        out = {}
+        for name, arr in cols.items():
+            comp, counts = ops.filter_compact(arr.reshape(nblk, RLE_OUT_BLOCK), m2)
+            offs = torch.cumsum(counts, 0) - counts
+            # slots past a block's count go to a spare element that is cut off
+            # (the reference's scatter with mode="drop")
+            tgt = torch.where(slot < counts[:, None], offs[:, None] + slot, L)
+            flat = torch.zeros((L + 1,), dtype=arr.dtype, device=arr.device)
+            flat.index_put_((tgt.reshape(-1),), comp.reshape(-1))
+            out[name] = flat[:L]
+        total = counts.sum(dtype=torch.int32)
+        return out, torch.arange(L, device=mask.device) < total, total
 
 
 class ResumableScan:
@@ -372,14 +415,14 @@ class ResumableScan:
     same as a one-shot `DatapathEngine.scan`.  `result` is set right after
     construction when every row group was pruned."""
 
-    def __init__(self, engine: DatapathEngine, reader, plan: ScanPlan):
+    def __init__(self, engine: DatapathEngine, reader, plan: ScanPlan,
+                 blooms: Optional[Dict[str, torch.Tensor]] = None):
         if plan.aggregates:
             raise _later("aggregate pushdown", PUSHDOWN)
-        if plan.compact:
-            raise _later("compact=True (filter_compact)", Q19_PATH)
         self.engine = engine
         self.reader = reader
         self.plan = plan
+        self.blooms = blooms or {}
         self.stats = ScanStats(row_groups_total=reader.n_row_groups, rows_total=reader.n_rows)
         self.result: Optional[ScanResult] = None
 
@@ -411,7 +454,7 @@ class ResumableScan:
                     f"{self._pending[0] if self._pending else None})")
             self._pending.pop(0)
             cols, mask = self.engine.scan_row_group(
-                self.reader, rg, self.plan, self.pred, self.stats)
+                self.reader, rg, self.plan, self.pred, self.blooms, self.stats)
             self._fold([(cols, mask)])
         if not self._pending:
             self._finish()
@@ -445,6 +488,8 @@ class ResumableScan:
         }
         mask = torch.cat(self._per_rg_mask)
         count = mask.sum(dtype=torch.int32)
+        if self.plan.compact:
+            out_cols, mask, count = self.engine._compact(out_cols, mask)
         # result-DMA size: the projected columns + survivor mask handed to
         # the consumer (predicate-only columns were dropped above)
         self.stats.result_bytes = sum(_nbytes(a) for a in out_cols.values()) + _nbytes(mask)

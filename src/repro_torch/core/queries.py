@@ -1,11 +1,11 @@
 """TPC-H-shaped query suite over the datapath engine ("the DuckDB host").
 
-Port of `repro.core.queries` for Q1, Q6, Q12, Q14 and Q15.  Every filtered
-scan is pushed down to the DatapathEngine; the host algebra runs in torch on
-the engine's device.  Joins whose build side fits on the card are gathers
-against the engine-decoded build table (`jnp.take(..., mode="clip")` in the
-reference is a clamp followed by `index_select` here).  Q19 needs the bloom
-semijoin and compaction of a later slice (ROADMAP.md A.1).
+Port of `repro.core.queries`: Q1, Q6, Q12, Q14, Q15 and Q19.  Every
+filtered scan is pushed down to the DatapathEngine; the host algebra runs in
+torch on the engine's device.  Joins whose build side fits on the card are
+gathers against the engine-decoded build table (`jnp.take(..., mode="clip")`
+in the reference is a clamp followed by `index_select` here), and Q19 uses a
+pushed-down bloom semijoin whose build keys come from a compacted scan.
 
 Each query returns plain floats/dicts.  Float totals are float32 sums in
 another order than XLA's, so they agree with the reference within a
@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import DatapathEngine
-from repro_torch.core.plan import Cmp, InSet, ScanPlan, and_
+from repro_torch.core.plan import BloomProbe, Cmp, InSet, ScanPlan, and_, or_
+from repro_torch.kernels import ops
 
 EPS = 1e-4  # float32 predicate tolerance on 2-decimal columns
 
@@ -204,4 +205,75 @@ def q15(engine: DatapathEngine, readers: Dict, quarter_start: int = 365, n_supp:
     return {"suppkey": best, "revenue": float(per_supp[best])}
 
 
-QUERIES = {"q1": q1, "q6": q6, "q12": q12, "q14": q14, "q15": q15}
+# ---------------------------------------------------------------------------
+# Q19 — discounted revenue (disjunctive predicate + bloom semijoin pushdown)
+# ---------------------------------------------------------------------------
+
+_Q19_BRANCHES = [
+    # (brand, containers, qty_lo, qty_hi, size_hi)
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 11, 5),
+    ("Brand#23", ("MED BOX", "MED PACK", "MED PKG", "MED CASE"), 10, 20, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 30, 15),
+]
+
+
+def q19(engine: DatapathEngine, readers: Dict) -> dict:
+    rp, rl = readers["part"], readers["lineitem"]
+
+    # Build side: parts matching ANY branch -> bloom of partkeys (pushdown),
+    # plus dense per-part attributes for the exact residual check.
+    part_pred = or_(
+        *[
+            and_(Cmp("p_brand", "eq", b), InSet("p_container", c), Cmp("p_size", "le", s))
+            for b, c, _, _, s in _Q19_BRANCHES
+        ]
+    )
+    build = engine.scan(rp, ScanPlan("part", ["p_partkey"], part_pred, compact=True))
+    keys = build.columns["p_partkey"].to(torch.int32)
+    nkeys = int(build.count)
+    bloom = ops.bloom_build(keys[:nkeys], n_bits=1 << 15)
+
+    attrs = engine.scan(rp, ScanPlan("part", ["p_brand", "p_container", "p_size"]))
+    p_brand, p_cont, p_size = (
+        attrs.columns["p_brand"],
+        attrs.columns["p_container"],
+        attrs.columns["p_size"],
+    )
+
+    plan = ScanPlan(
+        "lineitem",
+        ["l_partkey", "l_quantity", "l_extendedprice", "l_discount"],
+        and_(
+            BloomProbe("l_partkey", n_bits=1 << 15, name="q19"),
+            Cmp("l_quantity", "between", (1, 30)),
+            InSet("l_shipinstruct", ("DELIVER IN PERSON",)),
+            InSet("l_shipmode", ("AIR", "REG AIR")),
+        ),
+    )
+    res = engine.scan(rl, plan, blooms={"q19": bloom})
+    c, m = res.columns, res.mask
+    pk = c["l_partkey"].to(torch.int32)
+    lb = _take_clip(p_brand, pk)
+    lc = _take_clip(p_cont, pk)
+    ls = _take_clip(p_size, pk)
+
+    bdict = rp.string_dicts["p_brand"]
+    cdict = rp.string_dicts["p_container"]
+    keep = torch.zeros(m.shape, dtype=torch.bool, device=m.device)
+    for brand, containers, qlo, qhi, shi in _Q19_BRANCHES:
+        bcode = bdict.index(brand) if brand in bdict else -1
+        ccodes = [cdict.index(x) for x in containers if x in cdict]
+        cm = torch.zeros(m.shape, dtype=torch.bool, device=m.device)
+        for cc in ccodes:
+            cm = cm | (lc == cc)
+        keep = keep | (
+            (lb == bcode) & cm & (c["l_quantity"] >= qlo) & (c["l_quantity"] <= qhi)
+            & (ls >= 1) & (ls <= shi)
+        )
+    rev = _msum(c["l_extendedprice"] * (1 - c["l_discount"]), m & keep)
+    return {"revenue": float(rev), "rows": int((m & keep).sum())}
+
+
+QUERIES = {"q1": q1, "q6": q6, "q12": q12, "q14": q14, "q15": q15, "q19": q19}
+SCAN_HEAVY = ("q6", "q14", "q15")
+AGG_HEAVY = ("q1", "q12", "q19")

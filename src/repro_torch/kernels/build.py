@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-All sources in `csrc/` are compiled by ONE `nvcc` call into a shared library
-with a plain C interface (`rt_*` functions), loaded with `ctypes`.  The build
+The sources in `csrc/` are compiled into one shared library with a plain C
+interface (`rt_*` functions), loaded with `ctypes`: one `nvcc` per source,
+all started together, then one `nvcc` that links the objects.  The build
 happens at first use, never at import, into `build/repro_torch_kernels/` at
 the repository root; the library's file name carries a digest of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
@@ -25,12 +26,13 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu")
+SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu",
+           "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,7 +41,10 @@ SIGNATURES = {
     "rt_bitunpack": (_P, _P, _I, _I),
     "rt_dict_decode": (_P, _P, _I, _P, _I, _I, _I),
     "rt_delta_decode": (_P, _P, _P, _I, _I),
-    "rt_fused_scan": (_P, _I, _I, _P, _P, _I, _I),
+    "rt_fused_scan": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I),
+    "rt_rle_decode": (_P, _P, _P, _I),
+    "rt_filter_compact": (_P, _P, _P, _P, _I),
+    "rt_bloom_probe": (_P, _P, _I, _I, _P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -75,15 +80,28 @@ def build() -> Path:
     lib = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
     if lib.exists():
         return lib
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in compiles]
+        for cmd, proc in zip(compiles, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        so = str(Path(tmp) / lib.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        os.replace(so, lib)  # atomic: concurrent builders never see a partial file
     return lib
 
 
@@ -116,19 +134,27 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")
 
 
+def check_operand(t: torch.Tensor, name: str, dtypes, shape, device=None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of one of `dtypes` with
+    `shape` (None matches any size), on `device` when one is given."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the other operands on {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and d != s for d, s in zip(t.shape, shape)):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.dim() and t.shape[0] > 2**31 - 1:
+        raise ValueError(f"{name}: too many blocks for one launch")
+
+
 def check_packed(packed: torch.Tensor, k: int) -> int:
     """Validate a packed-block operand for a kernel; returns its block count.
     The kernels take the uint32 words as an int32 view of the same bits."""
-    if not packed.is_cuda:
-        raise ValueError(f"kernel operand must be a CUDA tensor, got {packed.device}")
-    if packed.dtype != torch.int32:
-        raise TypeError(f"packed words must be int32 (a view of uint32), got {packed.dtype}")
     if not 1 <= k <= 32:
         raise ValueError(f"bit width k={k} outside 1..32")
-    if packed.dim() != 3 or packed.shape[1] != k or packed.shape[2] != 128:
-        raise ValueError(f"packed must be (nblocks, {k}, 128), got {tuple(packed.shape)}")
-    if not packed.is_contiguous():
-        raise ValueError("packed must be contiguous")
-    if packed.shape[0] > 2**31 - 1:
-        raise ValueError("too many blocks for one launch")
+    check_operand(packed, "packed words (an int32 view of uint32)", (torch.int32,), (None, k, 128))
     return int(packed.shape[0])

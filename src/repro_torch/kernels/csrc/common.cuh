@@ -69,4 +69,64 @@ cudaError_t with_k(int k, F&& f) {
 #undef RT_K_CASE
 }
 
+// What a grid-stride launch needs to know of the card and of one kernel
+// instantiation. None of it changes between launches, so a launcher works it
+// out on its first launch (the port drives one card per process) and never
+// again: a launch then makes no runtime query, which matters on the
+// host-bound query path.
+struct Setup {
+  cudaError_t err = cudaSuccess;
+  int sms = 0;             // multiprocessors
+  int per_sm = 1;          // CTAs per SM that registers and threads allow
+  size_t smem_per_sm = 0;  // shared memory per SM
+  size_t reserved = 0;     // shared memory the runtime reserves per CTA
+};
+
+// Reads the card's limits and `kernel`'s occupancy at `threads` per CTA. With
+// `shared`, it also lets every launch of the kernel use dynamic shared memory
+// up to the opt-in maximum (227 KiB on an H100); callers never ask for more.
+template <typename Kernel>
+Setup make_setup(Kernel kernel, int threads, bool shared) {
+  Setup s;
+  int device = 0, optin = 0, per_sm_smem = 0, reserved = 0;
+  if ((s.err = cudaGetDevice(&device)) != cudaSuccess) return s;
+  if ((s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess ||
+      (s.err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+          cudaSuccess ||
+      (s.err = cudaDeviceGetAttribute(
+           &per_sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+           device)) != cudaSuccess ||
+      (s.err = cudaDeviceGetAttribute(
+           &reserved, cudaDevAttrReservedSharedMemoryPerBlock, device)) !=
+          cudaSuccess)
+    return s;
+  s.smem_per_sm = static_cast<size_t>(per_sm_smem);
+  s.reserved = static_cast<size_t>(reserved);
+  if (shared &&
+      (s.err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+          cudaSuccess)
+    return s;
+  s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.per_sm, kernel,
+                                                        threads, 0);
+  if (s.per_sm < 1) s.per_sm = 1;
+  return s;
+}
+
+// CTAs for a grid-stride walk over `nblocks` blocks: as many as fit on the
+// card at once, given what registers and threads allow and `smem` bytes of
+// dynamic shared memory per CTA, and no more than there are blocks.
+inline int grid_size(const Setup& s, size_t smem, int nblocks) {
+  int per_sm = s.per_sm;
+  if (smem > 0) {
+    const size_t fit = s.smem_per_sm / (smem + s.reserved);
+    if (fit < static_cast<size_t>(per_sm))
+      per_sm = fit > 0 ? static_cast<int>(fit) : 1;
+  }
+  const long long ctas = static_cast<long long>(s.sms) * per_sm;
+  return static_cast<int>(ctas < nblocks ? ctas : nblocks);
+}
+
 }  // namespace rt

@@ -65,67 +65,15 @@ __global__ void __launch_bounds__(rt::kLanes)
   }
 }
 
-// What a launch needs to know of the card and of one kernel instantiation.
-// None of it changes between launches, so it is worked out on the first one
-// (the port drives one card per process) and never again: a launch then
-// makes no runtime query, which matters on the host-bound query path.
-struct Setup {
-  cudaError_t err = cudaSuccess;
-  int sms = 0;            // multiprocessors
-  int per_sm = 1;         // CTAs per SM that registers and threads allow
-  size_t smem_per_sm = 0; // shared memory per SM
-  size_t reserved = 0;    // shared memory the runtime reserves per CTA
-};
-
-template <typename Kernel>
-Setup make_setup(Kernel kernel, bool shared) {
-  Setup s;
-  int device = 0, optin = 0, per_sm_smem = 0, reserved = 0;
-  if ((s.err = cudaGetDevice(&device)) != cudaSuccess) return s;
-  if ((s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount,
-                                      device)) != cudaSuccess ||
-      (s.err = cudaDeviceGetAttribute(
-           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
-          cudaSuccess ||
-      (s.err = cudaDeviceGetAttribute(
-           &per_sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-           device)) != cudaSuccess ||
-      (s.err = cudaDeviceGetAttribute(
-           &reserved, cudaDevAttrReservedSharedMemoryPerBlock, device)) !=
-          cudaSuccess)
-    return s;
-  s.smem_per_sm = static_cast<size_t>(per_sm_smem);
-  s.reserved = static_cast<size_t>(reserved);
-  // allow every launch of this instantiation up to the opt-in maximum
-  // (227 KiB on an H100); the wrapper never asks for more
-  if (shared &&
-      (s.err = cudaFuncSetAttribute(
-           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
-          cudaSuccess)
-    return s;
-  s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.per_sm, kernel,
-                                                        rt::kLanes, 0);
-  if (s.per_sm < 1) s.per_sm = 1;
-  return s;
-}
-
 template <int K, bool kShared>
 cudaError_t launch(const void* packed, const void* dict, int dict_len,
                    void* out, int nblocks, cudaStream_t stream) {
   auto kernel = dict_decode_kernel<K, kShared>;
-  static const Setup setup = make_setup(kernel, kShared);
+  static const rt::Setup setup = rt::make_setup(kernel, rt::kLanes, kShared);
   if (setup.err != cudaSuccess) return setup.err;
+  // the shared branch fits as many CTAs per SM as this dictionary leaves room for
   const size_t smem = kShared ? static_cast<size_t>(dict_len) * 4 : 0;
-  // CTAs per SM: what registers and threads allow, and, for the shared
-  // branch, what this dictionary's footprint leaves room for
-  int per_sm = setup.per_sm;
-  if (kShared) {
-    const size_t fit = setup.smem_per_sm / (smem + setup.reserved);
-    if (fit < static_cast<size_t>(per_sm))
-      per_sm = fit > 0 ? static_cast<int>(fit) : 1;
-  }
-  const long long ctas = static_cast<long long>(setup.sms) * per_sm;
-  const int grid = static_cast<int>(ctas < nblocks ? ctas : nblocks);
+  const int grid = rt::grid_size(setup, smem, nblocks);
   kernel<<<grid, rt::kLanes, smem, stream>>>(
       static_cast<const uint32_t*>(packed), static_cast<const uint32_t*>(dict),
       dict_len, static_cast<uint32_t*>(out), nblocks);

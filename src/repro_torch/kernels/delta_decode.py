@@ -30,10 +30,7 @@ def delta_decode(packed: torch.Tensor, bases: torch.Tensor, k: int) -> torch.Ten
     card -> (nblocks, 4096) int32."""
     global launches
     nb = build.check_packed(packed, k)
-    if bases.dtype != torch.int32 or tuple(bases.shape) != (nb,):
-        raise ValueError(f"bases must be ({nb},) int32, got {tuple(bases.shape)} {bases.dtype}")
-    if bases.device != packed.device or not bases.is_contiguous():
-        raise ValueError("bases must be contiguous and on the codes' device")
+    build.check_operand(bases, "bases", (torch.int32,), (nb,), packed.device)
     out = torch.empty((nb, PACK_BLOCK), dtype=torch.int32, device=packed.device)
     if nb:
         build.launch("rt_delta_decode", packed.device, packed, bases, out, nb, k)

@@ -43,12 +43,10 @@ def dict_decode(packed: torch.Tensor, dictionary: torch.Tensor, k: int) -> torch
     the card -> (nblocks, 32, 128) values of the dictionary's dtype."""
     global launches
     nb = build.check_packed(packed, k)
-    if dictionary.dtype not in (torch.int32, torch.float32):
-        raise TypeError(f"dictionary must be int32 or float32, got {dictionary.dtype}")
-    if dictionary.dim() != 1 or dictionary.numel() == 0:
-        raise ValueError(f"dictionary must be a non-empty vector, got {tuple(dictionary.shape)}")
-    if dictionary.device != packed.device or not dictionary.is_contiguous():
-        raise ValueError("dictionary must be contiguous and on the codes' device")
+    build.check_operand(dictionary, "dictionary", (torch.int32, torch.float32), (None,),
+                        packed.device)
+    if dictionary.numel() == 0:
+        raise ValueError("dictionary must not be empty")
     d = int(dictionary.numel())
     out = torch.empty((nb, SUBLANES, LANES), dtype=dictionary.dtype, device=packed.device)
     if nb:

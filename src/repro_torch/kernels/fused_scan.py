@@ -1,10 +1,10 @@
 """Hopper kernel: fused k-bit unpack + range filter (csrc/fused_scan.cu).
 
-Port of `fused_scan_pallas` (repro/kernels/fused_scan.py:99) for packed
-BITPACK words and DICT codes, the form the engine calls: it rewrites a DICT
-predicate onto codes and never passes a dictionary.  The dictionary arm of
-`ref.fused_scan` is not ported to the card yet (ROADMAP.md); on a CUDA
-tensor it raises NotImplementedError.
+Port of `fused_scan_pallas` (repro/kernels/fused_scan.py:99), with the
+semantics of `repro/kernels/ref.py` fused_scan: packed BITPACK words, or
+DICT codes with their dictionary (int32 or float32; codes clip to its true
+length and the int32 bounds compare in its dtype).  The engine calls the
+dictionary-free arm only: it rewrites a DICT predicate onto codes.
 """
 
 from __future__ import annotations
@@ -35,20 +35,27 @@ def fused_scan(
     packed: torch.Tensor, k: int, lo: int, hi: int,
     dictionary: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(nblocks, k, 128) int32 words on the card and int32 bounds ->
+    """(nblocks, k, 128) int32 words on the card, int32 bounds and an
+    optional (D,) int32/float32 dictionary on the card ->
     (mask (nblocks, 4096) bool: lo <= v <= hi, counts (nblocks,) int32)."""
     global launches
-    if dictionary is not None:
-        raise NotImplementedError(
-            "fused_scan with a dictionary has no CUDA kernel yet "
-            "(ROADMAP.md B: fused_scan dictionary arm)")
     nb = build.check_packed(packed, k)
     lo, hi = int(lo), int(hi)
     if not (INT32_MIN <= lo <= INT32_MAX and INT32_MIN <= hi <= INT32_MAX):
         raise ValueError(f"bounds ({lo}, {hi}) outside int32")
+    if dictionary is None:
+        kind, d_len = 0, 0
+    else:
+        build.check_operand(dictionary, "dictionary", (torch.int32, torch.float32), (None,),
+                            packed.device)
+        kind, d_len = (1 if dictionary.dtype == torch.int32 else 2), int(dictionary.numel())
+        if d_len == 0:
+            raise ValueError("dictionary must not be empty")
     mask = torch.empty((nb, PACK_BLOCK), dtype=torch.bool, device=packed.device)
     counts = torch.empty((nb,), dtype=torch.int32, device=packed.device)
     if nb:
-        build.launch("rt_fused_scan", packed.device, packed, lo, hi, mask, counts, nb, k)
+        build.launch("rt_fused_scan", packed.device, packed,
+                     0 if dictionary is None else dictionary, d_len, kind, lo, hi,
+                     mask, counts, nb, k)
         launches += 1
     return mask, counts

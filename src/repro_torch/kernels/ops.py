@@ -1,5 +1,6 @@
 """Public kernel API of the port: the same names, shapes and dtypes as
-`repro/kernels/ops.py` for the decode path of the first slice.
+`repro/kernels/ops.py` for the sequential scan path: decode, the fused
+range filter, stream compaction and the bloom semijoin.
 
 There is no `backend` switch: each call is routed by its operand's device.
 A CUDA tensor launches the hand-written Hopper kernel (and raises if the
@@ -20,10 +21,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import bitunpack as _bitunpack
+from repro_torch.kernels import bloom_probe as _bloom_probe
 from repro_torch.kernels import delta_decode as _delta_decode
 from repro_torch.kernels import dict_decode as _dict_decode
+from repro_torch.kernels import filter_compact as _filter_compact
 from repro_torch.kernels import fused_scan as _fused_scan
 from repro_torch.kernels import ref
+from repro_torch.kernels import rle_decode as _rle_decode
 
 # the CUDA wrappers, each with its own launch count
 KERNELS = {
@@ -31,6 +35,9 @@ KERNELS = {
     "dict_decode": _dict_decode,
     "delta_decode": _delta_decode,
     "fused_scan": _fused_scan,
+    "rle_decode": _rle_decode,
+    "filter_compact": _filter_compact,
+    "bloom_probe": _bloom_probe,
 }
 
 # ---------------------------------------------------------------------------
@@ -126,6 +133,18 @@ def dict_decode(packed: torch.Tensor, dictionary: torch.Tensor, k: int,
     return out if n is None else out.reshape(-1)[:n]
 
 
+def rle_decode(values: torch.Tensor, ends: torch.Tensor,
+               n: Optional[int] = None) -> torch.Tensor:
+    """(nblk, 128) run values + (nblk, 128) int32 ends -> (nblk, 1024) values
+    of the runs' dtype (flat (n,) if n is given)."""
+    _count()
+    if _on_card(values, ends):
+        out = _rle_decode.rle_decode(values, ends)
+    else:
+        out = ref.rle_decode(values, ends)
+    return out if n is None else out.reshape(-1)[:n]
+
+
 def delta_decode(packed: torch.Tensor, bases: torch.Tensor, k: int,
                  n: Optional[int] = None) -> torch.Tensor:
     """(nblocks,k,128) zigzag words + (nblocks,) int32 bases -> (nb,4096) int32
@@ -136,6 +155,32 @@ def delta_decode(packed: torch.Tensor, bases: torch.Tensor, k: int,
     else:
         out = ref.delta_decode(packed, bases, k)
     return out if n is None else out.reshape(-1)[:n]
+
+
+def filter_compact(values: torch.Tensor, mask: torch.Tensor):
+    """values (nblk, 1024), mask (nblk, 1024) bool -> (compacted, counts (nblk,) int32).
+
+    An integer column counts two dispatches, as in the reference, whose TPU
+    kernel compacts ints in two 16-bit halves; the port's kernel compacts
+    any 32-bit column exactly in one launch."""
+    _count(1 if values.dtype.is_floating_point else 2)
+    if _on_card(values, mask):
+        return _filter_compact.filter_compact(values, mask)
+    return ref.filter_compact(values, mask)
+
+
+def bloom_build(keys: torch.Tensor, n_bits: int, n_hashes: int = 4) -> torch.Tensor:
+    """(n_bits,) uint8 filter of the keys, on their device.  Plain torch on
+    both devices, as in the reference, where it is no Pallas kernel either."""
+    return ref.bloom_build(keys, n_bits, n_hashes)
+
+
+def bloom_probe(keys: torch.Tensor, bits: torch.Tensor, n_hashes: int = 4) -> torch.Tensor:
+    """keys (nblk, 1024) int32 -> membership (nblk, 1024) bool."""
+    _count()
+    if _on_card(keys, bits):
+        return _bloom_probe.bloom_probe(keys, bits, n_hashes)
+    return ref.bloom_probe(keys, bits, n_hashes)
 
 
 def fused_scan(packed: torch.Tensor, k: int, lo: int, hi: int,

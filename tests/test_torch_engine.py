@@ -1,8 +1,10 @@
 """The port's DatapathEngine on the CPU against the JAX engine (backend
 "ref") on the same files: masks, counts, columns and every ScanStats field
 equal, for the fused (BITPACK and DICT-rewritten), InSet, conjunctive,
-no-predicate, DELTA, all-pruned and corrupt-page cases.  Also what the port
-refuses: a card that is not there, and the features of later slices."""
+no-predicate, DELTA, all-pruned and corrupt-page cases; on sorted files
+(RLE pages) for RLE predicate and projected columns, compact=True and a
+bloom semijoin.  Also what the port refuses: a card that is not there, and
+the features of later slices."""
 
 import dataclasses
 import os
@@ -11,16 +13,20 @@ import subprocess
 import sys
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
 from repro.core import engine as jengine
 from repro.core import plan as jplan
 from repro.core import tpch as jtpch
+from repro.kernels import ops as jops
 from repro.lakeformat.integrity import CorruptPageError as JCorrupt
 from repro.lakeformat.reader import LakeReader as JReader
 from repro_torch.core import engine as tengine
 from repro_torch.core import plan as tplan
+from repro_torch.core import tpch as ttpch
+from repro_torch.kernels import ops as tops
 from repro_torch.lakeformat.integrity import CorruptPageError as TCorrupt
 from repro_torch.lakeformat.reader import LakeReader as TReader
 
@@ -31,6 +37,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def paths(tmp_path_factory):
     d = tmp_path_factory.mktemp("tpch_engine")
     return jtpch.write_tables(str(d), sf=0.05, seed=0, row_group_size=8192)
+
+
+SORTED = dict(sf=0.05, seed=4, row_group_size=8192, sorted_data=True)
+
+
+@pytest.fixture(scope="module")
+def sorted_paths(tmp_path_factory):
+    """lineitem sorted on l_shipdate, whose pages are then RLE (the paper's
+    Fig. 3b sorted files), and orders on o_orderdate."""
+    d = tmp_path_factory.mktemp("tpch_engine_sorted")
+    return jtpch.write_tables(str(d), **SORTED)
 
 
 def _plans(P):
@@ -95,6 +112,119 @@ def test_scan_matches_jax_engine(paths, case):
         assert t.stats.row_groups_scanned == 0 and int(t.count) == 0
 
 
+def _bloom_keys():
+    """Part keys the semijoin tests build their bloom from: every 5th key."""
+    return np.arange(0, 1000, 5, dtype=np.int32)
+
+
+def _blooms(n_bits=1 << 15, n_hashes=4):
+    """The same filter built by each package: (port's, reference's)."""
+    keys = _bloom_keys()
+    return ({"bloom": tops.bloom_build(torch.from_numpy(keys), n_bits, n_hashes)},
+            {"bloom": jops.bloom_build(jnp.asarray(keys), n_bits, n_hashes)})
+
+
+def _sorted_plans(P):
+    """(table, plan) cases on sorted files, from one package's plan module."""
+    return {
+        "rle_predicate": ("lineitem", P.ScanPlan(
+            "lineitem", ["l_extendedprice", "l_quantity"],
+            P.Cmp("l_shipdate", "between", (365, 729)))),
+        "rle_projected": ("lineitem", P.ScanPlan(
+            "lineitem", ["l_shipdate", "l_discount"], P.Cmp("l_quantity", "lt", 12))),
+        "sorted_orders_no_predicate": ("orders", P.ScanPlan(
+            "orders", ["o_orderdate", "o_orderkey"])),
+        "compact_rle_and_floats": ("lineitem", P.ScanPlan(
+            "lineitem", ["l_shipdate", "l_extendedprice", "l_partkey"],
+            P.and_(P.Cmp("l_shipdate", "between", (1000, 1400)),
+                   P.Cmp("l_quantity", "lt", 20)), compact=True)),
+        "compact_part_keys": ("part", P.ScanPlan(
+            "part", ["p_partkey", "p_size"], P.Cmp("p_size", "le", 10), compact=True)),
+        "bloom_semijoin": ("lineitem", P.ScanPlan(
+            "lineitem", ["l_partkey", "l_shipdate", "l_quantity"],
+            P.and_(P.BloomProbe("l_partkey", name="bloom"),
+                   P.Cmp("l_shipdate", "ge", 1200)))),
+    }
+
+
+def test_sorted_fixture_holds_rle_pages(sorted_paths):
+    """Every lineitem row group's l_shipdate is an RLE page.  (At this scale
+    o_orderdate has too many runs per block for RLE; at SF1 it is RLE too.)"""
+    r = TReader(sorted_paths["lineitem"])
+    assert r.n_row_groups > 1
+    encs = {r.read_encoded(rg, ["l_shipdate"])["l_shipdate"].encoding.value
+            for rg in range(r.n_row_groups)}
+    assert encs == {"rle"}
+
+
+def test_sorted_files_written_by_both_packages_are_byte_identical(sorted_paths, tmp_path):
+    port = ttpch.write_tables(str(tmp_path), **SORTED)
+    for t, p in port.items():
+        with open(p, "rb") as a, open(sorted_paths[t], "rb") as b:
+            assert a.read() == b.read(), t
+
+
+@pytest.mark.parametrize("case", list(_sorted_plans(tplan)))
+def test_sorted_scan_matches_jax_engine(sorted_paths, case):
+    table, tp = _sorted_plans(tplan)[case]
+    _, jp = _sorted_plans(jplan)[case]
+    tb, jb = _blooms()
+    t = tengine.DatapathEngine(device="cpu").scan(TReader(sorted_paths[table]), tp, blooms=tb)
+    j = jengine.DatapathEngine(backend="ref").scan(JReader(sorted_paths[table]), jp, blooms=jb)
+    _assert_same_result(t, j)
+    assert int(t.count) > 0
+    if tp.compact:
+        n = int(t.count)
+        assert bool(t.mask[:n].all()) and not bool(t.mask[n:].any())
+        for col in t.columns.values():
+            assert not bool(col[n:].bool().any())  # zeros after the survivors
+    if case == "bloom_semijoin":
+        assert t.stats.row_groups_scanned < t.stats.row_groups_total  # l_shipdate pruned
+        # the same scan without the semijoin: the same row groups survive
+        # pruning, so its mask lines up with the semijoin's
+        dated = tengine.DatapathEngine(device="cpu").scan(TReader(sorted_paths[table]),
+                                                          tplan.ScanPlan(
+            "lineitem", ["l_partkey"], tplan.Cmp("l_shipdate", "ge", 1200)))
+        member = dated.mask.numpy() & np.isin(t.columns["l_partkey"].numpy(), _bloom_keys())
+        assert member.any() and t.mask.numpy()[member].all()  # no false negative
+
+
+def test_compact_scan_matches_jax_engine(paths):
+    """compact=True on unsorted files: the survivors of every row group
+    packed to the front, equal to the JAX engine's."""
+    tp = tplan.ScanPlan("lineitem", ["l_quantity"], tplan.Cmp("l_shipmode", "eq", 2),
+                        compact=True)
+    jp = jplan.ScanPlan("lineitem", ["l_quantity"], jplan.Cmp("l_shipmode", "eq", 2),
+                        compact=True)
+    t = tengine.DatapathEngine(device="cpu").scan(TReader(paths["lineitem"]), tp)
+    j = jengine.DatapathEngine(backend="ref").scan(JReader(paths["lineitem"]), jp)
+    _assert_same_result(t, j)
+    full = tengine.DatapathEngine(device="cpu").scan(TReader(paths["lineitem"]), tplan.ScanPlan(
+        "lineitem", ["l_quantity"], tplan.Cmp("l_shipmode", "eq", 2)))
+    n = int(t.count)
+    assert 0 < n == int(full.count)
+    assert torch.equal(t.columns["l_quantity"][:n], full.columns["l_quantity"][full.mask])
+
+
+def test_bloom_scan_matches_jax_engine(paths):
+    """A BloomProbe plan given its bloom: the mask keeps every row whose key
+    was built into the filter, and matches the JAX engine's."""
+    tb, jb = _blooms(n_bits=1 << 12, n_hashes=3)
+    tp = tplan.ScanPlan("lineitem", ["l_partkey", "l_quantity"], tplan.and_(
+        tplan.BloomProbe("l_partkey", n_bits=1 << 12, n_hashes=3, name="bloom"),
+        tplan.Cmp("l_quantity", "lt", 5)))
+    jp = jplan.ScanPlan("lineitem", ["l_partkey", "l_quantity"], jplan.and_(
+        jplan.BloomProbe("l_partkey", n_bits=1 << 12, n_hashes=3, name="bloom"),
+        jplan.Cmp("l_quantity", "lt", 5)))
+    t = tengine.DatapathEngine(device="cpu").scan(TReader(paths["lineitem"]), tp, blooms=tb)
+    j = jengine.DatapathEngine(backend="ref").scan(JReader(paths["lineitem"]), jp, blooms=jb)
+    _assert_same_result(t, j)
+    pk, q = t.columns["l_partkey"].numpy(), t.columns["l_quantity"].numpy()
+    n = TReader(paths["lineitem"]).n_rows
+    member = np.isin(pk[:n], _bloom_keys()) & (q[:n] < 5)
+    assert member.any() and t.mask.numpy()[:n][member].all()  # no false negative
+
+
 def test_sliced_scan_equals_one_shot(paths):
     _, tp = _plans(tplan)["conjunction_floats"]
     eng = tengine.DatapathEngine(device="cpu")
@@ -153,15 +283,8 @@ def test_later_scan_features_raise_not_implemented(paths):
     eng = tengine.DatapathEngine(device="cpu")
     r = TReader(paths["lineitem"])
     base = tplan.ScanPlan("lineitem", ["l_quantity"])
-    plans = [
-        tplan.ScanPlan("lineitem", ["l_quantity"], compact=True),
-        tplan.ScanPlan("lineitem", [], aggregates=(tplan.AggSpec("count"),)),
-        tplan.ScanPlan("lineitem", ["l_quantity"], tplan.and_(
-            tplan.BloomProbe("l_partkey"), tplan.Cmp("l_quantity", "lt", 5))),
-    ]
-    for p in plans:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eng.scan(r, p)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.scan(r, tplan.ScanPlan("lineitem", [], aggregates=(tplan.AggSpec("count"),)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.scan(r, base, batched=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -12,10 +12,13 @@ import torch
 from repro_torch.core import DatapathEngine, agreement, tpch
 from repro_torch.core import queries as tq
 from repro_torch.kernels import bitunpack as cu_bitunpack
+from repro_torch.kernels import bloom_probe as cu_bloom
 from repro_torch.kernels import delta_decode as cu_delta
 from repro_torch.kernels import dict_decode as cu_dict
+from repro_torch.kernels import filter_compact as cu_compact
 from repro_torch.kernels import fused_scan as cu_fused
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rle_decode as cu_rle
 from repro_torch.lakeformat.reader import LakeReader
 
 pytestmark = pytest.mark.cuda
@@ -103,11 +106,103 @@ def test_fused_scan_ranges(dev, k, lo, hi):
     assert _same(mask, want_mask) and _same(cnt, want_cnt)
 
 
-def test_fused_scan_dictionary_arm_not_on_card(dev):
-    p = torch.zeros((1, 2, 128), dtype=torch.int32, device=dev)
-    d = torch.arange(4, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        ops.fused_scan(p, 2, 0, 1, d)
+@pytest.mark.parametrize("d_len,k,dtype,lo,hi", [
+    (19, 5, torch.int32, -10, 10),         # codes past 18 clip to the last entry
+    (4, 2, torch.int32, 1, 0),             # empty range
+    (300, 9, torch.float32, -1, 1),        # bounds compare as float32
+    (2, 1, torch.float32, 2**24 + 1, 2**31 - 1),  # the bound rounds to 2^24 in float32
+    (40, 32, torch.int32, -2**31, 2**31 - 1),  # k = 32: negative codes clip to 0
+])
+def test_fused_scan_dictionary_arm(dev, d_len, k, dtype, lo, hi):
+    rng = np.random.default_rng(d_len + k)
+    p = _words(rng, 17, k).to(dev)
+    if lo == 2**24 + 1:
+        d = torch.tensor([2.0**24 + 2, 2.0**24])
+    elif dtype == torch.float32:
+        d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32))
+    else:
+        d = torch.from_numpy(rng.integers(-50, 50, d_len).astype(np.int32))
+    d = d.to(dtype).to(dev)
+    mask, cnt = ops.fused_scan(p, k, lo, hi, d)
+    torch.cuda.synchronize()
+    want_mask, want_cnt = ref.fused_scan(p, k, lo, hi, d)
+    assert _same(mask, want_mask) and _same(cnt, want_cnt)
+
+
+def _rle_pages(rng, nblk, dtype):
+    """Nondecreasing ends: random, exactly 128 runs, one run, padded."""
+    ends = np.sort(rng.integers(0, 1025, (nblk, 128)), axis=1).astype(np.int32)
+    ends[0] = np.arange(1, 129) * 8  # 128 runs, the last ending on 1024
+    ends[1] = 1024
+    ends[2, 30:] = 1024
+    ends[3] = np.arange(1, 129) * 3  # 128 runs ending at 384: the clip re-reads run 127
+    if dtype == torch.float32:
+        v = torch.from_numpy(rng.standard_normal((nblk, 128)).astype(np.float32))
+    else:
+        v = torch.from_numpy(rng.integers(-2**31, 2**31, (nblk, 128)).astype(np.int32))
+    return v, torch.from_numpy(ends)
+
+
+@pytest.mark.parametrize("nblk", [4, 65, 5888])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_rle_decode(dev, nblk, dtype):
+    rng = np.random.default_rng(nblk)
+    v, e = (t.to(dev) for t in _rle_pages(rng, nblk, dtype))
+    got = cu_rle.rle_decode(v, e)
+    torch.cuda.synchronize()
+    assert _same(got, ref.rle_decode(v, e))
+
+
+@pytest.mark.parametrize("nblk", [3, 196, 5888])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_filter_compact(dev, nblk, dtype):
+    rng = np.random.default_rng(nblk + 1)
+    if dtype == torch.float32:
+        v = torch.from_numpy(rng.standard_normal((nblk, 1024)).astype(np.float32))
+        v[0, :2] = torch.tensor([-0.0, float("inf")])
+    else:
+        v = torch.from_numpy(rng.integers(-2**31, 2**31, (nblk, 1024)).astype(np.int32))
+    m = torch.from_numpy(rng.random((nblk, 1024)) < 0.4)
+    m[0] = True
+    m[1] = False
+    m[2] = False
+    m[2, -1] = True
+    v, m = v.to(dev), m.to(dev)
+    got = cu_compact.filter_compact(v, m)
+    torch.cuda.synchronize()
+    want = ref.filter_compact(v, m)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("n_bits,n_hashes,nblk", [
+    (1 << 15, 4, 64), (1 << 15, 4, 5888), (1 << 17, 7, 9), (1 << 10, 1, 9), (16, 2, 3),
+])
+def test_bloom_probe(dev, n_bits, n_hashes, nblk):
+    rng = np.random.default_rng(n_bits + nblk)
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, (nblk, 1024)).astype(np.int32))
+    keys[0, :4] = torch.tensor([-2**31, 2**31 - 1, 0, -1], dtype=torch.int32)
+    keys = keys.to(dev)
+    build_keys = keys[0, :512]
+    bits = ref.bloom_build(build_keys, n_bits, n_hashes)
+    got = cu_bloom.bloom_probe(keys, bits, n_hashes)
+    torch.cuda.synchronize()
+    assert _same(got, ref.bloom_probe(keys, bits, n_hashes))
+    assert bool(got[0, :512].all())  # no false negative
+
+
+def test_new_wrappers_reject_bad_operands(dev):
+    with pytest.raises(TypeError):
+        cu_rle.rle_decode(torch.zeros((1, 128), dtype=torch.int64, device=dev),
+                          torch.zeros((1, 128), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        cu_compact.filter_compact(torch.zeros((2, 1024), dtype=torch.int32, device=dev),
+                                  torch.zeros((1, 1024), dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):  # n_bits not a power of two, then too large
+        cu_bloom.bloom_probe(torch.zeros((1, 1024), dtype=torch.int32, device=dev),
+                             torch.zeros(1000, dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError):
+        cu_bloom.bloom_probe(torch.zeros((1, 1024), dtype=torch.int32, device=dev),
+                             torch.zeros(1 << 18, dtype=torch.uint8, device=dev))
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -121,18 +216,27 @@ def test_wrappers_reject_bad_operands(dev):
 
 @pytest.fixture(scope="module")
 def tables(dev, tmp_path_factory):
-    d = tmp_path_factory.mktemp("tpch_cuda")
-    paths = tpch.write_tables(str(d), sf=0.05, seed=0, row_group_size=8192)
-    return {k: LakeReader(p) for k, p in paths.items()}
+    """Seed-4 files (Q19 selects rows there), unsorted and sorted."""
+    out = {}
+    for sorted_data in (False, True):
+        d = tmp_path_factory.mktemp("tpch_cuda")
+        paths = tpch.write_tables(str(d), sf=0.05, seed=4, row_group_size=8192,
+                                  sorted_data=sorted_data)
+        out[sorted_data] = {k: LakeReader(p) for k, p in paths.items()}
+    return out
 
 
 def test_queries_on_card_match_cpu(dev, tables):
+    """All six queries on unsorted and sorted files; every kernel launches
+    (rle_decode on the sorted files only)."""
     gpu, cpu = DatapathEngine(device="cuda"), DatapathEngine(device="cpu")
     ops.reset_kernel_launches()
-    got = {name: q(gpu, tables) for name, q in tq.QUERIES.items()}
+    for readers in tables.values():
+        got = {name: q(gpu, readers) for name, q in tq.QUERIES.items()}
+        want = {name: q(cpu, readers) for name, q in tq.QUERIES.items()}
+        assert want["q19"]["rows"] > 0
+        per_supp = agreement.per_supplier_revenue(readers["lineitem"])
+        for name in tq.QUERIES:
+            agreement.compare(name, got[name], want[name], per_supp)
     launches = ops.kernel_launches()
-    want = {name: q(cpu, tables) for name, q in tq.QUERIES.items()}
     assert all(n > 0 for n in launches.values()), launches
-    per_supp = agreement.per_supplier_revenue(tables["lineitem"])
-    for name in tq.QUERIES:
-        agreement.compare(name, got[name], want[name], per_supp)

@@ -3,7 +3,11 @@ bit-exact against `repro.kernels.ops` with backend="ref" over seeded
 sweeps (run eagerly, under jax.disable_jit, so the sweeps compile
 nothing), and against backend="pallas" (interpret mode) at a few shapes.
 Also the CPU routing of `repro_torch.kernels.ops`: a CPU tensor runs the
-plain version, and the CUDA wrappers refuse a CPU tensor."""
+plain version, and the CUDA wrappers refuse a CPU tensor.
+
+Compaction is compared on finite values without -0.0: the reference's f32
+one-hot contraction turns -0.0 into +0.0 and a +-inf in a row that does not
+survive into NaN, where the port's scatter moves every value exactly."""
 
 import numpy as np
 import pytest
@@ -13,11 +17,15 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import bitunpack as cu_bitunpack
+from repro_torch.kernels import bloom_probe as cu_bloom
 from repro_torch.kernels import delta_decode as cu_delta
 from repro_torch.kernels import dict_decode as cu_dict
+from repro_torch.kernels import filter_compact as cu_compact
 from repro_torch.kernels import fused_scan as cu_fused
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rle_decode as cu_rle
 
 NBS = (1, 3, 17)
 
@@ -117,6 +125,105 @@ def test_fused_scan_dictionary_arm(dtype):
             _eq(c, jc)
 
 
+def _rand_rle(rng, nblk, dtype):
+    """Random RLE pages: nondecreasing ends in [0, 1024] with the writer's
+    padding (end = 1024) on some blocks, a window of exactly 128 runs that
+    end before 1024 on block 0, one run on block 1; int32 values over the
+    whole range or float32 values."""
+    ends = np.sort(rng.integers(0, 1025, (nblk, 128)), axis=1).astype(np.int32)
+    ends[0] = np.arange(1, 129) * 7  # 128 runs, the last ending at 896
+    if nblk > 1:
+        ends[1] = 1024  # one run
+    if nblk > 2:
+        ends[2, 40:] = 1024  # 40 runs, then the writer's padding
+    if dtype == "float32":
+        vals = rng.standard_normal((nblk, 128)).astype(np.float32)
+    else:
+        vals = rng.integers(-2**31, 2**31, (nblk, 128)).astype(np.int32)
+    return vals, ends
+
+
+@pytest.mark.parametrize("nb", NBS)
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_rle_decode_rank_lookup(nb, dtype):
+    with jax.disable_jit():
+        rng = np.random.default_rng(600 + nb)
+        for _ in range(3):
+            vals, ends = _rand_rle(rng, nb, dtype)
+            want = jops.rle_decode(jnp.asarray(vals), jnp.asarray(ends), backend="ref")
+            _eq(ref.rle_decode(torch.from_numpy(vals), torch.from_numpy(ends)), want)
+
+
+def _rand_compact(rng, nblk, dtype):
+    """Values across int32 (far beyond +-2^24, negative) or finite float32
+    without -0.0, and masks: random, all true, all false, last row only."""
+    if dtype == "float32":
+        v = (rng.standard_normal((nblk, 1024)) * 1e6).astype(np.float32)
+        v[v == 0] = 1.0
+    else:
+        v = rng.integers(-2**31, 2**31, (nblk, 1024)).astype(np.int32)
+        v[0, :4] = [-2**31, 2**31 - 1, 2**24 + 1, -(2**24) - 3]
+    m = rng.random((nblk, 1024)) < 0.3
+    m[0, :4] = True
+    if nblk > 1:
+        m[1] = True
+    if nblk > 2:
+        m[2] = False
+        m[2, -1] = True
+    return v, m
+
+
+@pytest.mark.parametrize("nb", (1, 3, 5))
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_filter_compact_stable(nb, dtype):
+    with jax.disable_jit():
+        rng = np.random.default_rng(700 + nb)
+        v, m = _rand_compact(rng, nb, dtype)
+        jo, jc = jops.filter_compact(jnp.asarray(v), jnp.asarray(m), backend="ref")
+        o, c = ref.filter_compact(torch.from_numpy(v), torch.from_numpy(m))
+        _eq(o, jo)
+        _eq(c, jc)
+        if nb > 3:  # the all-false block: nothing but zeros
+            assert not ref.filter_compact(torch.from_numpy(v), torch.zeros(
+                (nb, 1024), dtype=torch.bool))[0].any()
+
+
+def test_filter_compact_signed_zero_is_a_reference_divergence():
+    """The reference's f32 contraction returns +0.0 for a surviving -0.0;
+    the port's scatter keeps its sign bit (ROADMAP.md C)."""
+    v = np.zeros((1, 1024), np.float32)
+    v[0, 0] = -0.0
+    m = np.zeros((1, 1024), bool)
+    m[0, 0] = True
+    o, _ = ref.filter_compact(torch.from_numpy(v), torch.from_numpy(m))
+    jo, _ = jops.filter_compact(jnp.asarray(v), jnp.asarray(m), backend="ref")
+    assert o.numpy().view(np.int32)[0, 0] == np.float32(-0.0).view(np.int32)
+    assert float(jo[0, 0]) == 0.0 and o[0, 0] == 0.0
+
+
+KEYS_EDGE = [-2**31, 2**31 - 1, 0, -1, 1, 2**24]
+
+
+@pytest.mark.parametrize("n_bits,n_hashes", [(1 << 10, 1), (1 << 15, 4), (1 << 17, 7)])
+def test_bloom_hashes_build_and_probe(n_bits, n_hashes):
+    with jax.disable_jit():
+        rng = np.random.default_rng(n_bits + n_hashes)
+        build_keys = np.concatenate([KEYS_EDGE, rng.integers(-2**31, 2**31, 500)]).astype(np.int32)
+        probe = rng.integers(-2**31, 2**31, (3, 1024)).astype(np.int32)
+        probe[0, :len(build_keys) // 2] = build_keys[: len(build_keys) // 2]
+        tk = torch.from_numpy(build_keys)
+        for got, want in zip(ref.bloom_hashes(tk, n_hashes, n_bits),
+                             jref.bloom_hashes(jnp.asarray(build_keys), n_hashes, n_bits)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+        bits = ops.bloom_build(tk, n_bits, n_hashes)
+        jbits = jops.bloom_build(jnp.asarray(build_keys), n_bits, n_hashes)
+        _eq(bits, jbits)
+        hit = ops.bloom_probe(torch.from_numpy(probe), bits, n_hashes)
+        _eq(hit, jops.bloom_probe(jnp.asarray(probe), jbits, n_hashes, backend="ref"))
+        assert hit[0, : len(build_keys) // 2].all()  # no false negative
+        assert ref.bloom_probe(tk, bits, n_hashes).all()
+
+
 @pytest.mark.parametrize("k", [3, 17, 32])
 def test_against_pallas_interpret(k):
     """The Pallas kernels (interpret mode) agree with the port's plain
@@ -137,6 +244,25 @@ def test_against_pallas_interpret(k):
     _eq(c, jc)
 
 
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_new_kernels_against_pallas_interpret(dtype):
+    """rle_decode, filter_compact and bloom_probe as Pallas kernels in
+    interpret mode agree with the port's plain versions."""
+    rng = np.random.default_rng(800 + len(dtype))
+    vals, ends = _rand_rle(rng, 5, dtype)
+    _eq(ref.rle_decode(torch.from_numpy(vals), torch.from_numpy(ends)),
+        jops.rle_decode(jnp.asarray(vals), jnp.asarray(ends), backend="pallas"))
+    v, m = _rand_compact(rng, 3, dtype)
+    jo, jc = jops.filter_compact(jnp.asarray(v), jnp.asarray(m), backend="pallas")
+    o, c = ref.filter_compact(torch.from_numpy(v), torch.from_numpy(m))
+    _eq(o, jo)
+    _eq(c, jc)
+    keys = rng.integers(-2**31, 2**31, (5, 1024)).astype(np.int32)
+    bits = ref.bloom_build(torch.from_numpy(keys[0]), 1 << 12, 3)
+    _eq(ref.bloom_probe(torch.from_numpy(keys), bits, 3),
+        jops.bloom_probe(jnp.asarray(keys), jnp.asarray(bits.numpy()), 3, backend="pallas"))
+
+
 def test_ops_route_cpu_tensors_to_plain_versions():
     rng = np.random.default_rng(9)
     w, t = _words(rng, 2, 6)
@@ -154,6 +280,19 @@ def test_ops_route_cpu_tensors_to_plain_versions():
     put = ops.device_put(np.arange(10, dtype=np.float32), "cpu")
     assert put.dtype == torch.float32
     assert ops.dispatch_count() == 6
+    vals, ends = _rand_rle(rng, 3, "int32")
+    tv, te = torch.from_numpy(vals), torch.from_numpy(ends)
+    assert torch.equal(ops.rle_decode(tv, te), ref.rle_decode(tv, te))
+    assert torch.equal(ops.rle_decode(tv, te, n=2000), ref.rle_decode(tv, te).reshape(-1)[:2000])
+    v, m = _rand_compact(rng, 2, "int32")
+    tv, tm = torch.from_numpy(v), torch.from_numpy(m)
+    got, want = ops.filter_compact(tv, tm), ref.filter_compact(tv, tm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.dispatch_count() == 6 + 2 + 2  # an int column counts two, as in the reference
+    ops.filter_compact(tv.view(torch.float32), tm)
+    bits = ops.bloom_build(tv[0], 1 << 10)  # plain torch on every device: no dispatch
+    assert ops.bloom_probe(tv, bits).dtype == torch.bool
+    assert ops.dispatch_count() == 6 + 2 + 2 + 1 + 1
     assert all(n == 0 for n in ops.kernel_launches().values())  # no kernel ran
 
 
@@ -183,6 +322,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cu_delta.delta_decode(t, torch.zeros(1, dtype=torch.int32), 2)
     with pytest.raises(ValueError):
         cu_fused.fused_scan(t, 2, 0, 1)
+    with pytest.raises(ValueError):
+        cu_rle.rle_decode(torch.zeros((1, 128), dtype=torch.int32),
+                          torch.zeros((1, 128), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cu_compact.filter_compact(torch.zeros((1, 1024), dtype=torch.int32),
+                                  torch.zeros((1, 1024), dtype=torch.bool))
+    with pytest.raises(ValueError):
+        cu_bloom.bloom_probe(torch.zeros((1, 1024), dtype=torch.int32),
+                             torch.zeros(1024, dtype=torch.uint8))
 
 
 def test_shared_dictionary_threshold():

@@ -1,8 +1,12 @@
-"""The port's Q1, Q6, Q12, Q14 and Q15 on the CPU against the JAX queries on
-the same files.  Integers (counts, rows, keys) are exact.  Float totals are
-float32 sums taken in another order than XLA's, so they agree within
-rtol=1e-4.  Q15's winner is compared exactly only when the reference's
-top-two gap exceeds that tolerance; otherwise either of the two is right."""
+"""The port's six queries on the CPU against the JAX queries on the same
+files, unsorted and sorted (lineitem on l_shipdate: RLE pages).  Integers
+(counts, rows, keys) are exact.  Float totals are float32 sums taken in
+another order than XLA's, so they agree within rtol=1e-4.  Q15's winner is
+compared exactly only when the reference's top-two gap exceeds that
+tolerance; otherwise either of the two is right.
+
+Q19 selects about one lineitem row in 10,000, so its tests use seed 4,
+whose sf=0.05 files give it a handful of rows (seed 0 gives none)."""
 
 import numpy as np
 import pytest
@@ -30,6 +34,22 @@ def env(tmp_path_factory):
         jengine.DatapathEngine(backend="ref"),
         {k: JReader(p) for k, p in paths.items()},
     )
+
+
+def _env(d, **kw):
+    paths = jtpch.write_tables(str(d), sf=0.05, row_group_size=8192, **kw)
+    return (
+        tengine.DatapathEngine(device="cpu"),
+        {k: TReader(p) for k, p in paths.items()},
+        jengine.DatapathEngine(backend="ref"),
+        {k: JReader(p) for k, p in paths.items()},
+    )
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["unsorted", "sorted"])
+def env_seed4(request, tmp_path_factory):
+    return _env(tmp_path_factory.mktemp("tpch_queries_seed4"), seed=4,
+                sorted_data=request.param)
 
 
 def _run(env, name, **kw):
@@ -75,6 +95,29 @@ def test_q15(env, quarter_start):
     _, tr, _, _ = env
     per = agreement.per_supplier_revenue(tr["lineitem"], quarter_start)
     assert agreement.q15_agrees(got, want, per)
+
+
+def test_q19(env_seed4):
+    got, want = _run(env_seed4, "q19")
+    assert want["rows"] > 0
+    assert got["rows"] == want["rows"]
+    assert got["revenue"] == pytest.approx(want["revenue"], rel=RTOL)
+    agreement.compare("q19", got, want)
+
+
+def test_q19_without_matches(env):
+    """Seed 0's files hold no Q19 row: both packages answer zero."""
+    got, want = _run(env, "q19")
+    assert got == want == {"revenue": 0.0, "rows": 0}
+
+
+@pytest.mark.parametrize("name", ["q1", "q6", "q12", "q14", "q15"])
+def test_sorted_files(env_seed4, name):
+    """The five other queries on the seed-4 files; on sorted files their
+    l_shipdate predicates read RLE pages and zone maps prune row groups."""
+    got, want = _run(env_seed4, name)
+    _, tr, _, _ = env_seed4
+    agreement.compare(name, got, want, agreement.per_supplier_revenue(tr["lineitem"]))
 
 
 def test_q15_tie_rule():
