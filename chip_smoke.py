@@ -10,15 +10,20 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
 2. build the hand-written kernels from `src/repro_torch/kernels/csrc` (one
    nvcc per source, all started together, then one link);
-3. each kernel against its plain PyTorch version on the card, bit for bit, at
-   the main path's shape (one 65,536-row row group: 16 packed blocks or 64
-   RLE/probe blocks; the part table's 196 blocks for compaction) and over a
-   stack of 92 row groups (1,472 or 5,888 blocks), plus the edge cases (k =
-   1, 31, 32, a dictionary too large for shared memory, DELTA wraparound,
-   the fused_scan dictionary arm, 128-run RLE windows, all/none/last-row
-   compaction masks, 2^10- and 2^17-byte filters); each timed with CUDA
-   events (cold L2, median of single launches) beside its bound, the plain
-   version's time and, where one exists, one PyTorch call's time;
+3. each kernel against its plain PyTorch version on the card, bit for bit
+   (floats as bits), at the main path's shape (one 65,536-row row group: 16
+   packed blocks or 64 RLE/probe blocks; the part table's 196 blocks for
+   compaction) and over a stack of 92 row groups (1,472 or 5,888 blocks),
+   plus the edge cases (k = 1, 31, 32, a dictionary too large for shared
+   memory, DELTA wraparound, the fused_scan dictionary arm, 128-run RLE
+   windows, all/none/last-row compaction masks, 2^10- and 2^17-byte filters;
+   for the batch and aggregate kernels: pages of different dictionary sizes
+   and a size of 0, per-block empty ranges, 1, 3 and 128 groups, group ids
+   out of range, all-masked blocks, int32 at +-2^31, float +-inf and NaN,
+   int32 masks, k = 1, 6, 32); each timed with CUDA events (median of single
+   launches, each after a 256 MiB L2 flush and a ~0.1 ms device spin that
+   hides the host's launch overhead) beside its bound, the plain version's
+   time and, where one exists, one PyTorch call's time;
 4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) twice
    into temporary directories: unsorted, and sorted (lineitem on l_shipdate,
    whose pages are then RLE in every row group);
@@ -27,16 +32,30 @@ Phases, in order; any failure exits non-zero:
    before and read just after;
 6. run the same queries on device="cpu" and compare: integers exactly,
    floats within rtol 1e-4 (Q15's supplier only outside a near tie);
-7. print per (query, file order) wall time, peak device memory and, from
+7. batched scans and aggregate pushdown on each file order, with every
+   launch count set to 0 just before the warm scans and read just after
+   them (the first runs, Q19's bloom build, the comparators and the
+   profiler's reruns lie outside that window): (a) the lineitem scan of each
+   query (Q19's with its bloom) through scan(batched=False) and
+   scan(batched=True), equal in columns, mask, count and every ScanStats
+   field but the launch count, with each path's warm wall ms, dispatches,
+   host-to-device copies and, from torch.profiler, device busy time and
+   idle share; (b) the two pushdown plans of benchmarks/throughput.py and a
+   sum grouped by l_shipdate (a domain of 20 MAX_GROUPS-wide windows),
+   sequential and batched, bit-identical to each other and to
+   scan-then-aggregate (agreement.scan_then_aggregate), and agreeing with
+   device="cpu" (integers exactly, float sums within rtol 1e-4);
+8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share;
-8. print one JSON line with every kernel's record (its launches, summed over
-   both file orders, must be > 0);
-9. print the device line last.
+9. print one JSON line with every kernel's record (its launches, summed over
+   the counted windows of phases 5 and 7 on both file orders, must be > 0);
+10. print the device line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -54,7 +73,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import DatapathEngine, agreement, tpch  # noqa: E402
 from repro_torch.core import queries as Q  # noqa: E402
-from repro_torch.kernels import bitunpack, bloom_probe, build, delta_decode  # noqa: E402
+from repro_torch.core.plan import AggSpec, Cmp, ScanPlan  # noqa: E402
+from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
 from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
 from repro_torch.lakeformat.encodings import rle_encode  # noqa: E402
@@ -87,8 +107,17 @@ PART_BLOCKS = 196  # the part table's 200,704 padded rows, Q19's compacted scan
 #                   popcount, the slot's add and the store's address, the
 #                   zero-fill compare and the survivor's branch
 #   bloom_probe     per key 21 + 5 per hash (csrc/bloom_probe.cu's note)
+#   dict_decode_batch  as dict_decode (the page's size and row are per block)
+#   fused_scan_batch   two compares and the mask byte
+#   grouped_agg     the mask and range tests 3, the partition (a match and
+#                   its leader) 3, the float key 2 and 3 reductions, or the
+#                   hi/lo split 2 and 4 reductions: 12 a value either way
+#   fused_agg       the mask test, count, the hi/lo split and its 2 adds,
+#                   min and max: 7
 EXTRA_OPS_PER_VALUE = {"bitunpack": 0, "dict_decode": 3, "delta_decode": 3 + 5 * 3 + 1,
-                       "fused_scan": 4, "fused_scan_dict": 4 + 3}
+                       "fused_scan": 4, "fused_scan_dict": 4 + 3, "dict_decode_batch": 3,
+                       "fused_scan_batch": 3, "fused_agg": 7}
+GROUPED_AGG_OPS_PER_VALUE = 12
 RLE_OPS_PER_VALUE = 7 * 3 + 1
 COMPACT_OPS_PER_VALUE = 8
 
@@ -101,7 +130,13 @@ def bloom_ops_per_key(n_hashes: int) -> int:
     return 21 + 5 * n_hashes
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("[n] ...") carries the seconds since start."""
+    if msg.startswith("["):
+        msg = f"{msg}  (t={time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -115,14 +150,22 @@ def make_words(rng, nb: int, k: int):
     return torch.from_numpy(w.view(np.int32)).cuda()
 
 
+# Device cycles to spin before each timed call (~0.1 ms at the H100's
+# 1.98 GHz boost clock): the card is still busy with the flush and the spin
+# while the host enqueues the call, so the host's launch overhead (argument
+# checks, output allocation) stays outside the event interval.
+SPIN_CYCLES = 200_000
+
+
 def median_ms(fn, iters: int, flush) -> float:
-    """Median device time of one call of `fn`, each after an L2 flush,
-    after a few untimed calls."""
+    """Median device time of one call of `fn`, each after an L2 flush and a
+    device spin, after a few untimed calls."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -135,7 +178,8 @@ def median_ms(fn, iters: int, flush) -> float:
 
 
 def max_abs_err(got, want) -> float:
-    """Largest |got - want| (0 when bit-identical); raises unless identical."""
+    """0.0 when got and want are bit-identical (floats compared as bits, so
+    NaN cells must match too); raises otherwise."""
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -143,10 +187,11 @@ def max_abs_err(got, want) -> float:
                              f"vs {tuple(want.shape)} {want.dtype}")
     same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
             if got.dtype == torch.float32 else torch.equal(got, want))
-    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     if not same:
-        raise AssertionError(f"kernel differs from its plain version (max |err| {err})")
-    return err
+        diff = (got.double() - want.double()).abs()
+        raise AssertionError("kernel differs from its plain version (max |err| "
+                             f"{float(diff.nan_to_num(float('inf')).max())})")
+    return 0.0
 
 
 def case(cases, name, label, blocks, run, plain, nbytes, nops, library=None, stage=None):
@@ -346,6 +391,122 @@ def kernel_cases(rng):
     bloom_case("n_bits=2^17 (shared-memory maximum) h=7", RLE_PATH_BLOCKS, 1 << 17, 7,
                edge, edge_build)
     bloom_case("n_bits=2^10 h=1", RLE_PATH_BLOCKS, 1 << 10, 1, edge, edge_build)
+
+    # dict_decode_batch: l_orderkey at SF1 is DICT k=14, one dictionary of
+    # ~16.1K entries per row group; the stack holds 92 pages of 16 blocks.
+    # Then pages of different sizes with a size of 0, a dictionary too large
+    # for shared memory, float32 dictionaries and negative k = 32 codes.
+    def dict_batch_case(label, k, sizes, nbs, dtype):
+        dmax = max(max(sizes), 1)
+        if dtype == "float32":
+            d = torch.from_numpy(rng.standard_normal((len(sizes), dmax)).astype(np.float32))
+        else:
+            d = torch.from_numpy(rng.integers(-2**31, 2**31, (len(sizes), dmax)).astype(np.int32))
+        d = d.cuda()
+        sz = torch.tensor(sizes, dtype=torch.int32).cuda()
+        pg = torch.from_numpy(np.concatenate([np.full(nb, i, np.int32)
+                                              for i, nb in enumerate(nbs)])).cuda()
+        nb = sum(nbs)
+        p = make_words(rng, nb, k)
+        case(cases, "dict_decode_batch", label, nb,
+             lambda: dict_decode.dict_decode_batch(p, d, sz, pg, k),
+             lambda: ref.dict_decode_batch(p, d, sz, pg, k),
+             packed_bytes(nb, k) + nb * 4096 * 4 + 4 * sum(sizes) + 4 * nb + 4 * len(sizes),
+             nb * 4096 * ops_per_value("dict_decode_batch", k))
+
+    dict_batch_case("path k=14 D=16143, 1 page", 14, [16_143], [PATH_BLOCKS], "int32")
+    stack_sizes = [int(x) for x in rng.integers(16_000, 16_385, 92)]
+    dict_batch_case("stack k=14 D~16.1K, 92 pages", 14, stack_sizes, [PATH_BLOCKS] * 92, "int32")
+    dict_batch_case("k=3 sizes 5/0/8/1 (0 reads entry 0)", 3, [5, 0, 8, 1], [4, 4, 4, 4], "int32")
+    dict_batch_case("k=16 D=65536 (too large for shared), float32", 16, [65_536, 40_000, 3],
+                    [6, 5, 5], "float32")
+    dict_batch_case("k=32 D=40/7 (negative codes)", 32, [40, 7], [8, 8], "int32")
+
+    # fused_scan_batch: l_shipdate codes at SF1 are DICT k=12, rewritten per
+    # row group onto that page's codes; the stack carries 92 ranges.  Then
+    # per-block empty ranges (1, 0) and k = 1, 32.
+    def scan_batch_case(label, k, lo, hi):
+        nb = len(lo)
+        p = make_words(rng, nb, k)
+        lo_t = torch.from_numpy(np.asarray(lo, np.int32)).cuda()
+        hi_t = torch.from_numpy(np.asarray(hi, np.int32)).cuda()
+        case(cases, "fused_scan_batch", label, nb,
+             lambda: fused_scan.fused_scan_batch(p, k, lo_t, hi_t),
+             lambda: ref.fused_scan_batch(p, k, lo_t, hi_t),
+             packed_bytes(nb, k) + nb * 4096 + nb * 8,
+             nb * 4096 * ops_per_value("fused_scan_batch", k))
+
+    scan_batch_case("path k=12", 12, [0] * PATH_BLOCKS, [2466] * PATH_BLOCKS)
+    starts = np.repeat(rng.integers(0, 4000, 92), PATH_BLOCKS)
+    scan_batch_case("stack k=12, 92 per-row-group ranges", 12, starts, starts + 364)
+    scan_batch_case("k=12 every other block empty (1, 0)", 12,
+                    [0, 1] * (PATH_BLOCKS // 2), [4095, 0] * (PATH_BLOCKS // 2))
+    scan_batch_case("k=1 full/empty", 1, [0, 1] * (PATH_BLOCKS // 2), [1, 0] * (PATH_BLOCKS // 2))
+    scan_batch_case("k=32 negative ranges", 32, [-2**31] * PATH_BLOCKS, [-1] * PATH_BLOCKS)
+
+    # grouped_agg: sum(l_extendedprice), count(*) by l_returnflag at SF1 is
+    # float32 values, 3 groups, int32 gids and the scan's bool mask (Q6's
+    # date year keeps ~15%).  One PyTorch call, scatter_add of the float
+    # values into (block, group) cells with the mask folded into the index
+    # beforehand, computes the s0 plane alone (in another order): the
+    # yardstick, not the same five planes.
+    def agg_case(label, nb, G, dtype, keep=0.15, mask_dtype=torch.bool, edges=False):
+        if dtype == "float32":
+            v = (rng.random((nb, 4096)) * 1e5).astype(np.float32)
+            if edges:
+                v[0, :3] = [np.inf, -np.inf, -0.0]
+                v[min(1, nb - 1), 7] = np.nan
+        else:
+            v = rng.integers(-2**31, 2**31, (nb, 4096)).astype(np.int32)
+            if edges:
+                v[0, :4] = [-2**31, 2**31 - 1, -1, 0]
+        g = rng.integers(-1 if edges else 0, G + 1 if edges else G, (nb, 4096)).astype(np.int32)
+        m = rng.random((nb, 4096)) < keep
+        if edges:
+            m[0, :4] = True
+            m[-1] = False
+        vt, gt = torch.from_numpy(v).cuda(), torch.from_numpy(g).cuda()
+        mt = torch.from_numpy(m).to(mask_dtype).cuda()
+        library = None
+        if dtype == "float32" and not edges:
+            idx = torch.where(mt.bool() & (gt >= 0) & (gt < G), gt, G).long()
+            zeros = torch.zeros((nb, G + 1), dtype=torch.float32, device="cuda")
+            library = lambda: zeros.scatter_add(1, idx, vt)  # noqa: E731
+        case(cases, "grouped_agg", label, nb,
+             lambda: agg_push.grouped_agg(vt, gt, mt, G),
+             lambda: ref.grouped_agg(vt, gt, mt, G),
+             nb * 4096 * (4 + 4 + mt.element_size()) + 5 * 4 * nb * G,
+             nb * 4096 * GROUPED_AGG_OPS_PER_VALUE, library=library)
+
+    agg_case("path G=3 float32, bool mask", PATH_BLOCKS, 3, "float32")
+    agg_case("stack G=3 float32, bool mask", STACK_BLOCKS, 3, "float32")
+    agg_case("stack G=3 float32, int32 mask", STACK_BLOCKS, 3, "float32", mask_dtype=torch.int32)
+    agg_case("G=1 int32 +-2^31, gids out of range, all-masked block", PATH_BLOCKS, 1, "int32",
+             keep=0.7, edges=True)
+    agg_case("G=3 int32, int32 mask, edges", PATH_BLOCKS, 3, "int32", keep=0.7,
+             mask_dtype=torch.int32, edges=True)
+    agg_case("G=128 float32 +-inf NaN -0.0, edges", PATH_BLOCKS, 128, "float32", keep=0.7,
+             edges=True)
+    agg_case("G=128 float32, stack", STACK_BLOCKS, 128, "float32", keep=0.7)
+
+    # fused_agg: sum/min/max(l_quantity) at SF1, BITPACK k=6, under the
+    # scan's bool mask; then k = 1, 32 and an int32 mask.  No PyTorch call
+    # unpacks k-bit words.
+    def fused_agg_case(label, nb, k, mask_dtype=torch.bool):
+        p = make_words(rng, nb, k)
+        m = torch.from_numpy(rng.random((nb, 4096)) < 0.15).to(mask_dtype).cuda()
+        m[-1] = 0
+        case(cases, "fused_agg", label, nb,
+             lambda: agg_push.fused_agg(p, k, m),
+             lambda: ref.fused_agg_scan(p, k, m),
+             packed_bytes(nb, k) + nb * 4096 * m.element_size() + nb * 20,
+             nb * 4096 * ops_per_value("fused_agg", k))
+
+    fused_agg_case("path k=6, bool mask", PATH_BLOCKS, 6)
+    fused_agg_case("stack k=6, bool mask", STACK_BLOCKS, 6)
+    fused_agg_case("stack k=6, int32 mask", STACK_BLOCKS, 6, torch.int32)
+    fused_agg_case("k=1", PATH_BLOCKS, 1)
+    fused_agg_case("k=32 (int32 range)", PATH_BLOCKS, 32)
     return cases
 
 
@@ -373,8 +534,8 @@ def check_kernels(seed: int) -> dict:
         ops_ms = c["ops"] / INT32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        extra = "" if library_ms is None else (
-            f" library_ms={library_ms:.4f} stage_ms={stage_ms:.4f}")
+        extra = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+        extra += "" if stage_ms is None else f" stage_ms={stage_ms:.4f}"
         log(f"  {name:14s} {c['label']:44s} blocks={nb:5d} exact (max|err|={err}) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
             f"({c['bytes']} B, {c['ops']} ops, by {bound_by}){extra}")
@@ -411,22 +572,137 @@ def run_queries(engine, readers, queries, on_card: bool):
     return out, times, peaks, launches
 
 
-def device_busy(engine, readers, queries) -> dict:
-    """Per query, under torch.profiler: the device's busy time (the sum of
-    the self time of every CUDA kernel and copy) and its four largest items.
-    The profiler slows the host side, so the wall time it sees is not used."""
-    out = {}
-    for name, q in queries.items():
+def profiled(fn):
+    """One call of `fn` under torch.profiler: the device's busy time (the sum
+    of the self time of every CUDA kernel and copy) and its four largest
+    items.  The profiler slows the host side, so the wall time it sees is
+    not used."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            q(engine, readers)
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
-        out[name] = (busy_ms, [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
-                               for e in top])
-    return out
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    return busy_ms, [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
+                     for e in top]
+
+
+def device_busy(engine, readers, queries) -> dict:
+    """Per query: `profiled` of one more run."""
+    return {name: profiled(lambda q=q: q(engine, readers)) for name, q in queries.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: batched scans and aggregate pushdown
+# ---------------------------------------------------------------------------
+
+# benchmarks/throughput.py's two pushdown plans, and a sum grouped over a
+# domain wider than one launch's MAX_GROUPS (l_shipdate's ~2,527 day numbers:
+# 20 windows)
+PUSHDOWN_PLANS = {
+    "sum_price_count_by_returnflag": ScanPlan(
+        "lineitem", [], Cmp("l_shipdate", "between", (365, 729)),
+        aggregates=(AggSpec("sum", "l_extendedprice"), AggSpec("count")),
+        group_by="l_returnflag"),
+    "sum_min_max_quantity": ScanPlan(
+        "lineitem", [], Cmp("l_shipdate", "between", (365, 729)),
+        aggregates=(AggSpec("sum", "l_quantity"), AggSpec("min", "l_quantity"),
+                    AggSpec("max", "l_quantity"))),
+    "sum_price_count_by_shipdate": ScanPlan(
+        "lineitem", [], Cmp("l_shipdate", "between", (365, 729)),
+        aggregates=(AggSpec("sum", "l_extendedprice"), AggSpec("count")),
+        group_by="l_shipdate"),
+}
+
+
+def timed_scan(engine, reader, plan, blooms, batched: bool):
+    """One scan on the card: (result, wall ms after synchronize, dispatches,
+    host-to-device copies)."""
+    ops.reset_dispatch_count()
+    ops.reset_transfer_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.scan(reader, plan, blooms=blooms, batched=batched)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, ops.dispatch_count(), ops.transfer_count()
+
+
+def same_scan(a, b, label: str) -> None:
+    """Two row scans equal in columns (floats as bits), mask, count and every
+    ScanStats field but kernel_launches; raises otherwise."""
+    if not (torch.equal(a.mask, b.mask) and int(a.count) == int(b.count)):
+        raise AssertionError(f"{label}: batched mask/count differ from sequential")
+    if sorted(a.columns) != sorted(b.columns):
+        raise AssertionError(f"{label}: batched columns differ from sequential")
+    for c in a.columns:
+        max_abs_err(a.columns[c], b.columns[c])
+    sa, sb = dataclasses.asdict(a.stats), dataclasses.asdict(b.stats)
+    sa.pop("kernel_launches"), sb.pop("kernel_launches")
+    if sa != sb:
+        raise AssertionError(f"{label}: ScanStats differ: "
+                             f"{ {k: (sa[k], sb[k]) for k in sa if sa[k] != sb[k]} }")
+
+
+def path_numbers(runs) -> str:
+    return " ".join(f"{'batched' if b else 'sequential'}: warm_ms={ms:.2f} "
+                    f"dispatches={dispatches} h2d_copies={copies} "
+                    f"kernel_launches={res.stats.kernel_launches};"
+                    for b, (res, ms, dispatches, copies) in runs.items())
+
+
+def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
+    """Phase 7 on one file order: checks, and prints each plan's numbers.
+    Returns the kernel launches of the warm sequential and batched scans
+    alone: the counts are set to 0 just before those scans and read just
+    after, so Q19's bloom build, the first runs, the comparators and the
+    profiler's reruns launch outside that window."""
+    li = readers["lineitem"]
+    bloom = Q.q19_bloom(gpu, readers)
+    scans = {("a", name): (make(), {"q19": bloom} if name == "q19" else None)
+             for name, make in Q.LINEITEM_PLANS.items()}
+    scans.update({("b", name): (plan, None) for name, plan in PUSHDOWN_PLANS.items()})
+    for plan, blooms in scans.values():  # first runs
+        for batched in (False, True):
+            gpu.scan(li, plan, blooms=blooms, batched=batched)
+    ops.reset_kernel_launches()
+    warm = {key: {batched: timed_scan(gpu, li, plan, blooms, batched)
+                  for batched in (False, True)}
+            for key, (plan, blooms) in scans.items()}
+    launches = ops.kernel_launches()
+
+    for (part, name), runs in warm.items():
+        plan, blooms = scans[part, name]
+        if part == "a":
+            same_scan(runs[True][0], runs[False][0], f"{order} {name}")
+            busy = {b: profiled(lambda b=b: gpu.scan(li, plan, blooms=blooms, batched=b))
+                    for b in runs}
+            log(f"      (a) {name}: rows={int(runs[True][0].count)} " + path_numbers(runs)
+                + " " + " ".join(
+                    f"{'batched' if b else 'sequential'}: busy_ms={busy_ms:.3f} "
+                    f"idle_share={1 - busy_ms / runs[b][1]:.3f} top={top[:2]};"
+                    for b, (busy_ms, top) in busy.items()))
+            continue
+        want = agreement.scan_then_aggregate(gpu, li, plan)
+        cpu_aggs = cpu.scan(li, plan, batched=True).aggregates
+        for batched, r in runs.items():
+            got = r[0].aggregates
+            for k in want:
+                if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f"{order} {name} batched={batched}: {k} differs from "
+                                         f"scan-then-aggregate: {got[k]} vs {want[k]}")
+                c = cpu_aggs[k]
+                if got[k].dtype == np.float64:
+                    np.testing.assert_allclose(got[k], c, rtol=1e-4, err_msg=f"{name} {k}")
+                elif not np.array_equal(got[k], c):
+                    raise AssertionError(f"{order} {name}: {k} differs from the CPU: "
+                                         f"{got[k]} vs {c}")
+        same_cpu = all(np.array_equal(runs[True][0].aggregates[k], cpu_aggs[k]) for k in want)
+        shown = {k: (v.tolist() if v.size <= 8 else f"{v.size} groups, total {v.sum()}")
+                 for k, v in want.items()}
+        log(f"      (b) {name}: {shown} bit-identical to the CPU path: {same_cpu}; "
+            + path_numbers(runs))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -479,6 +755,7 @@ def main(argv=None) -> int:
         # phases 5-7 on each file order
         launches = {}
         report = {}
+        batched_launches = {}
         for order, readers in passes.items():
             # phase 5: the main path on the card
             gpu = DatapathEngine(device="cuda")
@@ -509,26 +786,31 @@ def main(argv=None) -> int:
                 log(f"      {name} agrees: {got[name]}")
             report[order] = (first_ms, warm_ms, cpu_ms, peaks, busy)
 
-    # phase 7
+            # phase 7: batched scans and aggregate pushdown
+            log(f"[7] {order}: batched scans and aggregate pushdown on the card:")
+            batched_launches[order] = batched_and_pushdown(gpu, cpu, readers, order)
+            log(f"      launches {batched_launches[order]}")
+
+    # phase 8
     for order, (first_ms, warm_ms, cpu_ms, peaks, busy) in report.items():
-        log(f"[7] {order}: per query on the card (wall ms after synchronize; first run,"
+        log(f"[8] {order}: per query on the card (wall ms after synchronize; first run,"
             " warm run; peak device memory):")
         for name in Q.QUERIES:
             log(f"      {name}: first_ms={first_ms[name]:.2f} warm_ms={warm_ms[name]:.2f} "
                 f"cpu_ms={cpu_ms[name]:.2f} peak_bytes={peaks[name]}")
-        log(f"[7] {order}: device busy per query (torch.profiler, one more warm run;"
+        log(f"[8] {order}: device busy per query (torch.profiler, one more warm run;"
             " idle share against warm_ms):")
         for name, (busy_ms, top) in busy.items():
             idle = 1 - busy_ms / warm_ms[name] if busy_ms else float("nan")
             log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
 
-    # phase 8
+    # phase 9
     kernels = []
-    for name, mod in ops.KERNELS.items():
+    for name, kern in ops.KERNELS.items():
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": sum(launches[o][name] for o in launches),
+            "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
+            "launches": sum(launches[o][name] + batched_launches[o][name] for o in launches),
             "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
             "bound_by": path["bound_by"], "library_ms": path["library_ms"],
@@ -536,16 +818,20 @@ def main(argv=None) -> int:
             "stack_ms": stack["ms"], "stack_plain_ms": stack["plain_ms"],
             "stack_bound_ms": stack["bound_ms"], "stack_library_ms": stack["library_ms"],
             "launches_by_order": {o: launches[o][name] for o in launches},
+            "launches_batched_pushdown_by_order": {o: batched_launches[o][name]
+                                                   for o in batched_launches},
         })
         if path["stage_ms"] is not None:
             kernels[-1].update(library="torch.masked_select (yardstick of the _compact stage)",
                                stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
+        elif name == "grouped_agg":
+            kernels[-1].update(library="Tensor.scatter_add of the s0 plane alone")
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the query path: {idle}")
+        raise AssertionError(f"kernels never launched on the query or batched paths: {idle}")
 
-    # phase 9
+    # phase 10
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

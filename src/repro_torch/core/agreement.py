@@ -5,6 +5,8 @@ taken in another order (or, for Q15's `index_add_` on CUDA, in an atomic,
 run-dependent order), so they must agree within `RTOL`.  Q15's supplier is
 compared exactly only when the reference's top two per-supplier revenues are
 further apart than `RTOL`; in a near tie either of the two is right.
+
+Pushed-down aggregates are held to `scan_then_aggregate`, bit for bit.
 """
 
 from __future__ import annotations
@@ -14,10 +16,28 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.engine import DatapathEngine
-from repro_torch.core.plan import Cmp, ScanPlan
+from repro_torch.core import agg
+from repro_torch.core.engine import DatapathEngine, group_domain
+from repro_torch.core.plan import Cmp, ScanPlan, bind_expr
+from repro_torch.core.zonemap import prune_row_groups
+from repro_torch.lakeformat.encodings import PACK_BLOCK, padded_rows
 
 RTOL = 1e-4
+
+
+def scan_then_aggregate(engine: DatapathEngine, reader, plan: ScanPlan,
+                        blooms=None) -> dict:
+    """An aggregate plan's answer without pushdown: a row scan of its value
+    and group columns on `engine`, then the host fold
+    (agg.aggregate_rows_host) with the row groups as segments."""
+    srcs = [c for c in agg.agg_sources(plan.aggregates) if c is not None]
+    cols = list(dict.fromkeys(srcs + ([plan.group_by] if plan.group_by else [])))
+    rows = engine.scan(reader, ScanPlan(plan.table, cols, plan.predicate), blooms=blooms)
+    rgs = prune_row_groups(reader, bind_expr(plan.predicate, reader))
+    segments = [padded_rows(reader.row_group_meta(rg)["n"]) // PACK_BLOCK for rg in rgs]
+    n_groups = group_domain(reader, plan.group_by) if plan.group_by else 1
+    return agg.aggregate_rows_host({c: rows.columns[c] for c in cols}, rows.mask,
+                                   plan.aggregates, plan.group_by, n_groups, segments)
 
 
 def per_supplier_revenue(lineitem, quarter_start: int = 365) -> np.ndarray:

@@ -41,15 +41,18 @@ def _take_clip(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def q1(engine: DatapathEngine, readers: Dict, delta_days: int = 90) -> dict:
-    r = readers["lineitem"]
-    plan = ScanPlan(
+def q1_plan(delta_days: int = 90) -> ScanPlan:
+    return ScanPlan(
         "lineitem",
         ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
          "l_discount", "l_tax"],
         Cmp("l_shipdate", "le", 2556 - delta_days),
     )
-    res = engine.scan(r, plan)
+
+
+def q1(engine: DatapathEngine, readers: Dict, delta_days: int = 90) -> dict:
+    r = readers["lineitem"]
+    res = engine.scan(r, q1_plan(delta_days))
     c, m = res.columns, res.mask
     gid = c["l_returnflag"] * 2 + c["l_linestatus"]  # codes are small ints
     ngroups = 6
@@ -90,8 +93,8 @@ def q1(engine: DatapathEngine, readers: Dict, delta_days: int = 90) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def q6(engine: DatapathEngine, readers: Dict, year_start: int = 365) -> dict:
-    plan = ScanPlan(
+def q6_plan(year_start: int = 365) -> ScanPlan:
+    return ScanPlan(
         "lineitem",
         ["l_extendedprice", "l_discount"],
         and_(
@@ -100,7 +103,10 @@ def q6(engine: DatapathEngine, readers: Dict, year_start: int = 365) -> dict:
             Cmp("l_quantity", "lt", 24),
         ),
     )
-    res = engine.scan(readers["lineitem"], plan)
+
+
+def q6(engine: DatapathEngine, readers: Dict, year_start: int = 365) -> dict:
+    res = engine.scan(readers["lineitem"], q6_plan(year_start))
     rev = _msum(res.columns["l_extendedprice"] * res.columns["l_discount"], res.mask)
     return {"revenue": float(rev), "rows": int(res.count)}
 
@@ -110,13 +116,8 @@ def q6(engine: DatapathEngine, readers: Dict, year_start: int = 365) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def q12(engine: DatapathEngine, readers: Dict, year_start: int = 730) -> dict:
-    ro, rl = readers["orders"], readers["lineitem"]
-    # Build side: whole orders priority column, decoded in the datapath.
-    build = engine.scan(ro, ScanPlan("orders", ["o_orderkey", "o_orderpriority"]))
-    prio = build.columns["o_orderpriority"]  # dense by orderkey (generator invariant)
-
-    plan = ScanPlan(
+def q12_plan(year_start: int = 730) -> ScanPlan:
+    return ScanPlan(
         "lineitem",
         ["l_orderkey", "l_shipmode"],
         and_(
@@ -124,7 +125,15 @@ def q12(engine: DatapathEngine, readers: Dict, year_start: int = 730) -> dict:
             Cmp("l_receiptdate", "between", (year_start, year_start + 364)),
         ),
     )
-    res = engine.scan(rl, plan)
+
+
+def q12(engine: DatapathEngine, readers: Dict, year_start: int = 730) -> dict:
+    ro, rl = readers["orders"], readers["lineitem"]
+    # Build side: whole orders priority column, decoded in the datapath.
+    build = engine.scan(ro, ScanPlan("orders", ["o_orderkey", "o_orderpriority"]))
+    prio = build.columns["o_orderpriority"]  # dense by orderkey (generator invariant)
+
+    res = engine.scan(rl, q12_plan(year_start))
     c, m = res.columns, res.mask
     l_prio = _take_clip(prio, c["l_orderkey"])
     pr_dict = ro.string_dicts["o_orderpriority"]
@@ -149,6 +158,14 @@ def q12(engine: DatapathEngine, readers: Dict, year_start: int = 730) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def q14_plan(month_start: int = 1000) -> ScanPlan:
+    return ScanPlan(
+        "lineitem",
+        ["l_partkey", "l_extendedprice", "l_discount"],
+        Cmp("l_shipdate", "between", (month_start, month_start + 29)),
+    )
+
+
 def q14(engine: DatapathEngine, readers: Dict, month_start: int = 1000) -> dict:
     rp, rl = readers["part"], readers["lineitem"]
     build = engine.scan(rp, ScanPlan("part", ["p_partkey", "p_type"]))
@@ -159,12 +176,7 @@ def q14(engine: DatapathEngine, readers: Dict, month_start: int = 1000) -> dict:
     ).to(type_codes.device)
     part_is_promo = _take_clip(promo, type_codes)
 
-    plan = ScanPlan(
-        "lineitem",
-        ["l_partkey", "l_extendedprice", "l_discount"],
-        Cmp("l_shipdate", "between", (month_start, month_start + 29)),
-    )
-    res = engine.scan(rl, plan)
+    res = engine.scan(rl, q14_plan(month_start))
     c, m = res.columns, res.mask
     rev = c["l_extendedprice"] * (1 - c["l_discount"])
     is_promo = _take_clip(part_is_promo, c["l_partkey"])
@@ -181,14 +193,17 @@ def q14(engine: DatapathEngine, readers: Dict, month_start: int = 1000) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def q15(engine: DatapathEngine, readers: Dict, quarter_start: int = 365, n_supp: int = None) -> dict:
-    rl = readers["lineitem"]
-    plan = ScanPlan(
+def q15_plan(quarter_start: int = 365) -> ScanPlan:
+    return ScanPlan(
         "lineitem",
         ["l_suppkey", "l_extendedprice", "l_discount"],
         Cmp("l_shipdate", "between", (quarter_start, quarter_start + 89)),
     )
-    res = engine.scan(rl, plan)
+
+
+def q15(engine: DatapathEngine, readers: Dict, quarter_start: int = 365, n_supp: int = None) -> dict:
+    rl = readers["lineitem"]
+    res = engine.scan(rl, q15_plan(quarter_start))
     c, m = res.columns, res.mask
     if n_supp is None:
         n_supp = int(rl.zonemaps("l_suppkey")[0]["max"]) + 1
@@ -217,30 +232,23 @@ _Q19_BRANCHES = [
 ]
 
 
-def q19(engine: DatapathEngine, readers: Dict) -> dict:
-    rp, rl = readers["part"], readers["lineitem"]
-
-    # Build side: parts matching ANY branch -> bloom of partkeys (pushdown),
-    # plus dense per-part attributes for the exact residual check.
+def q19_bloom(engine: DatapathEngine, readers: Dict) -> torch.Tensor:
+    """Q19's build side: the parts matching ANY branch, by a compacted
+    pushed-down scan, as a bloom filter of their keys."""
     part_pred = or_(
         *[
             and_(Cmp("p_brand", "eq", b), InSet("p_container", c), Cmp("p_size", "le", s))
             for b, c, _, _, s in _Q19_BRANCHES
         ]
     )
-    build = engine.scan(rp, ScanPlan("part", ["p_partkey"], part_pred, compact=True))
+    build = engine.scan(readers["part"], ScanPlan("part", ["p_partkey"], part_pred, compact=True))
     keys = build.columns["p_partkey"].to(torch.int32)
-    nkeys = int(build.count)
-    bloom = ops.bloom_build(keys[:nkeys], n_bits=1 << 15)
+    return ops.bloom_build(keys[: int(build.count)], n_bits=1 << 15)
 
-    attrs = engine.scan(rp, ScanPlan("part", ["p_brand", "p_container", "p_size"]))
-    p_brand, p_cont, p_size = (
-        attrs.columns["p_brand"],
-        attrs.columns["p_container"],
-        attrs.columns["p_size"],
-    )
 
-    plan = ScanPlan(
+def q19_plan() -> ScanPlan:
+    """Q19's lineitem scan; its BloomProbe takes the filter named "q19"."""
+    return ScanPlan(
         "lineitem",
         ["l_partkey", "l_quantity", "l_extendedprice", "l_discount"],
         and_(
@@ -250,7 +258,22 @@ def q19(engine: DatapathEngine, readers: Dict) -> dict:
             InSet("l_shipmode", ("AIR", "REG AIR")),
         ),
     )
-    res = engine.scan(rl, plan, blooms={"q19": bloom})
+
+
+def q19(engine: DatapathEngine, readers: Dict) -> dict:
+    rp, rl = readers["part"], readers["lineitem"]
+
+    # Build side: a bloom of the matching partkeys (pushdown), plus dense
+    # per-part attributes for the exact residual check.
+    bloom = q19_bloom(engine, readers)
+    attrs = engine.scan(rp, ScanPlan("part", ["p_brand", "p_container", "p_size"]))
+    p_brand, p_cont, p_size = (
+        attrs.columns["p_brand"],
+        attrs.columns["p_container"],
+        attrs.columns["p_size"],
+    )
+
+    res = engine.scan(rl, q19_plan(), blooms={"q19": bloom})
     c, m = res.columns, res.mask
     pk = c["l_partkey"].to(torch.int32)
     lb = _take_clip(p_brand, pk)
@@ -275,5 +298,9 @@ def q19(engine: DatapathEngine, readers: Dict) -> dict:
 
 
 QUERIES = {"q1": q1, "q6": q6, "q12": q12, "q14": q14, "q15": q15, "q19": q19}
+# each query's lineitem scan at its default parameters (Q19's needs the
+# bloom of `q19_bloom` under the name "q19")
+LINEITEM_PLANS = {"q1": q1_plan, "q6": q6_plan, "q12": q12_plan, "q14": q14_plan,
+                  "q15": q15_plan, "q19": q19_plan}
 SCAN_HEAVY = ("q6", "q14", "q15")
 AGG_HEAVY = ("q1", "q12", "q19")

@@ -13,25 +13,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import LANES, SUBLANES
 
-SOURCE = "src/repro_torch/kernels/csrc/bitunpack.cu"
-REPLACES = "src/repro/kernels/bitunpack.py:52"
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
+KERNEL = build.Kernel("bitunpack", "src/repro_torch/kernels/csrc/bitunpack.cu",
+                      "src/repro/kernels/bitunpack.py:52")
 
 
 def bitunpack(packed: torch.Tensor, k: int) -> torch.Tensor:
     """(nblocks, k, 128) int32 words on the card -> (nblocks, 32, 128) int32."""
-    global launches
     nb = build.check_packed(packed, k)
     out = torch.empty((nb, SUBLANES, LANES), dtype=torch.int32, device=packed.device)
     if nb:
         build.launch("rt_bitunpack", packed.device, packed, out, nb, k)
-        launches += 1
+        KERNEL.launches += 1
     return out

@@ -15,25 +15,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import RLE_OUT_BLOCK
 
-SOURCE = "src/repro_torch/kernels/csrc/bloom_probe.cu"
-REPLACES = "src/repro/kernels/bloom_probe.py:44"
+KERNEL = build.Kernel("bloom_probe", "src/repro_torch/kernels/csrc/bloom_probe.cu",
+                      "src/repro/kernels/bloom_probe.py:44")
 
 MAX_BITS = 1 << 17  # 128 KiB of shared memory
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
 
 
 def bloom_probe(keys: torch.Tensor, bits: torch.Tensor, n_hashes: int = 4) -> torch.Tensor:
     """(nblk, 1024) int32 keys + (n_bits,) uint8 filter on the card ->
     membership (nblk, 1024) bool."""
-    global launches
     build.check_operand(keys, "keys", (torch.int32,), (None, RLE_OUT_BLOCK))
     build.check_operand(bits, "bits", (torch.uint8,), (None,), keys.device)
     n_bits = int(bits.shape[0])
@@ -48,5 +38,5 @@ def bloom_probe(keys: torch.Tensor, bits: torch.Tensor, n_hashes: int = 4) -> to
     if nblk:
         build.launch("rt_bloom_probe", keys.device, keys, bits, n_bits, int(n_hashes),
                      out, nblk)
-        launches += 1
+        KERNEL.launches += 1
     return out

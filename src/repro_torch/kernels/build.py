@@ -15,6 +15,7 @@ never passes silently.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu",
-           "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu")
+           "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu", "agg_push.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -45,9 +46,31 @@ SIGNATURES = {
     "rt_rle_decode": (_P, _P, _P, _I),
     "rt_filter_compact": (_P, _P, _P, _P, _I),
     "rt_bloom_probe": (_P, _P, _I, _I, _P, _I),
+    "rt_dict_decode_batch": (_P, _P, _I, _I, _P, _P, _P, _I, _I),
+    "rt_fused_scan_batch": (_P, _P, _P, _P, _I, _I),
+    "rt_grouped_agg": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I),
+    "rt_fused_agg": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: its name, its CUDA source, the TPU kernel it
+    replaces (file:line in `src/repro/`) and its launches since the last
+    `reset()`.  A wrapper adds one to `launches` where it launches the
+    kernel, and nowhere else."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+    def reset(self) -> int:
+        """Zero the launch count; returns the value it had."""
+        n, self.launches = self.launches, 0
+        return n
 
 
 def nvcc_path() -> str:

@@ -94,3 +94,76 @@ extern "C" int rt_dict_decode(const void* packed, const void* dict,
   });
   return static_cast<int>(err);
 }
+
+// ---------------------------------------------------------------------------
+// Batched DICT decode: many pages' code blocks stacked along the block axis,
+// each block looking up its own page's dictionary.
+// (nblocks, k, 128) codes + (P, Dmax) dictionaries + (P,) true sizes +
+// (nblocks,) page index -> (nblocks, 32, 128).
+//
+// Replaces: dict_decode_batch_pallas, repro/kernels/dict_decode.py:97, whose
+// caller gathers a whole dictionary row per block on the host
+// (repro/kernels/ops.py:351). Semantics follow the reference's
+// _ref_dict_decode_batch (ops.py:265-271): block b clips each code to
+// [0, max(size[page[b]], 1) - 1] of its own page, then reads that entry as
+// a 32-bit word. Sizes are also capped at Dmax and a page index is clamped
+// into [0, P), so no input can read outside the dictionaries.
+//
+// Bound: bytes. Per block 512*k bytes of codes in and 16 KiB out, plus each
+// page's true dictionary (4*size bytes) and the 4-byte page index and size
+// read once: (512*k + 16384 + 4) * nblocks + 4 * (sum of sizes + P) bytes
+// over 3.35 TB/s on an H100.
+//
+// Design: the dictionaries stay where they are, one row per page; nothing
+// is gathered per block on the host. One CTA of 128 threads per block, one
+// thread per lane: the thread reads the block's page and size once, unpacks
+// its 32 codes in registers (rt::unpack_lane) and gathers each entry through
+// the read-only cache (__ldg). A page's dictionary serves all of its blocks
+// (16 per 65,536-row row group), and a 92-row-group stack of 16,384-entry
+// dictionaries is 6 MB, so the gathers are served from L2 after the first
+// touch. Code loads and value stores are coalesced.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <int K>
+__global__ void __launch_bounds__(rt::kLanes)
+    dict_decode_batch_kernel(const uint32_t* __restrict__ packed,
+                             const uint32_t* __restrict__ dicts, int dmax,
+                             int n_pages, const int32_t* __restrict__ sizes,
+                             const int32_t* __restrict__ page,
+                             uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const size_t b = blockIdx.x;
+  int p = __ldg(page + b);
+  p = p < 0 ? 0 : (p >= n_pages ? n_pages - 1 : p);
+  int size = __ldg(sizes + p);
+  size = size < 1 ? 1 : (size > dmax ? dmax : size);
+  const int32_t last = size - 1;
+  const uint32_t* dict = dicts + static_cast<size_t>(p) * dmax;
+  uint32_t* o = out + b * rt::kBlock + lane;
+  rt::unpack_lane<K>(packed + b * K * rt::kLanes, lane, [&](int s, uint32_t v) {
+    int32_t c = static_cast<int32_t>(v);
+    c = c < 0 ? 0 : (c > last ? last : c);
+    o[s * rt::kLanes] = __ldg(dict + c);
+  });
+}
+
+}  // namespace
+
+extern "C" int rt_dict_decode_batch(const void* packed, const void* dicts,
+                                    int dmax, int n_pages, const void* sizes,
+                                    const void* page, void* out, int nblocks,
+                                    int k, void* stream) {
+  if (nblocks <= 0 || dmax <= 0 || n_pages <= 0) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = rt::with_k(k, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    dict_decode_batch_kernel<K><<<nblocks, rt::kLanes, 0, s>>>(
+        static_cast<const uint32_t*>(packed), static_cast<const uint32_t*>(dicts),
+        dmax, n_pages, static_cast<const int32_t*>(sizes),
+        static_cast<const int32_t*>(page), static_cast<uint32_t*>(out));
+    return cudaGetLastError();
+  });
+  return static_cast<int>(err);
+}

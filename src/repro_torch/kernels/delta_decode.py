@@ -12,27 +12,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import PACK_BLOCK
 
-SOURCE = "src/repro_torch/kernels/csrc/delta_decode.cu"
-REPLACES = "src/repro/kernels/delta_decode.py:57"
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
+KERNEL = build.Kernel("delta_decode", "src/repro_torch/kernels/csrc/delta_decode.cu",
+                      "src/repro/kernels/delta_decode.py:57")
 
 
 def delta_decode(packed: torch.Tensor, bases: torch.Tensor, k: int) -> torch.Tensor:
     """(nblocks, k, 128) int32 zigzag words + (nblocks,) int32 bases on the
     card -> (nblocks, 4096) int32."""
-    global launches
     nb = build.check_packed(packed, k)
     build.check_operand(bases, "bases", (torch.int32,), (nb,), packed.device)
     out = torch.empty((nb, PACK_BLOCK), dtype=torch.int32, device=packed.device)
     if nb:
         build.launch("rt_delta_decode", packed.device, packed, bases, out, nb, k)
-        launches += 1
+        KERNEL.launches += 1
     return out

@@ -18,23 +18,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import RLE_OUT_BLOCK
 
-SOURCE = "src/repro_torch/kernels/csrc/filter_compact.cu"
-REPLACES = "src/repro/kernels/filter_compact.py:52"
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
+KERNEL = build.Kernel("filter_compact", "src/repro_torch/kernels/csrc/filter_compact.cu",
+                      "src/repro/kernels/filter_compact.py:52")
 
 
 def filter_compact(values: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nblk, 1024) int32/float32 values + (nblk, 1024) bool mask on the
     card -> (compacted (nblk, 1024) of the values' dtype, counts (nblk,) int32)."""
-    global launches
     build.check_operand(values, "values", (torch.int32, torch.float32), (None, RLE_OUT_BLOCK))
     nblk = int(values.shape[0])
     build.check_operand(mask, "mask", (torch.bool,), (nblk, RLE_OUT_BLOCK), values.device)
@@ -42,5 +32,5 @@ def filter_compact(values: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tens
     counts = torch.empty((nblk,), dtype=torch.int32, device=values.device)
     if nblk:
         build.launch("rt_filter_compact", values.device, values, mask, out, counts, nblk)
-        launches += 1
+        KERNEL.launches += 1
     return out, counts

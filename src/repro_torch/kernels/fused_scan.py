@@ -1,10 +1,13 @@
-"""Hopper kernel: fused k-bit unpack + range filter (csrc/fused_scan.cu).
+"""Hopper kernels: fused k-bit unpack + range filter (csrc/fused_scan.cu).
 
-Port of `fused_scan_pallas` (repro/kernels/fused_scan.py:99), with the
+`fused_scan` ports `fused_scan_pallas` (repro/kernels/fused_scan.py:99), with the
 semantics of `repro/kernels/ref.py` fused_scan: packed BITPACK words, or
 DICT codes with their dictionary (int32 or float32; codes clip to its true
 length and the int32 bounds compare in its dtype).  The engine calls the
 dictionary-free arm only: it rewrites a DICT predicate onto codes.
+`fused_scan_batch` ports `fused_scan_batch_pallas`
+(repro/kernels/fused_scan.py:61): stacked BITPACK blocks, each with its own
+bounds, mask only.
 """
 
 from __future__ import annotations
@@ -17,18 +20,10 @@ from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import PACK_BLOCK
 
 SOURCE = "src/repro_torch/kernels/csrc/fused_scan.cu"
-REPLACES = "src/repro/kernels/fused_scan.py:99"
+KERNEL = build.Kernel("fused_scan", SOURCE, "src/repro/kernels/fused_scan.py:99")
+BATCH = build.Kernel("fused_scan_batch", SOURCE, "src/repro/kernels/fused_scan.py:61")
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
 
 
 def fused_scan(
@@ -38,7 +33,6 @@ def fused_scan(
     """(nblocks, k, 128) int32 words on the card, int32 bounds and an
     optional (D,) int32/float32 dictionary on the card ->
     (mask (nblocks, 4096) bool: lo <= v <= hi, counts (nblocks,) int32)."""
-    global launches
     nb = build.check_packed(packed, k)
     lo, hi = int(lo), int(hi)
     if not (INT32_MIN <= lo <= INT32_MAX and INT32_MIN <= hi <= INT32_MAX):
@@ -57,5 +51,19 @@ def fused_scan(
         build.launch("rt_fused_scan", packed.device, packed,
                      0 if dictionary is None else dictionary, d_len, kind, lo, hi,
                      mask, counts, nb, k)
-        launches += 1
+        KERNEL.launches += 1
     return mask, counts
+
+
+def fused_scan_batch(packed: torch.Tensor, k: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """(nblocks, k, 128) int32 words and (nblocks,) int32 bounds lo, hi on
+    the card -> mask (nblocks, 4096) bool: lo[b] <= v <= hi[b]."""
+    nb = build.check_packed(packed, k)
+    build.check_operand(lo, "lo", (torch.int32,), (nb,), packed.device)
+    build.check_operand(hi, "hi", (torch.int32,), (nb,), packed.device)
+    mask = torch.empty((nb, PACK_BLOCK), dtype=torch.bool, device=packed.device)
+    if nb:
+        build.launch("rt_fused_scan_batch", packed.device, packed, lo, hi, mask, nb, k)
+        BATCH.launches += 1
+    return mask

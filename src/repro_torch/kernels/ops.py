@@ -1,6 +1,7 @@
 """Public kernel API of the port: the same names, shapes and dtypes as
-`repro/kernels/ops.py` for the sequential scan path: decode, the fused
-range filter, stream compaction and the bloom semijoin.
+`repro/kernels/ops.py`: decode, the fused range filter, stream compaction,
+the bloom semijoin, their batched (`*_batch`) forms over pages stacked
+along the block axis, and the aggregate pushdown.
 
 There is no `backend` switch: each call is routed by its operand's device.
 A CUDA tensor launches the hand-written Hopper kernel (and raises if the
@@ -15,11 +16,12 @@ to one with the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import agg_push as _agg_push
 from repro_torch.kernels import bitunpack as _bitunpack
 from repro_torch.kernels import bloom_probe as _bloom_probe
 from repro_torch.kernels import delta_decode as _delta_decode
@@ -29,16 +31,15 @@ from repro_torch.kernels import fused_scan as _fused_scan
 from repro_torch.kernels import ref
 from repro_torch.kernels import rle_decode as _rle_decode
 
-# the CUDA wrappers, each with its own launch count
-KERNELS = {
-    "bitunpack": _bitunpack,
-    "dict_decode": _dict_decode,
-    "delta_decode": _delta_decode,
-    "fused_scan": _fused_scan,
-    "rle_decode": _rle_decode,
-    "filter_compact": _filter_compact,
-    "bloom_probe": _bloom_probe,
-}
+MAX_GROUPS = _agg_push.MAX_GROUPS
+
+# every hand-written kernel (build.Kernel: source, replaced TPU kernel,
+# launch count), in the order of PERF.md's kernel table
+KERNELS = {k.name: k for k in (
+    _bitunpack.KERNEL, _dict_decode.KERNEL, _delta_decode.KERNEL, _fused_scan.KERNEL,
+    _rle_decode.KERNEL, _filter_compact.KERNEL, _bloom_probe.KERNEL,
+    _dict_decode.BATCH, _fused_scan.BATCH, _agg_push.GROUPED, _agg_push.FUSED,
+)}
 
 # ---------------------------------------------------------------------------
 # device-dispatch accounting
@@ -66,12 +67,27 @@ def reset_dispatch_count() -> int:
 
 def kernel_launches() -> dict:
     """CUDA launches of each kernel since its last reset."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def reset_kernel_launches() -> dict:
     """Zero every kernel's launch count; returns the values they had."""
-    return {name: mod.reset_launches() for name, mod in KERNELS.items()}
+    return {name: k.reset() for name, k in KERNELS.items()}
+
+
+_TRANSFERS = 0
+
+
+def transfer_count() -> int:
+    """Host-to-device copies (`to_tensor` calls) since the last reset."""
+    return _TRANSFERS
+
+
+def reset_transfer_count() -> int:
+    """Zero the copy counter; returns the value it had."""
+    global _TRANSFERS
+    n, _TRANSFERS = _TRANSFERS, 0
+    return n
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -95,7 +111,10 @@ def _on_card(*tensors: torch.Tensor) -> bool:
 def to_tensor(buf: np.ndarray, device) -> torch.Tensor:
     """A numpy page buffer as a tensor on `device`.  uint32 words become an
     int32 view of the same bits; read-only buffers (the reader's views of
-    the file) are copied first, so torch never aliases read-only memory."""
+    the file) are copied first, so torch never aliases read-only memory.
+    Each call is one host-to-device copy on a card (`transfer_count`)."""
+    global _TRANSFERS
+    _TRANSFERS += 1
     arr = np.asarray(buf)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
@@ -191,3 +210,79 @@ def fused_scan(packed: torch.Tensor, k: int, lo: int, hi: int,
     if _on_card(*operands):
         return _fused_scan.fused_scan(packed, k, lo, hi, dictionary)
     return ref.fused_scan(packed, k, lo, hi, dictionary)
+
+
+# ---------------------------------------------------------------------------
+# batched multi-page decode: one launch per (encoding, k, dtype) bucket
+# ---------------------------------------------------------------------------
+
+
+def bitunpack_batch(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Stacked (nblocks, k, 128) words -> (nblocks, 32, 128) int32 in ONE
+    dispatch (the `bitunpack` kernel over the whole stack)."""
+    _count()
+    return _bitunpack.bitunpack(packed, k) if _on_card(packed) else ref.bitunpack(packed, k)
+
+
+def dict_decode_batch(packed: torch.Tensor, dicts: torch.Tensor, sizes: torch.Tensor,
+                      page: torch.Tensor, k: int) -> torch.Tensor:
+    """Multi-page dict decode in ONE dispatch: packed (nblocks, k, 128)
+    stacked codes; dicts (P, Dmax) page dictionaries padded to a common
+    width; sizes (P,) true lengths; page (nblocks,) block -> page.  Returns
+    (nblocks, 32, 128) values of dicts' dtype, bit-identical per page to
+    `dict_decode(packed_p, dicts[p, :sizes[p]], k)`."""
+    _count()
+    if _on_card(packed, dicts, sizes, page):
+        return _dict_decode.dict_decode_batch(packed, dicts, sizes, page, k)
+    return ref.dict_decode_batch(packed, dicts, sizes, page, k)
+
+
+def delta_decode_batch(packed: torch.Tensor, bases: torch.Tensor, k: int) -> torch.Tensor:
+    """Stacked (nblocks, k, 128) zigzag words + (nblocks,) bases ->
+    (nblocks, 4096) int32 in ONE dispatch (blocks are self-contained)."""
+    _count()
+    if _on_card(packed, bases):
+        return _delta_decode.delta_decode(packed, bases, k)
+    return ref.delta_decode(packed, bases, k)
+
+
+def rle_decode_batch(values: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Stacked (nblk, 128) run values + ends -> (nblk, 1024) in ONE dispatch
+    (the writer clips runs at block boundaries, so blocks are independent)."""
+    _count()
+    if _on_card(values, ends):
+        return _rle_decode.rle_decode(values, ends)
+    return ref.rle_decode(values, ends)
+
+
+def fused_scan_batch(packed: torch.Tensor, k: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Batched fused decode + filter: stacked (nblocks, k, 128) BITPACK
+    words with per-block int32 bounds lo, hi (nblocks,) -> survivor mask
+    (nblocks, 4096) bool in ONE dispatch."""
+    _count()
+    if _on_card(packed, lo, hi):
+        return _fused_scan.fused_scan_batch(packed, k, lo, hi)
+    return ref.fused_scan_batch(packed, k, lo, hi)
+
+
+def grouped_agg_batch(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+                      n_groups: int) -> Tuple[torch.Tensor, ...]:
+    """Grouped aggregate over stacked decoded blocks in ONE dispatch:
+    values/gids/mask (nblocks, 4096) -> 5 x (nblocks, n_groups) partial
+    accumulators (cnt, s0, s1, mn, mx; `ref.grouped_agg`'s layout)."""
+    assert 1 <= n_groups <= MAX_GROUPS, n_groups
+    _count()
+    if _on_card(values, gids, mask):
+        return _agg_push.grouped_agg(values, gids, mask, n_groups)
+    return ref.grouped_agg(values, gids, mask, n_groups)
+
+
+def fused_agg_batch(packed: torch.Tensor, k: int, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """BITPACK decode fused with the masked ungrouped aggregate in ONE
+    dispatch: stacked (nblocks, k, 128) words + (nblocks, 4096) mask ->
+    5 x (nblocks, 1) int32.  The decoded values never leave the kernel."""
+    _count()
+    if _on_card(packed, mask):
+        return _agg_push.fused_agg(packed, k, mask)
+    return ref.fused_agg_scan(packed, k, mask)

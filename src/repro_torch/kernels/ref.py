@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels: the semantic ground truth.
 
 Each function transcribes the function of the same name in
-`repro/kernels/ref.py` op for op.  The CPU path runs them (a CPU tensor is
+`repro/kernels/ref.py` op for op; the batch forms `dict_decode_batch` and
+`fused_scan_batch` transcribe `_ref_dict_decode_batch` and
+`_ref_fused_scan_batch` of `repro/kernels/ops.py`.  The CPU path runs them (a CPU tensor is
 the only thing that routes here, `kernels/ops.py`), the tests hold them
 bit-exact against the JAX reference, and `chip_smoke.py` holds each CUDA
 kernel bit-exact against them on the card.
@@ -216,3 +218,136 @@ def fused_scan(
     hi_t = torch.as_tensor(hi, dtype=torch.int32).to(vals.dtype)
     mask = (vals >= lo_t.to(vals.device)) & (vals <= hi_t.to(vals.device))
     return mask, mask.sum(dim=1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# batched forms: many pages stacked along the block axis
+# ---------------------------------------------------------------------------
+
+
+def dict_decode_batch(packed: torch.Tensor, dicts: torch.Tensor, sizes: torch.Tensor,
+                      page: torch.Tensor, k: int) -> torch.Tensor:
+    """(nblocks, k, 128) codes, (P, Dmax) page dictionaries, (P,) true sizes
+    and (nblocks,) block -> page index -> (nblocks, 32, 128) values of the
+    dictionaries' dtype.  Each block clips its codes to [0, size - 1] of its
+    own page, size taken as at least 1 (the reference wrapper's
+    `np.maximum(sizes, 1)`) and at most Dmax; a page index outside [0, P)
+    is clamped into it."""
+    codes = bitunpack(packed, k).to(torch.int64)
+    n_pages, dmax = dicts.shape
+    pg = page.to(torch.int64).clamp(0, n_pages - 1)
+    lim = sizes.to(torch.int64).clamp(1, dmax)[pg] - 1  # (nblocks,)
+    c = torch.minimum(codes.clamp(min=0), lim[:, None, None])
+    flat = pg[:, None, None] * dmax + c
+    return dicts.reshape(-1).index_select(0, flat.reshape(-1)).reshape(codes.shape)
+
+
+def fused_scan_batch(packed: torch.Tensor, k: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Stacked (nblocks, k, 128) BITPACK words with per-block int32 bounds
+    lo, hi (nblocks,) -> survivor mask (nblocks, 4096) bool, lo <= v <= hi."""
+    vals = bitunpack(packed, k).reshape(packed.shape[0], PACK_BLOCK)
+    return (vals >= lo.to(torch.int32)[:, None]) & (vals <= hi.to(torch.int32)[:, None])
+
+
+# ---------------------------------------------------------------------------
+# grouped aggregate pushdown: per-block partial accumulators
+# ---------------------------------------------------------------------------
+
+# int32 sums are exact as a 16-bit hi/lo split per block (ref.py:212-217 of
+# the reference): both partial sums fit int32 for a 4096-row block.
+AGG_INT_SHIFT = 16
+AGG_INT_MASK = 0xFFFF
+# identity fills of a (block, group) cell with no counted row
+AGG_INT_MIN_IDENT = 2**31 - 1
+AGG_INT_MAX_IDENT = -(2**31)
+AGG_FLT_MIN_IDENT = float("inf")
+AGG_FLT_MAX_IDENT = float("-inf")
+# The float sum's fixed order, shared with csrc/agg_push.cu: "thread" t of
+# AGG_THREADS owns rows t, t + 256, ..., t + 3840 and adds them in that order
+# into its own per-group slot; the 256 slots of a group then fold by a
+# halving tree (slot[j] += slot[j + s] for s = 128, 64, ..., 1).
+AGG_THREADS = 256
+
+
+def _float_key(bits: torch.Tensor) -> torch.Tensor:
+    """int32 float bits -> int32 keys in the floats' order (-0.0 before
+    +0.0).  The map is its own inverse."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _key_of(x: float) -> int:
+    return int(_float_key(torch.tensor([x], dtype=torch.float32).view(torch.int32))[0])
+
+
+def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+                n_groups: int) -> Tuple[torch.Tensor, ...]:
+    """(nblk, 4096) int32|float32 values + (nblk, 4096) int32 group ids +
+    (nblk, 4096) mask -> per-block partial accumulators, each (nblk, n_groups):
+
+      cnt  int32    counted rows: mask != 0 and 0 <= gid < n_groups
+      s0   float32  the block sum (float values), in the fixed order above
+           int32    the sum of v >> 16 (int values, arithmetic shift)
+      s1   int32    the sum of v & 0xFFFF (int values; zeros for float)
+      mn   values' dtype, the minimum (identity fill for an empty cell)
+      mx   values' dtype, the maximum (identity fill for an empty cell)
+
+    A float cell with a NaN member has mn = mx = NaN (0x7FC00000), as
+    jnp.min/max propagate it; float min and max are taken on the bits'
+    order, so -0.0 < +0.0.  Every int plane equals the reference's bit for
+    bit; the float s0 differs from it only by the order of the adds.  Rows
+    are scattered to (block, group) cells, never expanded to a one-hot
+    (nblk, 4096, n_groups) cube."""
+    nb, width = values.shape
+    G = n_groups
+    dev = values.device
+    g = gids.to(torch.int32)
+    counted = (mask.to(torch.int32) != 0) & (g >= 0) & (g < G)
+    slot = torch.where(counted, g, G).to(torch.int64)  # G: a spare cell, cut off
+
+    def scatter(src: torch.Tensor, fill, reduce: str) -> torch.Tensor:
+        out = torch.full((nb, G + 1), fill, dtype=src.dtype, device=dev)
+        if reduce == "sum":
+            out.scatter_add_(1, slot, src)
+        else:
+            out.scatter_reduce_(1, slot, src, reduce, include_self=True)
+        return out[:, :G].contiguous()
+
+    cnt = scatter(torch.ones_like(g), 0, "sum")
+    if values.dtype.is_floating_point:
+        T = AGG_THREADS
+        acc = torch.zeros((nb, G + 1, T), dtype=torch.float32, device=dev)
+        v = values.to(torch.float32)
+        for i in range(width // T):
+            rows = slice(i * T, (i + 1) * T)
+            acc.scatter_add_(1, slot[:, None, rows], v[:, None, rows])
+        acc = acc[:, :G]
+        s = T // 2
+        while s:
+            acc[:, :, :s] += acc[:, :, s:2 * s]
+            s //= 2
+        s0 = acc[:, :, 0].contiguous()
+        s1 = torch.zeros_like(cnt)
+        nan = torch.isnan(v)
+        key = _float_key(v.view(torch.int32))
+        kmin = scatter(torch.where(nan, _key_of(AGG_FLT_MIN_IDENT), key),
+                       _key_of(AGG_FLT_MIN_IDENT), "amin")
+        kmax = scatter(torch.where(nan, _key_of(AGG_FLT_MAX_IDENT), key),
+                       _key_of(AGG_FLT_MAX_IDENT), "amax")
+        has_nan = scatter(nan.to(torch.int32), 0, "amax") != 0
+        mn = torch.where(has_nan, float("nan"), _float_key(kmin).view(torch.float32))
+        mx = torch.where(has_nan, float("nan"), _float_key(kmax).view(torch.float32))
+        return cnt, s0, s1, mn.to(values.dtype), mx.to(values.dtype)
+    vi = values.to(torch.int32)
+    s0 = scatter(vi >> AGG_INT_SHIFT, 0, "sum")
+    s1 = scatter(vi & AGG_INT_MASK, 0, "sum")
+    mn = scatter(vi, AGG_INT_MIN_IDENT, "amin")
+    mx = scatter(vi, AGG_INT_MAX_IDENT, "amax")
+    return cnt, s0, s1, mn.to(values.dtype), mx.to(values.dtype)
+
+
+def fused_agg_scan(packed: torch.Tensor, k: int, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """BITPACK decode -> masked ungrouped aggregate: `grouped_agg` of the
+    unpacked int32 values at n_groups = 1 (shapes (nblk, 1))."""
+    vals = bitunpack(packed, k).reshape(packed.shape[0], PACK_BLOCK)
+    return grouped_agg(vals, torch.zeros_like(vals), mask, 1)

@@ -13,28 +13,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.lakeformat.encodings import RLE_OUT_BLOCK, RLE_WINDOW
 
-SOURCE = "src/repro_torch/kernels/csrc/rle_decode.cu"
-REPLACES = "src/repro/kernels/rle_decode.py:48"
-
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> int:
-    """Zero the launch count; returns the value it had."""
-    global launches
-    n, launches = launches, 0
-    return n
+KERNEL = build.Kernel("rle_decode", "src/repro_torch/kernels/csrc/rle_decode.cu",
+                      "src/repro/kernels/rle_decode.py:48")
 
 
 def rle_decode(values: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     """(nblk, 128) int32/float32 run values + (nblk, 128) int32 nondecreasing
     ends on the card -> (nblk, 1024) values of the runs' dtype."""
-    global launches
     build.check_operand(values, "values", (torch.int32, torch.float32), (None, RLE_WINDOW))
     nblk = int(values.shape[0])
     build.check_operand(ends, "ends", (torch.int32,), (nblk, RLE_WINDOW), values.device)
     out = torch.empty((nblk, RLE_OUT_BLOCK), dtype=values.dtype, device=values.device)
     if nblk:
         build.launch("rt_rle_decode", values.device, values, ends, out, nblk)
-        launches += 1
+        KERNEL.launches += 1
     return out

@@ -4,7 +4,8 @@ equal, for the fused (BITPACK and DICT-rewritten), InSet, conjunctive,
 no-predicate, DELTA, all-pruned and corrupt-page cases; on sorted files
 (RLE pages) for RLE predicate and projected columns, compact=True and a
 bloom semijoin.  Also what the port refuses: a card that is not there, and
-the features of later slices."""
+the features of later slices.  Batched scans and aggregate pushdown have
+their own files (test_torch_batch_decode.py, test_torch_pushdown.py)."""
 
 import dataclasses
 import os
@@ -271,8 +272,8 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"offload": "preloaded"}, {"offload": "prefiltered"}, {"backend": "host"},
-    {"cache": object()},
+    {"offload": "preloaded"}, {"offload": "prefiltered"}, {"offload": "pre-aggregated"},
+    {"backend": "host"}, {"cache": object()},
 ])
 def test_later_slices_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -280,21 +281,28 @@ def test_later_slices_raise_not_implemented(kwargs):
 
 
 def test_later_scan_features_raise_not_implemented(paths):
+    """A shared decode pool, cross-request stacking and the cost model's
+    footprint mirrors belong to ROADMAP.md A.4."""
     eng = tengine.DatapathEngine(device="cpu")
     r = TReader(paths["lineitem"])
     base = tplan.ScanPlan("lineitem", ["l_quantity"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.scan(r, tplan.ScanPlan("lineitem", [], aggregates=(tplan.AggSpec("count"),)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.scan(r, base, batched=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
         eng.scan(r, base, pool={})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+        eng.scan(r, base, batched=True, pool={})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+        eng.scan_group_batched([])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+        tengine.ResumableScan(eng, r, base).ingest_batched([0], [])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+        eng.decode_footprint(r, base, [0])
 
 
 def test_port_imports_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.core.queries, "
+        "repro_torch.core.agg, repro_torch.kernels.agg_push, "
         "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.lakeformat\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"

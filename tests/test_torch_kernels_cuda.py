@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the engine on the card against the CPU path.
 
 Every test here needs a CUDA card (`cuda` marker) and skips without one; on
 the card each kernel must be bit-exact with `repro_torch.kernels.ref`.  The
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.core import DatapathEngine, agreement, tpch
 from repro_torch.core import queries as tq
+from repro_torch.core.plan import AggSpec, Cmp, ScanPlan
+from repro_torch.kernels import agg_push as cu_agg
 from repro_torch.kernels import bitunpack as cu_bitunpack
 from repro_torch.kernels import bloom_probe as cu_bloom
 from repro_torch.kernels import delta_decode as cu_delta
@@ -226,9 +229,13 @@ def tables(dev, tmp_path_factory):
     return out
 
 
+QUERY_KERNELS = ("bitunpack", "dict_decode", "delta_decode", "fused_scan", "rle_decode",
+                 "filter_compact", "bloom_probe")
+
+
 def test_queries_on_card_match_cpu(dev, tables):
-    """All six queries on unsorted and sorted files; every kernel launches
-    (rle_decode on the sorted files only)."""
+    """All six queries on unsorted and sorted files; every kernel of the
+    sequential path launches (rle_decode on the sorted files only)."""
     gpu, cpu = DatapathEngine(device="cuda"), DatapathEngine(device="cpu")
     ops.reset_kernel_launches()
     for readers in tables.values():
@@ -239,4 +246,122 @@ def test_queries_on_card_match_cpu(dev, tables):
         for name in tq.QUERIES:
             agreement.compare(name, got[name], want[name], per_supp)
     launches = ops.kernel_launches()
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in QUERY_KERNELS), launches
+
+
+def _dict_pages(rng, k, sizes, nbs, dtype):
+    dmax = max(max(sizes), 1)
+    if dtype == torch.float32:
+        d = torch.from_numpy(rng.standard_normal((len(sizes), dmax)).astype(np.float32))
+    else:
+        d = torch.from_numpy(rng.integers(-2**31, 2**31, (len(sizes), dmax)).astype(np.int32))
+    page = np.concatenate([np.full(nb, i, np.int32) for i, nb in enumerate(nbs)])
+    return (_words(rng, sum(nbs), k), d, torch.tensor(sizes, dtype=torch.int32),
+            torch.from_numpy(page))
+
+
+@pytest.mark.parametrize("k,sizes,nbs,dtype", [
+    (3, [5, 0, 8, 1], [2, 1, 3, 4], torch.int32),        # sizes differ, a size of 0
+    (14, [16_143, 16_384, 9_000], [16, 16, 5], torch.int32),  # l_orderkey's shape
+    (16, [65_536, 70_000, 3], [4, 2, 3], torch.float32),  # too large for shared memory
+    (32, [40, 7], [3, 3], torch.int32),                  # negative codes clip to 0
+])
+def test_dict_decode_batch(dev, k, sizes, nbs, dtype):
+    rng = np.random.default_rng(k + len(sizes))
+    p, d, sz, pg = (t.to(dev) for t in _dict_pages(rng, k, sizes, nbs, dtype))
+    got = cu_dict.dict_decode_batch(p, d, sz, pg, k)
+    torch.cuda.synchronize()
+    assert _same(got, ref.dict_decode_batch(p, d, sz, pg, k))
+
+
+@pytest.mark.parametrize("k", [1, 8, 12, 32])
+def test_fused_scan_batch(dev, k):
+    rng = np.random.default_rng(k + 100)
+    p = _words(rng, 6, k).to(dev)
+    lo = torch.tensor([0, 1, -2**31, 5, 3, -100], dtype=torch.int32, device=dev)
+    hi = torch.tensor([2**31 - 1, 0, -1, 5, 900, 100], dtype=torch.int32, device=dev)
+    got = cu_fused.fused_scan_batch(p, k, lo, hi)
+    torch.cuda.synchronize()
+    assert _same(got, ref.fused_scan_batch(p, k, lo, hi)) and not bool(got[1].any())
+
+
+def _agg_inputs(rng, nb, G, dtype, mask_dtype):
+    if dtype == torch.float32:
+        v = (rng.standard_normal((nb, 4096)) * 1e4).astype(np.float32)
+        v[0, :3] = [np.inf, -np.inf, -0.0]
+        v[1, 7] = np.nan
+    else:
+        v = rng.integers(-2**31, 2**31, (nb, 4096)).astype(np.int32)
+        v[0, :4] = [-2**31, 2**31 - 1, -1, 0]
+    g = rng.integers(-1, G + 1, (nb, 4096)).astype(np.int32)
+    g[0, :4] = 0
+    g[1, 7] = 0
+    m = rng.random((nb, 4096)) < 0.7
+    m[0, :4] = True
+    m[1, 7] = True
+    m[-1] = False
+    return (torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m).to(mask_dtype))
+
+
+@pytest.mark.parametrize("G", [1, 3, 128])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_grouped_agg(dev, G, dtype, mask_dtype):
+    """Every plane bit for bit, the float sum included (the same fixed
+    order), NaN cells as 0x7FC00000, gids out of range and an all-masked
+    block."""
+    rng = np.random.default_rng(G)
+    v, g, m = (t.to(dev) for t in _agg_inputs(rng, 17, G, dtype, mask_dtype))
+    got = cu_agg.grouped_agg(v, g, m, G)
+    torch.cuda.synchronize()
+    want = ref.grouped_agg(v, g, m, G)
+    assert all(_same(a, b) for a, b in zip(got, want))
+    if dtype == torch.float32:
+        assert got[3].view(torch.int32)[1, 0].item() == 0x7FC00000
+
+
+@pytest.mark.parametrize("k", [1, 6, 32])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_fused_agg(dev, k, mask_dtype):
+    rng = np.random.default_rng(k + 7)
+    p = _words(rng, 17, k).to(dev)
+    m = torch.from_numpy(rng.random((17, 4096)) < 0.5).to(mask_dtype).to(dev)
+    m[-1] = 0
+    got = cu_agg.fused_agg(p, k, m)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, ref.fused_agg_scan(p, k, m)))
+
+
+def test_batched_and_pushdown_on_card_match_cpu(dev, tables):
+    """Batched row scans and pushed-down aggregates on the card equal the
+    CPU path bit for bit (float sums included: both add in the kernels'
+    fixed order), a group domain of 20 MAX_GROUPS-wide windows included,
+    and launch the four batch and aggregate kernels."""
+    gpu, cpu = DatapathEngine(device="cuda"), DatapathEngine(device="cpu")
+    pred = Cmp("l_shipdate", "between", (365, 729))
+    plans = [
+        ScanPlan("lineitem", [], pred, aggregates=(AggSpec("sum", "l_extendedprice"),
+                                                   AggSpec("count")), group_by="l_returnflag"),
+        ScanPlan("lineitem", [], pred, aggregates=(AggSpec("sum", "l_quantity"),
+                                                   AggSpec("min", "l_quantity"),
+                                                   AggSpec("max", "l_quantity"))),
+        ScanPlan("lineitem", [], pred, aggregates=(AggSpec("sum", "l_extendedprice"),
+                                                   AggSpec("count")), group_by="l_shipdate"),
+    ]
+    ops.reset_kernel_launches()
+    for readers in tables.values():
+        li = readers["lineitem"]
+        for batched in (False, True):
+            for plan in plans:
+                a = gpu.scan(li, plan, batched=batched).aggregates
+                b = cpu.scan(li, plan, batched=batched).aggregates
+                assert all(np.array_equal(a[k], b[k]) for k in b), plan
+        for name, mk in tq.LINEITEM_PLANS.items():
+            if name == "q19":
+                continue
+            a, b = gpu.scan(li, mk(), batched=True), cpu.scan(li, mk(), batched=True)
+            assert torch.equal(a.mask.cpu(), b.mask) and int(a.count) == int(b.count)
+            assert all(_same(a.columns[c], b.columns[c]) for c in b.columns)
+    launches = ops.kernel_launches()
+    assert all(launches[k] > 0 for k in ("grouped_agg", "fused_agg", "fused_scan_batch",
+                                         "dict_decode_batch")), launches

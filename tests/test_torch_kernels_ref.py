@@ -2,6 +2,9 @@
 bit-exact against `repro.kernels.ops` with backend="ref" over seeded
 sweeps (run eagerly, under jax.disable_jit, so the sweeps compile
 nothing), and against backend="pallas" (interpret mode) at a few shapes.
+The one exception is grouped_agg's float sum, which adds in the port's
+fixed order (pinned by its own test) and agrees with the reference within
+the float32 summation bound stated there.
 Also the CPU routing of `repro_torch.kernels.ops`: a CPU tensor runs the
 plain version, and the CUDA wrappers refuse a CPU tensor.
 
@@ -18,6 +21,8 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import agg_push as jagg_push
+from repro_torch.kernels import agg_push as cu_agg
 from repro_torch.kernels import bitunpack as cu_bitunpack
 from repro_torch.kernels import bloom_probe as cu_bloom
 from repro_torch.kernels import delta_decode as cu_delta
@@ -339,3 +344,230 @@ def test_shared_dictionary_threshold():
     assert cu_dict.uses_shared(58_112)  # 227 KiB, the H100's opt-in limit
     assert not cu_dict.uses_shared(58_113)
     assert not cu_dict.uses_shared(65_536)  # dict_encode's largest
+
+
+# ---------------------------------------------------------------------------
+# batched decode and aggregate pushdown (B8-B11)
+# ---------------------------------------------------------------------------
+
+
+def _dict_stack(rng, k, sizes, nbs, dtype):
+    """Pages of codes with their own dictionaries (sizes may be 0 or past
+    2^k), padded into one (P, Dmax) array: (words, torch words, dicts,
+    sizes, page)."""
+    dmax = max(max(sizes), 1)
+    if dtype == "float32":
+        dicts = rng.standard_normal((len(sizes), dmax)).astype(np.float32)
+    else:
+        dicts = rng.integers(-2**31, 2**31, (len(sizes), dmax)).astype(np.int32)
+    for i, n in enumerate(sizes):
+        dicts[i, n:] = 0  # the padding a stack carries past a page's size
+    w, t = _words(rng, sum(nbs), k)
+    page = np.concatenate([np.full(nb, i, np.int32) for i, nb in enumerate(nbs)])
+    return w, t, dicts, np.array(sizes, np.int32), page
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("k", [1, 5, 14, 32])
+def test_dict_decode_batch_per_page_clip(k, dtype):
+    """Pages of different dictionary sizes in one stack, a page of size 0
+    (read as size 1, as the reference wrapper's np.maximum), codes past a
+    page's size: each block clips to its own page."""
+    with jax.disable_jit():
+        rng = np.random.default_rng(900 + k)
+        w, t, dicts, sizes, page = _dict_stack(rng, k, [7, 0, 300, 1], [2, 1, 3, 1], dtype)
+        want = jops.dict_decode_batch(w, dicts, sizes, page, k, backend="ref")
+        got = ref.dict_decode_batch(t, torch.from_numpy(dicts), torch.from_numpy(sizes),
+                                    torch.from_numpy(page), k)
+        _eq(got, want)
+        s = 0
+        for p, nb in enumerate([2, 1, 3, 1]):  # == the single-page decode
+            d = torch.from_numpy(dicts[p, :max(sizes[p], 1)])
+            assert torch.equal(got[s:s + nb], ref.dict_decode(t[s:s + nb], d, k))
+            s += nb
+
+
+@pytest.mark.parametrize("k", [1, 8, 12, 32])
+def test_fused_scan_batch_per_block_bounds(k):
+    with jax.disable_jit():
+        rng = np.random.default_rng(950 + k)
+        w, t = _words(rng, 6, k)
+        lo = np.array([0, 1, -2**31, 5, 3, -100], np.int32)  # block 1: the empty (1, 0)
+        hi = np.array([2**31 - 1, 0, -1, 5, 900, 100], np.int32)
+        want = jops.fused_scan_batch(w, k, lo, hi, backend="ref")
+        got = ref.fused_scan_batch(t, k, torch.from_numpy(lo), torch.from_numpy(hi))
+        _eq(got, want)
+        assert not got[1].any()
+
+
+def _agg_inputs(rng, nb, G, dtype):
+    """Values over the dtype's range (int32 at +-2^31; float32 with +-inf and
+    NaN), group ids past both ends of [0, G), a random mask with one block
+    all masked out."""
+    if dtype == "float32":
+        v = (rng.standard_normal((nb, 4096)) * 1e4).astype(np.float32)
+        v[0, :3] = [np.inf, -np.inf, 0.5]
+        v[min(1, nb - 1), 7] = np.nan
+    else:
+        v = rng.integers(-2**31, 2**31, (nb, 4096)).astype(np.int32)
+        v[0, :4] = [-2**31, 2**31 - 1, -1, 0]
+    g = rng.integers(-1, G + 1, (nb, 4096)).astype(np.int32)
+    g[0, :4] = 0
+    m = rng.random((nb, 4096)) < 0.7
+    m[0, :4] = True
+    m[-1] = False  # an all-masked block: identity fills
+    return v, g, m
+
+
+def _float_sum_tol(v, g, m, G):
+    """Per (block, group) bound on the difference of two float32 sums of the
+    same cell in different orders: each is within 4096 * 2^-24 * sum|v| of
+    the exact sum, so they differ by at most twice that."""
+    a = np.where(m[:, :, None] & (g[:, :, None] == np.arange(G)), np.abs(v)[:, :, None], 0)
+    return 2 * 4096 * 2.0**-24 * a.sum(axis=1, dtype=np.float64)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("G", [1, 3, 128])
+def test_grouped_agg_against_reference(G, dtype):
+    """Every plane but the float s0 bit-exact (NaN cells equal as NaN); the
+    float s0 within the float32 summation bound; against the jnp oracle
+    and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(1000 + G)
+    v, g, m = _agg_inputs(rng, 3, G, dtype)
+    got = ref.grouped_agg(torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m), G)
+    with jax.disable_jit():
+        want = jref.grouped_agg(jnp.asarray(v), jnp.asarray(g), jnp.asarray(m, jnp.int32), G)
+    pallas = jagg_push.grouped_agg_pallas(jnp.asarray(v), jnp.asarray(g),
+                                          jnp.asarray(m, jnp.int32), G)
+    for w in (want, pallas):
+        for i, (a, b) in enumerate(zip(got, w)):
+            a, b = a.numpy(), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape == (3, G), i
+            if i == 1 and dtype == "float32":
+                fin = np.isfinite(b)
+                np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+                assert (np.abs(a[fin] - b[fin]) <= _float_sum_tol(v, g, m, G)[fin]).all()
+            else:
+                np.testing.assert_array_equal(a, b)
+    assert (got[0][-1] == 0).all()  # the all-masked block
+    if dtype == "float32":
+        assert np.isnan(got[3][1, 0].item()) == bool(
+            m[1, 7] and 0 <= g[1, 7] < G and g[1, 7] == 0)
+
+
+def test_grouped_agg_float_sum_order_is_the_kernels():
+    """The plain float sum adds in the order csrc/agg_push.cu does: row
+    t + 256*i into slot (group, t) for i = 0..15, then slot[j] += slot[j+s]
+    for s = 128..1.  Recomputed here with numpy float32 adds, bit for bit."""
+    rng = np.random.default_rng(77)
+    G, T = 3, ref.AGG_THREADS
+    v, g, m = _agg_inputs(rng, 2, G, "float32")
+    v[np.isnan(v) | np.isinf(v)] = 1.25
+    slots = np.zeros((2, G, T), np.float32)
+    for b in range(2):
+        for i in range(4096 // T):
+            for t in range(T):
+                r = i * T + t
+                if m[b, r] and 0 <= g[b, r] < G:
+                    slots[b, g[b, r], t] = np.float32(slots[b, g[b, r], t] + v[b, r])
+    s = T // 2
+    while s:
+        slots[:, :, :s] = slots[:, :, :s] + slots[:, :, s:2 * s]
+        s //= 2
+    got = ref.grouped_agg(torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m), G)
+    np.testing.assert_array_equal(got[1].numpy().view(np.int32), slots[:, :, 0].view(np.int32))
+
+
+def test_grouped_agg_float_min_max_order_free():
+    """-0.0 sorts below +0.0 and NaN poisons its cell, whatever the rows' order."""
+    v = np.zeros((1, 4096), np.float32)
+    v[0, 0], v[0, 1] = 0.0, -0.0
+    v[0, 2] = np.nan
+    g = np.zeros((1, 4096), np.int32)
+    g[0, 2] = 1
+    m = np.zeros((1, 4096), bool)
+    m[0, :3] = True
+    for vv in (v, v[:, ::-1].copy()):
+        gg = g if vv is v else g[:, ::-1].copy()
+        mm = m if vv is v else m[:, ::-1].copy()
+        cnt, _, _, mn, mx = ref.grouped_agg(torch.from_numpy(vv), torch.from_numpy(gg),
+                                            torch.from_numpy(mm), 2)
+        assert cnt.tolist() == [[2, 1]]
+        assert mn.numpy().view(np.int32)[0, 0] == np.float32(-0.0).view(np.int32)
+        assert mx.numpy().view(np.int32)[0, 0] == np.float32(0.0).view(np.int32)
+        assert mn.numpy().view(np.int32)[0, 1] == 0x7FC00000 == mx.numpy().view(np.int32)[0, 1]
+
+
+@pytest.mark.parametrize("k", [1, 6, 32])
+def test_fused_agg_against_reference(k):
+    rng = np.random.default_rng(1100 + k)
+    w, t = _words(rng, 3, k)
+    m = rng.random((3, 4096)) < 0.5
+    m[2] = False
+    got = ref.fused_agg_scan(t, k, torch.from_numpy(m))
+    with jax.disable_jit():
+        want = jref.fused_agg_scan(jnp.asarray(w), k, jnp.asarray(m, jnp.int32))
+    pallas = jagg_push.fused_agg_pallas(jnp.asarray(w), k, jnp.asarray(m, jnp.int32))
+    for a, b, c in zip(got, want, pallas):
+        _eq(a, b)
+        _eq(a, c)
+    assert got[3][2].item() == 2**31 - 1 and got[4][2].item() == -2**31
+
+
+def test_batch_kernels_against_pallas_interpret():
+    """dict_decode_batch and fused_scan_batch as Pallas kernels in interpret
+    mode (through the reference's ops) agree with the plain versions."""
+    rng = np.random.default_rng(1200)
+    w, t, dicts, sizes, page = _dict_stack(rng, 6, [5, 64, 2], [1, 2, 1], "int32")
+    _eq(ref.dict_decode_batch(t, torch.from_numpy(dicts), torch.from_numpy(sizes),
+                              torch.from_numpy(page), 6),
+        jops.dict_decode_batch(w, dicts, sizes, page, 6, backend="pallas"))
+    lo = np.array([0, 3, 1, -5], np.int32)
+    hi = np.array([63, 40, 0, 5], np.int32)
+    _eq(ref.fused_scan_batch(t, 6, torch.from_numpy(lo), torch.from_numpy(hi)),
+        jops.fused_scan_batch(w, 6, lo, hi, backend="pallas"))
+
+
+def test_batch_and_agg_ops_route_cpu_tensors_to_plain_versions():
+    """The batch and aggregate entries of ops count ONE dispatch each and run
+    the plain version on CPU tensors; no kernel launches."""
+    rng = np.random.default_rng(13)
+    _, t, dicts, sizes, page = _dict_stack(rng, 4, [3, 9], [1, 2], "float32")
+    ops.reset_dispatch_count()
+    ops.reset_kernel_launches()
+    d, s, p = torch.from_numpy(dicts), torch.from_numpy(sizes), torch.from_numpy(page)
+    assert torch.equal(ops.dict_decode_batch(t, d, s, p, 4),
+                       ref.dict_decode_batch(t, d, s, p, 4))
+    lo, hi = torch.zeros(3, dtype=torch.int32), torch.full((3,), 7, dtype=torch.int32)
+    assert torch.equal(ops.fused_scan_batch(t, 4, lo, hi), ref.fused_scan_batch(t, 4, lo, hi))
+    assert torch.equal(ops.bitunpack_batch(t, 4), ref.bitunpack(t, 4))
+    v, g, m = (torch.from_numpy(a) for a in _agg_inputs(rng, 2, 3, "int32"))
+    for a, b in zip(ops.grouped_agg_batch(v, g, m, 3), ref.grouped_agg(v, g, m, 3)):
+        assert torch.equal(a, b)
+    m3 = torch.ones((3, 4096), dtype=torch.bool)
+    for a, b in zip(ops.fused_agg_batch(t, 4, m3), ref.fused_agg_scan(t, 4, m3)):
+        assert torch.equal(a, b)
+    assert ops.dispatch_count() == 5
+    assert all(n == 0 for n in ops.kernel_launches().values())
+    with pytest.raises(AssertionError):
+        ops.grouped_agg_batch(v, g, m, ops.MAX_GROUPS + 1)
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    t = torch.zeros((1, 2, 128), dtype=torch.int32)
+    i1 = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cu_dict.dict_decode_batch(t, torch.zeros((1, 4), dtype=torch.int32), i1, i1, 2)
+    with pytest.raises(ValueError):
+        cu_fused.fused_scan_batch(t, 2, i1, i1)
+    with pytest.raises(ValueError):
+        cu_agg.grouped_agg(torch.zeros((1, 4096), dtype=torch.int32),
+                           torch.zeros((1, 4096), dtype=torch.int32),
+                           torch.zeros((1, 4096), dtype=torch.bool), 3)
+    with pytest.raises(ValueError):
+        cu_agg.fused_agg(t, 2, torch.zeros((1, 4096), dtype=torch.bool))
+    with pytest.raises(ValueError):  # n_groups past MAX_GROUPS, before any device check
+        cu_agg.grouped_agg(torch.zeros((1, 4096), dtype=torch.int32),
+                           torch.zeros((1, 4096), dtype=torch.int32),
+                           torch.zeros((1, 4096), dtype=torch.bool), 129)
