@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
 2. build the hand-written kernels from `src/repro_torch/kernels/csrc` (one
    nvcc per source, all started together, then one link);
-3. each kernel against its plain PyTorch version on the card, bit for bit
-   (floats as bits), at the main path's shape (one 65,536-row row group: 16
+3. each datapath kernel against its plain PyTorch version on the card, bit
+   for bit (floats as bits), at the main path's shape (one 65,536-row row group: 16
    packed blocks or 64 RLE/probe blocks; the part table's 196 blocks for
    compaction) and over a stack of 92 row groups (1,472 or 5,888 blocks),
    plus the edge cases (k = 1, 31, 32, a dictionary too large for shared
@@ -47,9 +47,28 @@ Phases, in order; any failure exits non-zero:
    device="cpu" (integers exactly, float sums within rtol 1e-4);
 8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share;
-9. print one JSON line with every kernel's record (its launches, summed over
-   the counted windows of phases 5 and 7 on both file orders, must be > 0);
-10. print the device line last.
+9. the LM serving path at the full width of qwen3-1.7b (28 layers, d_model
+   2048, 16 heads, 8 kv heads of 128, d_ff 6144, vocab 151,936 padded to
+   153,600; ~1.72 B bf16 parameters drawn by `init_params` from --seed),
+   with every launch count set to 0 just before (a), (b)'s first engine and
+   (d)'s entry-point calls and read just after them: (a) a 4096-token prompt
+   through `prefill` bit-packed (k = 18, through the bitunpack kernel) and as
+   tokens, bit-identical; (b) a ServeEngine of 4 slots drains requests of
+   1024, 2048, 3072 and 4096 tokens with 32 new tokens each, a second engine
+   gives the same tokens, decode at S agrees with the (S+1)-token prefill
+   in bf16 and, with float32 weights from the same seed, in float32;
+   it prints prefill ms per request, decode ms per tick, tokens/s, peak
+   device memory and, from torch.profiler, one decode tick's idle share;
+   (c) the config cut to 2 layers at float32 (TF32 off), the card against
+   the CPU; (d) `ops.flash_attention` on layer 0's q, k, v of (a)'s prompt in
+   bf16 and float32 against `ref.mha` and the model's own `layers.attention`,
+   then the kernel timed as phase 3 times one at that shape and at a stack
+   of 4 prompts, beside its bound, `ref.mha` and, as a yardstick the port
+   never calls, torch's scaled_dot_product_attention;
+10. print one JSON line with every kernel's record (its launches, summed over
+   the counted windows of phases 5 and 7 on both file orders and of phase 9,
+   must be > 0);
+11. print the device line last.
 """
 
 from __future__ import annotations
@@ -71,14 +90,20 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DatapathEngine, agreement, tpch  # noqa: E402
 from repro_torch.core import queries as Q  # noqa: E402
 from repro_torch.core.plan import AggSpec, Cmp, ScanPlan  # noqa: E402
+from repro_torch.distributed.sharding import local_ctx  # noqa: E402
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
 from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
-from repro_torch.lakeformat.encodings import rle_encode  # noqa: E402
+from repro_torch.kernels import flash_attention  # noqa: E402
+from repro_torch.lakeformat.encodings import bitpack_encode, rle_encode  # noqa: E402
 from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
+from repro_torch.models import layers, model  # noqa: E402
+from repro_torch.models.transformer import _proj_qkv  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # The data sheet's 67e12 float32 FLOP/s is 128 FMA lanes per SM at 2
@@ -705,6 +730,266 @@ def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM serving path at full width, and flash_attention
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-1.7b"  # 28 layers, d_model 2048, 16 heads, 8 kv heads, head_dim 128
+LM_PROMPTS = (1024, 2048, 3072, 4096)  # multiples of the 1024 q-chunk
+LM_NEW_TOKENS = 32
+LM_SLOTS = 4
+LM_MAX_LEN = 4160
+PACKED_LEN = 4096  # one packed block of k = 18-bit token ids
+CHECK_LAYERS, CHECK_LEN = 2, 256  # (c): the config cut to 2 layers, float32
+STACK_BATCH = 4  # flash_attention's stack: 4 prompts of PACKED_LEN at layer 0
+BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# (b) decode logits at S against the (S+1)-token prefill, in bfloat16 at 28
+# layers: the two paths round their bf16 activations at different places
+# (a one-row step against 1,025-row products), so they agree to the bf16
+# step, not bit for bit.  bf16 keeps 8 significant bits (a relative step of
+# 2^-8 to 2^-7); allowed: four times that over the whole logits vector,
+# ||d - p||_2 <= 2^-5 ||p||_2.  A wrong cache position or mask moves the
+# logits by the order of the logits themselves.
+DECODE_REL_TOL = 2.0 ** -5
+# (b) the same check at float32, and (c) the card against the CPU at
+# float32, TF32 off: sums in other orders over at most 6,144 terms agree to
+# ~1e-5 on logits of std ~0.9; 1e-3 leaves room for sin/cos/pow that differ
+# by an ulp between kernels or devices, and for 28 layers of it in (b).
+F32_ATOL = 1e-3
+# (d) flash_attention against ref.mha and the model's attention: float32 at
+# the reference test's atol 3e-5 / rtol 1e-4 (tests/test_kernels.py; sums in
+# another order); bfloat16 within one bf16 step of the largest output,
+# 2^-7 max|want|, since each side rounds its float32 result once.
+FLASH_ATOL, FLASH_RTOL = 3e-5, 1e-4
+
+
+def flash_err(got: torch.Tensor, want: torch.Tensor, label: str) -> float:
+    """max |got - want| of an attention output, raising past its tolerance."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if got.dtype == torch.float32:
+        ok = bool(((g - w).abs() <= FLASH_ATOL + FLASH_RTOL * w.abs()).all())
+    else:
+        ok = err <= 2.0 ** -7 * float(w.abs().max())
+    if not ok:
+        raise AssertionError(f"{label}: flash_attention differs (max |err| {err})")
+    return err
+
+
+def causal_visible_keys(S: int) -> int:
+    """Keys the rows of a causal S x S attention see, all rows together."""
+    return S * (S + 1) // 2
+
+
+def layer0_qkv(params, cfg, tokens: torch.Tensor):
+    """Layer 0's q, k, v of a prefill of `tokens`, as (B, H, S, D)."""
+    ctx = local_ctx()
+    lp = {k: w[0] for k, w in params["segments"][0].items()}
+    B, S = tokens.shape
+    h = layers.embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
+    x = layers.rmsnorm(h, lp["ln1"], cfg.norm_eps, cfg.norm_plus_one)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    q, k, v = _proj_qkv(x, lp, cfg, positions, ctx)
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def lm_serving(seed: int, device: str = "cuda"):
+    """Phase 9.  Returns (the kernel launches of its counted window,
+    flash_attention's records in phase 3's form)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for seg in params["segments"] for w in seg.values()) + sum(
+        w.numel() for k, w in params.items() if k != "segments")
+    log(f"      {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv} kv) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}); {n_params} parameters in {cfg.dtype}, drawn from seed "
+        f"{seed} in {time.perf_counter() - t0:.1f} s")
+
+    k_bits = model.token_bits(cfg)
+    toks = rng.integers(0, cfg.vocab, (1, PACKED_LEN)).astype(np.int64)
+    packed = np.stack([bitpack_encode(toks[0], k_bits)]).view(np.int32)
+    tokens = torch.from_numpy(toks.astype(np.int32)).to(device)
+    packed_t = torch.from_numpy(packed).to(device)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)),
+                    max_new_tokens=LM_NEW_TOKENS) for i, n in enumerate(LM_PROMPTS)]
+    qkv = layer0_qkv(params, cfg, tokens)
+
+    # the counted window: (a), (b)'s first engine, and (d)'s entry-point calls
+    ops.reset_kernel_launches()
+    l_packed, c_packed = model.prefill(params, {"packed": packed_t}, cfg)
+    l_tokens, c_tokens = model.prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=device)
+    for r in reqs:
+        eng.submit(r)
+    ticks = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = eng.step()
+        torch.cuda.synchronize()
+        ticks.append((n, (time.perf_counter() - t) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    outs = {"bfloat16": ops.flash_attention(*qkv, causal=True, scale=cfg.attn_scale),
+            "float32": ops.flash_attention(*(t.float() for t in qkv), causal=True,
+                                           scale=cfg.attn_scale)}
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    log(f"      launches on the LM path: {launches}")
+
+    # (a) packed prompt == tokens, bit for bit, through bitunpack
+    if not torch.equal(l_packed, l_tokens) or any(
+            not torch.equal(c_packed[0][k], c_tokens[0][k]) for k in ("k", "v")):
+        raise AssertionError("packed-prompt prefill differs from the tokens prefill")
+    if launches["bitunpack"] < 1:
+        raise AssertionError("the packed prompt did not go through the bitunpack kernel")
+    log(f"      (a) {PACKED_LEN}-token prompt packed at k={k_bits} ({packed.nbytes} B against "
+        f"{toks.size * 4} B of int32 tokens): logits and {cfg.n_layers}-layer caches "
+        "bit-identical to the tokens prefill")
+
+    # (b) serving: every request drained with its tokens, deterministically
+    got = {r.rid: r.out for r in reqs}
+    if sorted(got) != list(range(len(LM_PROMPTS))) or any(
+            len(o) != LM_NEW_TOKENS for o in got.values()):
+        raise AssertionError(f"not every request got {LM_NEW_TOKENS} tokens: "
+                             f"{ {k: len(o) for k, o in got.items()} }")
+    again = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=device)
+    reqs2 = [Request(rid=r.rid, tokens=r.tokens, max_new_tokens=LM_NEW_TOKENS) for r in reqs]
+    for r in reqs2:
+        again.submit(r)
+    again.step()  # admits all four
+    busy_ms, top = profiled(again.step)
+    again.run_until_drained()
+    if {r.rid: r.out for r in reqs2} != got:
+        raise AssertionError("a second engine gave other tokens")
+    decode_ms = [ms for _, ms in ticks[1:]]
+    tick_ms = sorted(decode_ms)[len(decode_ms) // 2]
+    tokens_per_s = sum(n for n, _ in ticks[1:]) / (sum(decode_ms) / 1e3)
+    S = LM_PROMPTS[0]
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1)).astype(np.int32)).to(device)
+    _, caches = model.prefill(params, {"tokens": seq[:, :S]}, cfg, cache_len=S + 8)
+    l_full, _ = model.prefill(params, {"tokens": seq}, cfg, cache_len=S + 8)
+    l_dec, _ = model.decode_step(params, seq[:, S:], caches, S, cfg)
+    diff = (l_dec.float() - l_full.float())
+    rel = float(diff.norm() / l_full.float().norm())
+    if not rel <= DECODE_REL_TOL:
+        raise AssertionError(f"decode at {S} differs from the {S + 1}-token prefill: "
+                             f"relative L2 {rel} > {DECODE_REL_TOL}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = model.init_params(cfg32, seed, device=device)
+    _, caches = model.prefill(params32, {"tokens": seq[:, :S]}, cfg32, cache_len=S + 8)
+    l_full32, _ = model.prefill(params32, {"tokens": seq}, cfg32, cache_len=S + 8)
+    l_dec32, _ = model.decode_step(params32, seq[:, S:], caches, S, cfg32)
+    err32 = float((l_dec32 - l_full32).abs().max())
+    if not err32 <= F32_ATOL:
+        raise AssertionError(f"float32 decode at {S} differs from the {S + 1}-token prefill: "
+                             f"max |err| {err32} > {F32_ATOL}")
+    del params32
+    prefill_ms = {}
+    for r in reqs:
+        batch = {"tokens": torch.from_numpy(np.asarray(r.tokens, np.int32)[None]).to(device)}
+        model.prefill(params, batch, cfg, cache_len=LM_MAX_LEN)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill(params, batch, cfg, cache_len=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms[len(r.tokens)] = (time.perf_counter() - t) * 1e3
+    log(f"      (b) {len(reqs)} requests of {list(LM_PROMPTS)} tokens drained on {LM_SLOTS} "
+        f"slots in {len(ticks)} ticks, {LM_NEW_TOKENS} tokens each, a second engine gives the "
+        f"same tokens; decode at {S} against the {S + 1}-token prefill: bf16 relative L2 "
+        f"{rel:.3e} (max |err| {float(diff.abs().max()):.4f}, tolerance {DECODE_REL_TOL}), "
+        f"float32 max |err| {err32:.3e} (tolerance {F32_ATOL})")
+    log(f"      prefill_ms per request (warm, cache_len {LM_MAX_LEN}): {prefill_ms}; first tick "
+        f"(4 admissions + 1 decode) {ticks[0][1]:.1f} ms; decode_ms per tick (median) "
+        f"{tick_ms:.2f}, tokens/s {tokens_per_s:.1f}; peak device bytes {peak}; one decode "
+        f"tick: busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / tick_ms:.3f} top={top}")
+    del eng, again, caches, c_packed, c_tokens
+
+    # (c) the card against the CPU: 2 layers at float32
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS, dtype="float32")
+    cpu_params = model.init_params(cfg2, seed, device="cpu")
+    card_params = to_device(cpu_params, device)
+    seq = rng.integers(0, cfg.vocab, (1, CHECK_LEN)).astype(np.int32)
+    l_cpu, c_cpu = model.prefill(cpu_params, {"tokens": torch.from_numpy(seq)}, cfg2)
+    l_card, c_card = model.prefill(card_params, {"tokens": torch.from_numpy(seq).to(device)},
+                                   cfg2)
+    errs = [float((l_card.cpu() - l_cpu).abs().max())] + [
+        float((c_card[0][k].cpu() - c_cpu[0][k]).abs().max()) for k in ("k", "v")]
+    if not max(errs) <= F32_ATOL:
+        raise AssertionError(f"card differs from the CPU at float32: {errs}")
+    log(f"      (c) {CHECK_LAYERS} layers, float32, {CHECK_LEN} tokens: card against CPU max "
+        f"|err| logits {errs[0]:.3e}, k cache {errs[1]:.3e}, v cache {errs[2]:.3e} "
+        f"(tolerance {F32_ATOL})")
+    del cpu_params, card_params
+
+    # (d) flash_attention on layer 0's q, k, v: the entry point's outputs
+    # against ref.mha and the model's own attention, then timed
+    for dt, out in outs.items():
+        q, k, v = (t.to(getattr(torch, dt)) for t in qkv)
+        e_ref = flash_err(out, ref.mha(q, k, v, causal=True, scale=cfg.attn_scale), f"{dt} mha")
+        model_out = layers.attention(*(t.transpose(1, 2) for t in (q, k, v)), local_ctx(),
+                                     causal=True, scale=cfg.attn_scale, chunk=cfg.attn_block)
+        e_model = flash_err(out, model_out.transpose(1, 2), f"{dt} layers.attention")
+        log(f"      (d) {dt} {tuple(q.shape)}: max |err| against ref.mha {e_ref:.3e}, against "
+            f"layers.attention {e_model:.3e}")
+    stack_toks = torch.from_numpy(rng.integers(0, cfg.vocab, (STACK_BATCH, PACKED_LEN))
+                                  .astype(np.int32)).to(device)
+    stack = layer0_qkv(params, cfg, stack_toks)
+    return launches, flash_cases(qkv, stack, cfg)
+
+
+def flash_cases(path, stack, cfg) -> dict:
+    """flash_attention timed as phase 3 times a kernel: at the path's shape
+    (one qwen3 layer at S = 4096, bf16), the stack (4 prompts), and float32."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=path[0].device)
+    rec = {"max_abs_err": 0.0, "cases": []}
+    for label, (q, k, v) in (("path: layer 0, bf16", path),
+                             (f"stack: {STACK_BATCH} prompts, bf16", stack),
+                             ("path: layer 0, float32", tuple(t.float() for t in path))):
+        B, H, S, D = q.shape
+        kw = dict(causal=True, scale=cfg.attn_scale)
+        err = flash_err(flash_attention.flash_attention(q, k, v, **kw), ref.mha(q, k, v, **kw),
+                        label)
+        torch.cuda.synchronize()
+        ms = median_ms(lambda: flash_attention.flash_attention(q, k, v, **kw), 10, flush)
+        plain_ms = median_ms(lambda: ref.mha(q, k, v, **kw), 3, flush)
+        library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=cfg.attn_scale, enable_gqa=True), 10, flush)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        nops = 4 * B * H * D * causal_visible_keys(S)
+        rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"  flash_attention {label:26s} {tuple(q.shape)} kv {tuple(k.shape)} "
+            f"max|err|={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({nbytes} B, {nops} "
+            f"FLOP, by {bound_by}) library_ms={library_ms:.4f}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["cases"].append({"label": label, "shape": [B, H, S, D], "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms, "stage_ms": None})
+    del flush
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -805,23 +1090,33 @@ def main(argv=None) -> int:
             log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
 
     # phase 9
+    log(f"[9] the LM serving path on the card: {LM_ARCH} at full width")
+    lm_launches, records["flash_attention"] = lm_serving(args.seed)
+
+    # phase 10
     kernels = []
     for name, kern in ops.KERNELS.items():
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
+        size = ({"shape": path["shape"], "stack_shape": stack["shape"]} if "shape" in path
+                else {"blocks": path["blocks"], "stack_blocks": stack["blocks"]})
         kernels.append({
             "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
-            "launches": sum(launches[o][name] + batched_launches[o][name] for o in launches),
+            "launches": sum(launches[o][name] + batched_launches[o][name] for o in launches)
+            + lm_launches[name],
             "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
-            "bound_by": path["bound_by"], "library_ms": path["library_ms"],
-            "blocks": path["blocks"], "stack_blocks": stack["blocks"],
+            "bound_by": path["bound_by"], "library_ms": path["library_ms"], **size,
             "stack_ms": stack["ms"], "stack_plain_ms": stack["plain_ms"],
             "stack_bound_ms": stack["bound_ms"], "stack_library_ms": stack["library_ms"],
             "launches_by_order": {o: launches[o][name] for o in launches},
             "launches_batched_pushdown_by_order": {o: batched_launches[o][name]
                                                    for o in batched_launches},
+            "launches_lm": lm_launches[name],
         })
-        if path["stage_ms"] is not None:
+        if name == "flash_attention":
+            kernels[-1].update(library="torch.nn.functional.scaled_dot_product_attention "
+                               "(is_causal, enable_gqa; a yardstick, never called by the port)")
+        elif path["stage_ms"] is not None:
             kernels[-1].update(library="torch.masked_select (yardstick of the _compact stage)",
                                stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
         elif name == "grouped_agg":
@@ -829,9 +1124,9 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the query or batched paths: {idle}")
+        raise AssertionError(f"kernels never launched on the query, batched or LM paths: {idle}")
 
-    # phase 10
+    # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

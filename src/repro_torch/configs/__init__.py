@@ -1,0 +1,67 @@
+"""Per-architecture configs (exact assigned numbers) + reduced smoke configs.
+
+A copy of `repro/configs` for the families the port runs: the four dense
+architectures (`PORTED`).  `get_config` / `get_smoke_config` resolve the
+same ids and aliases as the reference and raise `NotImplementedError`,
+naming the ROADMAP.md item, for the families not yet ported (moe, ssm,
+hybrid, audio, vlm).
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import LM_REST, not_ported
+
+ARCH_IDS = [
+    "llama4_maverick_400b",
+    "deepseek_moe_16b",
+    "qwen3_1_7b",
+    "gemma_7b",
+    "mistral_large_123b",
+    "granite_3_8b",
+    "mamba2_370m",
+    "whisper_base",
+    "llava_next_34b",
+    "hymba_1_5b",
+]
+
+# the dense architectures, the only ones with a module here
+PORTED = ("qwen3_1_7b", "gemma_7b", "mistral_large_123b", "granite_3_8b")
+
+# external ids (as assigned) -> module names
+ALIASES = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "gemma-7b": "gemma_7b",
+    "mistral-large-123b": "mistral_large_123b",
+    "granite-3-8b": "granite_3_8b",
+    "mamba2-370m": "mamba2_370m",
+    "whisper-base": "whisper_base",
+    "llava-next-34b": "llava_next_34b",
+    "hymba-1.5b": "hymba_1_5b",
+}
+
+
+def _module(arch_id: str):
+    name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
+    if name not in PORTED:
+        if name in ARCH_IDS:
+            raise not_ported(f"architecture {arch_id!r}", LM_REST)
+        raise KeyError(f"unknown architecture {arch_id!r}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).config()
+
+
+def get_smoke_config(arch_id: str):
+    return _module(arch_id).smoke_config()
+
+
+def list_archs() -> List[str]:
+    """The architectures the port runs."""
+    return list(PORTED)

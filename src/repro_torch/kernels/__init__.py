@@ -1,3 +1,3 @@
-"""Hand-written Hopper kernels of the datapath (CUDA C++ in `csrc/`), their
-plain PyTorch versions (`ref.py`) and the public, device-routed API
-(`ops.py`)."""
+"""Hand-written Hopper kernels of the datapath and of attention (CUDA C++ in
+`csrc/`), their plain PyTorch versions (`ref.py`) and the public,
+device-routed API (`ops.py`)."""

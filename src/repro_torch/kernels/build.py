@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu",
-           "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu", "agg_push.cu")
+           "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu", "agg_push.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -36,8 +37,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each entry point, after its pointer/int arguments the stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each entry point, after its pointer/int/float arguments the stream
 SIGNATURES = {
     "rt_bitunpack": (_P, _P, _I, _I),
     "rt_dict_decode": (_P, _P, _I, _P, _I, _I, _I),
@@ -50,6 +51,7 @@ SIGNATURES = {
     "rt_fused_scan_batch": (_P, _P, _P, _P, _I, _I),
     "rt_grouped_agg": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I),
     "rt_fused_agg": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,10 +147,11 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point `name` on `device`'s current stream.  Tensors are
-    passed as their data pointers, ints as C ints.  Raises RuntimeError with
-    CUDA's message when the launch is refused."""
+    passed as their data pointers, floats as C floats, ints as C ints.
+    Raises RuntimeError with CUDA's message when the launch is refused."""
     lib = library()
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a if isinstance(a, float)
+              else int(a) for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*c_args, stream)

@@ -1,7 +1,7 @@
 """Public kernel API of the port: the same names, shapes and dtypes as
 `repro/kernels/ops.py`: decode, the fused range filter, stream compaction,
 the bloom semijoin, their batched (`*_batch`) forms over pages stacked
-along the block axis, and the aggregate pushdown.
+along the block axis, the aggregate pushdown and attention.
 
 There is no `backend` switch: each call is routed by its operand's device.
 A CUDA tensor launches the hand-written Hopper kernel (and raises if the
@@ -11,7 +11,8 @@ kernel cannot run); a CPU tensor runs the plain PyTorch version in
 The module-level dispatch counter mirrors the reference's: every public
 call counts the launches it issues, including PLAIN's device put, so the
 engine's `kernel_launches` and the benchmarks' dispatch metric compare one
-to one with the JAX package.
+to one with the JAX package.  `flash_attention` counts none, as in the
+reference; its kernel's `launches` does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.kernels import bloom_probe as _bloom_probe
 from repro_torch.kernels import delta_decode as _delta_decode
 from repro_torch.kernels import dict_decode as _dict_decode
 from repro_torch.kernels import filter_compact as _filter_compact
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import fused_scan as _fused_scan
 from repro_torch.kernels import ref
 from repro_torch.kernels import rle_decode as _rle_decode
@@ -39,6 +41,7 @@ KERNELS = {k.name: k for k in (
     _bitunpack.KERNEL, _dict_decode.KERNEL, _delta_decode.KERNEL, _fused_scan.KERNEL,
     _rle_decode.KERNEL, _filter_compact.KERNEL, _bloom_probe.KERNEL,
     _dict_decode.BATCH, _fused_scan.BATCH, _agg_push.GROUPED, _agg_push.FUSED,
+    _flash_attention.KERNEL,
 )}
 
 # ---------------------------------------------------------------------------
@@ -286,3 +289,22 @@ def fused_agg_batch(packed: torch.Tensor, k: int, mask: torch.Tensor) -> Tuple[t
     if _on_card(packed, mask):
         return _agg_push.fused_agg(packed, k, mask)
     return ref.fused_agg_scan(packed, k, mask)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, scale: Optional[float] = None,
+                    bq: int = 256, bk: int = 256) -> torch.Tensor:
+    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's dtype: `ref.mha`'s
+    function (ends aligned, GQA, optional sliding window).  `bq`/`bk` are
+    accepted for the reference's signature; the kernel's tiles are its own
+    (64 rows, 64 keys)."""
+    del bq, bk
+    if _on_card(q, k, v):
+        return _flash_attention.flash_attention(q, k, v, causal=causal, window=window,
+                                                scale=scale)
+    return ref.mha(q, k, v, causal=causal, window=window, scale=scale)

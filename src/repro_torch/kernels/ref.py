@@ -8,6 +8,10 @@ the only thing that routes here, `kernels/ops.py`), the tests hold them
 bit-exact against the JAX reference, and `chip_smoke.py` holds each CUDA
 kernel bit-exact against them on the card.
 
+`mha` is the plain attention of `repro/kernels/ref.py`, the oracle of the
+`flash_attention` kernel; unlike the decoders it is held to a tolerance,
+since the two sum in different orders.
+
 Packed words are int32 views of the file's uint32 words: torch's CPU shift
 ops are missing for uint32, so every shift here is on int32 and arithmetic
 right shifts are masked back to logical ones.
@@ -351,3 +355,36 @@ def fused_agg_scan(packed: torch.Tensor, k: int, mask: torch.Tensor) -> Tuple[to
     unpacked int32 values at n_groups = 1 (shapes (nblk, 1))."""
     vals = bitunpack(packed, k).reshape(packed.shape[0], PACK_BLOCK)
     return grouped_agg(vals, torch.zeros_like(vals), mask, 1)
+
+
+# ---------------------------------------------------------------------------
+# attention (oracle for the flash_attention kernel)
+# ---------------------------------------------------------------------------
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+        window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention.  q: (B,H,Sq,D), k/v: (B,Hkv,Sk,D); GQA by head
+    repeat (q head h reads kv head h // (H/Hkv)).  Logits and softmax in
+    float32, masked logits -1e30 (a row that sees no key averages V over all
+    Sk keys), ends aligned (query i sits at position i + Sk - Sq); the output
+    has q's dtype."""
+    B, H, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv != H:
+        rep = H // Hkv
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    Sk = k.shape[2]
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)  # align ends (decode-friendly)
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m = m & (ki <= qi)
+    if window is not None:
+        m = m & (ki > qi - window)
+    logits = torch.where(m[None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,149 @@
+"""Shared model layers: norms, rotary, GQA attention, GLU MLPs, embeddings.
+
+Port of `repro/models/layers.py` (its `rmsnorm`, `rotary`, `attention`,
+`glu_mlp`, `embed_lookup` and `lm_head_logits`) in plain PyTorch, with the
+reference's (B, S, H, hd) layout.  Attention keeps the reference's q-chunked
+form, which caps the live score tensor at (B, H, chunk, Skv), and its rule
+for a length that the chunk does not divide; the chunks run in a Python loop
+where the reference scans.  Only the one-device case ("none" parallelism)
+is ported: under a mesh `constrain` raises.  `softmax_xent` waits for
+training (ROADMAP.md item A.5).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import ShardingCtx, constrain
+
+# ---------------------------------------------------------------------------
+# norms / rotary
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (xf * scale).to(dt)
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    ang = positions.float()[:, :, None] * freqs[None, None, :]  # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _chunk_for(Sq: int, chunk: int) -> int:
+    """The reference's q-chunk (`layers.py:123-129`): for a length over the
+    chunk that it does not divide (whisper's 1500 frames, llava's 4672
+    stream), the largest divisor of Sq that fits the chunk budget, or Sq
+    itself when that divisor is 64 or less."""
+    if Sq > chunk and Sq % chunk:
+        c = chunk
+        while c > 1 and Sq % c:
+            c -= 1
+        chunk = c if c > 64 else Sq
+    return chunk
+
+
+def attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,
+    ctx: ShardingCtx,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    chunk: int = 1024,
+    q_offset: int = 0,
+    kv_valid_len: Optional[int] = None,  # decode: current cache fill
+) -> torch.Tensor:
+    """Grouped-query attention, q-chunked.  Returns (B, Sq, H, hd) in q's
+    dtype; scores and softmax in float32, masked scores -1e30."""
+    if ctx.enabled:  # head- or sequence-parallel attention: raises until A.6
+        constrain(q, ("batch", None, "heads", None), ctx)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+
+    qg = q.reshape(B, Sq, KV, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
+    kg = k.permute(0, 2, 1, 3).float()  # (B,KV,Skv,hd)
+    vg = v.permute(0, 2, 1, 3).float()
+    k_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
+
+    def attend(qc: torch.Tensor, qc_start: int) -> torch.Tensor:
+        # qc: (B,KV,rep,C,hd)
+        C = qc.shape[3]
+        s = torch.einsum("bkrcd,bksd->bkrcs", qc.float(), kg) * scale
+        q_pos = (qc_start + torch.arange(C, dtype=torch.int32, device=q.device)
+                 + q_offset)[:, None]
+        m = torch.ones((C, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            m = m & (k_pos <= q_pos)
+        if window is not None:
+            m = m & (k_pos > q_pos - window)
+        if kv_valid_len is not None:
+            m = m & (k_pos < kv_valid_len)
+        s = torch.where(m[None, None, None], s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bkrcs,bksd->bkrcd", p, vg)
+
+    chunk = _chunk_for(Sq, chunk)
+    if Sq <= chunk:
+        out = attend(qg, 0)
+    else:
+        out = torch.cat([attend(qg[:, :, :, i:i + chunk], i) for i in range(0, Sq, chunk)],
+                        dim=3)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP / embeddings
+# ---------------------------------------------------------------------------
+
+
+def glu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor, act: str,
+            ctx: ShardingCtx) -> torch.Tensor:
+    h_g = constrain(x @ wg, ("batch", None, "ff"), ctx)
+    h_u = constrain(x @ wu, ("batch", None, "ff"), ctx)
+    a = F.silu(h_g) if act == "swiglu" else F.gelu(h_g, approximate="tanh")
+    out = (a * h_u) @ wo
+    return constrain(out, ("batch", None, None), ctx)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,
+                 scale: bool = False) -> torch.Tensor:
+    """Rows of `embed` for `tokens`, ids clipped into [0, Vp) as the
+    reference's `mode="clip"` does."""
+    idx = tokens.long().clamp(0, embed.shape[0] - 1)
+    out = embed[idx]
+    if scale:  # the factor rounded to the table's dtype first, as JAX's weak float is
+        out = out * torch.tensor(math.sqrt(embed.shape[1]), dtype=out.dtype, device=out.device)
+    return constrain(out, ("batch", None, None), ctx)
+
+
+def lm_head_logits(h: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """h (B,S,D) @ w (D,Vp) -> logits (B,S,Vp)."""
+    return constrain(h @ w, ("batch", None, "vocab"), ctx)

@@ -1,0 +1,249 @@
+"""Model API: parameter shapes and init, the datapath token unpack, and the
+serving entry points (`prefill`, `decode_step`).
+
+Port of the dense parts of `repro/models/model.py`.  Parameters are plain
+dictionaries with the reference's keys, each layer leaf stacked on a leading
+layer axis: {"embed", "final_ln", ["lm_head"], "segments": [{leaf: (L, ...)}]}.
+`init_params` draws them on the card (or the CPU) from a seed with the
+reference's distributions but torch's generator, so its numbers are not the
+reference's; `params_from_reference` carries the reference's own arrays
+across, which is how the tests compare the two packages leaf for leaf.
+
+Prompts may arrive bit-packed (`{"packed": (B, nb, k, 128)}` words at
+k = ceil(log2 vocab) bits): prefill unpacks them with the `bitunpack` kernel
+(`kernels.ops.bitunpack`) before the embedding, the serving-side datapath
+offload.  Training (`forward_train`, `softmax_xent`) and the other families
+raise `NotImplementedError` naming ROADMAP.md item A.5.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import ShardingCtx, local_ctx
+from repro_torch.kernels import ops
+from repro_torch.lakeformat.encodings import LANES, PACK_BLOCK, bits_needed
+from repro_torch.models.config import LM_REST, ModelConfig, not_ported
+from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm
+from repro_torch.models.transformer import (
+    Segment,
+    build_segments,
+    run_segments_decode,
+    run_segments_prefill,
+)
+
+# ---------------------------------------------------------------------------
+# parameter shapes / dims / init
+# ---------------------------------------------------------------------------
+
+
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    s = {
+        "ln1": ((D,), (None,)),
+        "wq": ((D, H * hd), ("d", "heads")),
+        "wk": ((D, KV * hd), ("d", "heads")),
+        "wv": ((D, KV * hd), ("d", "heads")),
+        "wo": ((H * hd, D), ("heads", "d")),
+    }
+    if cfg.qk_norm:
+        s["qn"] = ((hd,), (None,))
+        s["kn"] = ((hd,), (None,))
+    return s
+
+
+def _mlp_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.act == "gelu":
+        raise not_ported("the non-gated 'gelu' MLP", LM_REST)
+    return {
+        "ln2": ((D,), (None,)),
+        "wg": ((D, F), ("d", "ff")),
+        "wu": ((D, F), ("d", "ff")),
+        "wo2": ((F, D), ("ff", "d")),
+    }
+
+
+def _layer_shapes(kind: str, cfg: ModelConfig) -> Dict[str, Tuple]:
+    if kind != "dense":
+        raise not_ported(f"the {kind!r} layer", LM_REST)
+    return {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+
+
+def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    D, Vp = cfg.d_model, cfg.vocab_padded
+    s = {
+        "embed": ((Vp, D), ("vocab", "d")),
+        "final_ln": ((D,), (None,)),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ((D, Vp), ("d", "vocab"))
+    return s
+
+
+def model_segments(cfg: ModelConfig) -> List[Segment]:
+    if cfg.is_encdec:
+        raise not_ported("the enc-dec family", LM_REST)
+    return build_segments(cfg)
+
+
+def param_shapes(cfg: ModelConfig):
+    """(shapes pytree, dims pytree), as the reference's."""
+    segs = model_segments(cfg)
+    shapes: Dict[str, Any] = {}
+    dims: Dict[str, Any] = {}
+    for name, (shp, dm) in _top_shapes(cfg).items():
+        shapes[name] = shp
+        dims[name] = dm
+    seg_shapes, seg_dims = [], []
+    for seg in segs:
+        ls = _layer_shapes(seg.kind, cfg)
+        seg_shapes.append({k: (seg.count, *s) for k, (s, _) in ls.items()})
+        seg_dims.append({k: (None, *d) for k, (_, d) in ls.items()})
+    shapes["segments"] = seg_shapes
+    dims["segments"] = seg_dims
+    return shapes, dims
+
+
+_NORM_KEYS = ("ln1", "ln2", "final_ln", "qn", "kn")
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.dtype not in _TORCH_DTYPES:
+        raise ValueError(f"dtype {cfg.dtype!r} is not one of {sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[cfg.dtype]
+
+
+def _init_leaf(gen: torch.Generator, name: str, shape, cfg: ModelConfig, device):
+    """The distributions of the reference's `_init_leaf` (`model.py:186-202`):
+    norm weights 1 (0 for gemma's (1 + w) norms), every other leaf normal
+    with std 0.02, or 0.02 / sqrt(2 L) for the output projections, drawn in
+    float32 and rounded to the model's dtype."""
+    dt = _dtype(cfg)
+    if name in _NORM_KEYS:
+        if name in ("ln1", "ln2", "final_ln") and cfg.norm_plus_one:
+            return torch.zeros(shape, dtype=dt, device=device)
+        return torch.ones(shape, dtype=dt, device=device)
+    std = 0.02
+    if name in ("wo", "wo2"):
+        std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * std).to(dt)
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cuda"):
+    """Random parameters from `seed`, drawn leaf by leaf in `param_shapes`
+    order from one torch.Generator on `device` (the card unless the caller
+    asks for the CPU)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shapes, _ = param_shapes(cfg)
+    out: Dict[str, Any] = {}
+    for name, shp in shapes.items():
+        if name == "segments":
+            out["segments"] = [{k: _init_leaf(gen, k, s, cfg, device) for k, s in seg.items()}
+                               for seg in shp]
+        else:
+            out[name] = _init_leaf(gen, name, shp, cfg, device)
+    return out
+
+
+def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch cannot read directly
+        bits = np.array(a.view(np.uint16))
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_reference(np_params, device="cuda"):
+    """The reference's parameters (its pytree with every leaf as a numpy
+    array, bfloat16 as ml_dtypes') as the port's, bit for bit, on `device`."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return _from_numpy(x, device)
+    return conv(np_params)
+
+
+# ---------------------------------------------------------------------------
+# datapath token decode (stage 0 of prefill)
+# ---------------------------------------------------------------------------
+
+
+def token_bits(cfg: ModelConfig) -> int:
+    return bits_needed(cfg.vocab - 1)
+
+
+def packed_token_shape(cfg: ModelConfig, B: int, S: int) -> Tuple[int, int, int, int]:
+    nb = -(-S // PACK_BLOCK)
+    return (B, nb, token_bits(cfg), LANES)
+
+
+def unpack_tokens(packed: torch.Tensor, S: int, cfg: ModelConfig) -> torch.Tensor:
+    """(B, nb, k, 128) int32 views of the packed words -> (B, S) int32 tokens,
+    through `ops.bitunpack` (the kernel on the card)."""
+    B, nb, k, _ = packed.shape
+    flat = ops.bitunpack(packed.reshape(B * nb, k, LANES), k)
+    return flat.reshape(B, nb * PACK_BLOCK)[:, :S]
+
+
+def _tokens_from_batch(batch, cfg):
+    if "packed" in batch:
+        S = batch["packed"].shape[1] * PACK_BLOCK  # shapes are block-aligned by design
+        return unpack_tokens(batch["packed"], S, cfg)
+    return batch["tokens"]
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            ctx: Optional[ShardingCtx] = None, cache_len: Optional[int] = None):
+    """Process a prompt, build caches.  batch: {"tokens": (B, S) int32} or
+    {"packed": (B, nb, k, 128) int32}.  Returns (last-token logits (B, Vp),
+    caches: one {"k", "v"} of (L, B, cache_len, KV, hd) per segment)."""
+    ctx = ctx or local_ctx()
+    segs = model_segments(cfg)
+    tokens = _tokens_from_batch(batch, cfg)
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
+    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    h, caches = run_segments_prefill(params["segments"], segs, h, cfg, ctx, positions,
+                                     cache_len)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = lm_head_logits(h[:, -1:], _head(params, cfg), ctx)[:, 0]
+    return logits, caches
+
+
+def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ModelConfig,
+                ctx: Optional[ShardingCtx] = None):
+    """One token in, one distribution out.  token (B,1) int32; pos the
+    position it takes.  Writes its keys and values into `caches` in place
+    and returns (logits (B, Vp), caches)."""
+    ctx = ctx or local_ctx()
+    segs = model_segments(cfg)
+    h = embed_lookup(params["embed"], token, ctx, scale=cfg.embed_scale)
+    h, caches = run_segments_decode(params["segments"], segs, h, cfg, ctx, int(pos), caches)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = lm_head_logits(h, _head(params, cfg), ctx)[:, 0]
+    return logits, caches
+
+
+def forward_train(*args, **kwargs):
+    raise not_ported("training (forward_train, softmax_xent)", LM_REST)

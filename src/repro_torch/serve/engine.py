@@ -1,0 +1,145 @@
+"""ServeEngine — batched serving with slot-based continuous batching.
+
+Port of `repro/serve/engine.py` with its semantics, without `jit`:
+
+  - incoming requests queue up; free slots are filled by running prefill
+    on the new prompt and splicing its KV into the batch cache at the slot
+    index,
+  - every engine tick = one decode_step for ALL active slots, at ONE shared
+    position, the largest of the active slots' (`step`), as the reference
+    does,
+  - finished slots (EOS / max_new_tokens / a full cache) free immediately.
+
+The engine runs on the card unless the caller passes `device="cpu"`; it
+raises `RuntimeError` when asked for a card there is none of, or when the
+parameters lie on another device.  Caches are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import ShardingCtx, local_ctx
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import decode_step, model_segments, prefill
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray  # prompt token ids
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class ServeEngine:
+    def __init__(self, params, cfg: ModelConfig, n_slots: int = 4,
+                 max_len: int = 512, ctx: Optional[ShardingCtx] = None,
+                 greedy: bool = True, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServeEngine(device='cuda'): no CUDA card is available")
+        for leaf in _leaves(params):
+            if leaf.device.type != self.device.type or (
+                    self.device.index is not None and leaf.device != self.device):
+                raise RuntimeError(f"parameters lie on {leaf.device}, the engine on {self.device}")
+        model_segments(cfg)  # raises for a family the port does not run yet
+        self.params = params
+        self.cfg = cfg
+        self.ctx = ctx or local_ctx()
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.greedy = greedy  # argmax either way, as in the reference
+        self.queue: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, np.int32)
+        self.caches = None
+        self.last_tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
+        self.steps = 0
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _admit(self):
+        for slot in range(self.n_slots):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            prompt = torch.from_numpy(np.asarray(req.tokens, np.int32)[None, :])
+            logits, cache1 = prefill(self.params, {"tokens": prompt.to(self.device)},
+                                     self.cfg, self.ctx, cache_len=self.max_len)
+            tok = int(torch.argmax(logits[0]))
+            req.out.append(tok)
+            if self.caches is None:
+                # first admission defines the batched cache: leaves are
+                # (L, B=1, ...) stacked per segment -> batch axis is 1
+                self.caches = [{k: torch.zeros_like(c).repeat_interleave(self.n_slots, dim=1)
+                                for k, c in seg.items()} for seg in cache1]
+            _splice_slot(self.caches, cache1, slot)
+            self.slot_pos[slot] = prompt.shape[1]
+            self.slots[slot] = req
+            self.last_tokens[slot, 0] = tok
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        """One engine tick.  Returns number of active slots stepped."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        pos = int(self.slot_pos[active].max())  # conservative shared pos
+        logits, self.caches = decode_step(self.params, self.last_tokens, self.caches, pos,
+                                          self.cfg, self.ctx)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for slot in active:
+            req = self.slots[slot]
+            tok = int(toks[slot])
+            req.out.append(tok)
+            self.slot_pos[slot] += 1
+            self.last_tokens[slot, 0] = tok
+            if (req.eos_id is not None and tok == req.eos_id) or \
+                    len(req.out) >= req.max_new_tokens or \
+                    self.slot_pos[slot] >= self.max_len - 1:
+                req.done = True
+                self.slots[slot] = None
+        self.steps += 1
+        return len(active)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
+        done: List[Request] = []
+        ticks = 0
+        while (self.queue or any(s is not None for s in self.slots)) and ticks < max_ticks:
+            before = [s for s in self.slots]
+            self.step()
+            ticks += 1
+            for r in before:
+                if r is not None and r.done:
+                    done.append(r)
+        return done
+
+
+def _splice_slot(batched, single, slot: int):
+    """Write a prefill cache (B=1) into slot `slot` of the batched cache, in
+    place; leaves are (L, B, ...) stacked per segment."""
+    for bseg, sseg in zip(batched, single):
+        for k, b in bseg.items():
+            b[:, slot:slot + 1] = sseg[k].to(b.dtype)
+    return batched

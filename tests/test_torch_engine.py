@@ -303,7 +303,10 @@ def test_port_imports_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.core.queries, "
         "repro_torch.core.agg, repro_torch.kernels.agg_push, "
-        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.lakeformat\n"
+        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.lakeformat, "
+        "repro_torch.kernels.flash_attention, repro_torch.models, repro_torch.models.model, "
+        "repro_torch.configs, repro_torch.configs.qwen3_1_7b, repro_torch.serve, "
+        "repro_torch.distributed\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

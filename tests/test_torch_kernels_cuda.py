@@ -1,15 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the engine on the card against the CPU path.
+and the engine and the LM serving path on the card against the CPU path.
 
 Every test here needs a CUDA card (`cuda` marker) and skips without one; on
-the card each kernel must be bit-exact with `repro_torch.kernels.ref`.  The
+the card each datapath kernel must be bit-exact with `repro_torch.kernels.ref`,
+and `flash_attention` within a stated tolerance of `ref.mha`.  The
 file imports no JAX, so it runs where only torch is installed.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import DatapathEngine, agreement, tpch
 from repro_torch.core import queries as tq
 from repro_torch.core.plan import AggSpec, Cmp, ScanPlan
@@ -19,10 +23,13 @@ from repro_torch.kernels import bloom_probe as cu_bloom
 from repro_torch.kernels import delta_decode as cu_delta
 from repro_torch.kernels import dict_decode as cu_dict
 from repro_torch.kernels import filter_compact as cu_compact
+from repro_torch.kernels import flash_attention as cu_flash
 from repro_torch.kernels import fused_scan as cu_fused
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rle_decode as cu_rle
 from repro_torch.lakeformat.reader import LakeReader
+from repro_torch.models import model as tmodel
+from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -365,3 +372,65 @@ def test_batched_and_pushdown_on_card_match_cpu(dev, tables):
     launches = ops.kernel_launches()
     assert all(launches[k] > 0 for k in ("grouped_agg", "fused_agg", "fused_scan_batch",
                                          "dict_decode_batch")), launches
+
+
+# the CPU test's shapes (tests/test_torch_attention.py), D = 256, ragged
+# lengths, Sq != Sk both ways, non-causal and windowed
+FLASH_CASES = [(2, 4, 2, 256, 256, 64, True, None), (1, 8, 8, 256, 256, 128, True, None),
+               (1, 4, 1, 512, 512, 64, True, 128), (1, 2, 2, 256, 256, 256, True, None),
+               (1, 4, 2, 200, 200, 256, True, None), (1, 4, 2, 96, 320, 32, True, None),
+               (1, 4, 2, 320, 96, 32, True, None), (2, 4, 2, 130, 77, 16, False, None),
+               (1, 4, 2, 257, 257, 128, False, 40), (1, 4, 4, 70, 70, 16, True, 5)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,win", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(dev, B, H, Hkv, Sq, Sk, D, causal, win, dtype):
+    """float32: the reference test's atol 3e-5 / rtol 1e-4 (sums in another
+    order); bfloat16: both round a float32 result once, so they may differ by
+    one bf16 step, at most 2^-7 of the largest output."""
+    rng = np.random.default_rng(Sq * 31 + Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3).to(dev, dtype)
+               for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    launches = cu_flash.KERNEL.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert cu_flash.KERNEL.launches == launches + 1 and got.dtype == dtype
+    want = ref.mha(q, k, v, causal=causal, window=win).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+    else:
+        assert float((got.float() - want).abs().max()) <= 2.0 ** -7 * float(want.abs().max())
+
+
+def test_flash_attention_rejects_bad_operands(dev):
+    q = torch.zeros((1, 4, 64, 64), device=dev)
+    with pytest.raises(ValueError, match="group"):
+        cu_flash.flash_attention(q, q[:, :3].contiguous(), q[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cu_flash.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(TypeError):
+        cu_flash.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_serving_on_card_matches_cpu(dev):
+    """The qwen3 smoke model at float32 (TF32 off): prefill logits on the
+    card within 1e-4 of the CPU's (float32 sums in other orders), and the
+    engine's greedy tokens equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), dtype="float32")
+    cpu = tmodel.init_params(cfg, 0, device="cpu")
+    card = {"embed": cpu["embed"].to(dev), "final_ln": cpu["final_ln"].to(dev),
+            "segments": [{k: w.to(dev) for k, w in s.items()} for s in cpu["segments"]]}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 96))
+                            .astype(np.int32))
+    l_cpu, _ = tmodel.prefill(cpu, {"tokens": toks}, cfg)
+    l_card, _ = tmodel.prefill(card, {"tokens": toks.to(dev)}, cfg)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, atol=1e-4, rtol=1e-4)
+    outs = []
+    for params, device in ((cpu, "cpu"), (card, dev)):
+        eng = ServeEngine(params, cfg, n_slots=2, max_len=128, device=device)
+        for i in range(3):
+            eng.submit(Request(rid=i, tokens=toks[i % 2, :40 + i].numpy(), max_new_tokens=5))
+        outs.append({r.rid: r.out for r in eng.run_until_drained()})
+    assert outs[0] == outs[1]

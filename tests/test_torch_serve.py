@@ -1,0 +1,98 @@
+"""The port's ServeEngine against `repro.serve.engine.ServeEngine` on the
+granite smoke config at float32 (converted parameters, the requests of
+tests/test_serve.py): the same tokens per request and the same number of
+ticks; then drain semantics and greedy determinism as tests/test_serve.py
+checks them, and the engine's device rules."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jget_smoke
+from repro.models.model import init_params as jinit_params
+from repro.serve.engine import Request as JRequest
+from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.model import params_from_reference
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+@pytest.fixture(scope="module")
+def served():
+    cfg_j = dataclasses.replace(jget_smoke("granite-3-8b"), dtype="float32")
+    cfg_t = dataclasses.replace(get_smoke_config("granite-3-8b"), dtype="float32")
+    params_j = jinit_params(cfg_j, jax.random.PRNGKey(1))
+    params_t = params_from_reference(jax.tree.map(np.asarray, params_j), device="cpu")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+def _requests(cls, vocab):
+    rng = np.random.default_rng(3)
+    return [cls(rid=i, tokens=rng.integers(0, vocab, (8 + i,)), max_new_tokens=6)
+            for i in range(5)]
+
+
+def test_same_tokens_and_ticks_as_reference(served):
+    cfg_j, cfg_t, params_j, params_t = served
+    ref = JServeEngine(params_j, cfg_j, n_slots=3, max_len=96)
+    port = ServeEngine(params_t, cfg_t, n_slots=3, max_len=96, device="cpu")
+    for r in _requests(JRequest, cfg_j.vocab):
+        ref.submit(r)
+    for r in _requests(Request, cfg_t.vocab):
+        port.submit(r)
+    want = {r.rid: r.out for r in ref.run_until_drained()}
+    got = {r.rid: r.out for r in port.run_until_drained()}
+    assert got == want
+    assert port.steps == ref.steps
+
+
+def test_drains_all_requests(served):
+    _, cfg, _, params = served
+    eng = ServeEngine(params, cfg, n_slots=3, max_len=96, device="cpu")
+    for r in _requests(Request, cfg.vocab):
+        eng.submit(r)
+    done = eng.run_until_drained()
+    assert len(done) == 5
+    assert all(len(r.out) == 6 for r in done)
+    assert eng.steps <= 12  # slots overlap: fewer ticks than serial (30)
+
+
+def test_greedy_is_deterministic(served):
+    _, cfg, _, params = served
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, (12,))
+    outs = []
+    for _ in range(2):
+        eng = ServeEngine(params, cfg, n_slots=2, max_len=64, device="cpu")
+        eng.submit(Request(rid=0, tokens=prompt, max_new_tokens=5))
+        outs.append(eng.run_until_drained()[0].out)
+    assert outs[0] == outs[1]
+
+
+def test_shared_decode_position_follows_reference(served):
+    """Two prompts of different lengths decode at ONE position, the longer
+    one's (the reference's `max(slot_pos[active])`): the shorter slot's
+    keys land past its prompt, yet both engines agree token for token."""
+    cfg_j, cfg_t, params_j, params_t = served
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg_j.vocab, (n,)) for n in (5, 17)]
+    outs = []
+    for eng, req in ((JServeEngine(params_j, cfg_j, n_slots=2, max_len=40), JRequest),
+                     (ServeEngine(params_t, cfg_t, n_slots=2, max_len=40, device="cpu"), Request)):
+        for i, p in enumerate(prompts):
+            eng.submit(req(rid=i, tokens=p, max_new_tokens=8))
+        outs.append({r.rid: r.out for r in eng.run_until_drained()})
+    assert outs[0] == outs[1]
+
+
+def test_engine_device_rules(served):
+    _, cfg, _, params = served
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            ServeEngine(params, cfg, device="cuda")
+    meta = {**params, "embed": params["embed"].to("meta")}
+    with pytest.raises(RuntimeError, match="parameters lie on meta"):
+        ServeEngine(meta, cfg, device="cpu")
