@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu",
            "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu", "agg_push.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_wgmma.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -52,6 +52,7 @@ SIGNATURES = {
     "rt_grouped_agg": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I),
     "rt_fused_agg": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I),
+    "rt_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 // Causal / GQA / sliding-window attention with an online softmax:
-// q (B, H, Sq, D), k and v (B, Hkv, Sk, D) -> out (B, H, Sq, D) in q's dtype
-// (float32 or bfloat16), D in {16, 32, 64, 128, 256}.
+// q (B, H, Sq, D), k and v (B, Hkv, Sk, D) -> out (B, H, Sq, D) in q's dtype:
+// float32 with D in {16, 32, 64, 128, 256}, or bfloat16 with D in {16, 32}
+// (bfloat16 at 64, 128 and 256 is csrc/flash_attention_wgmma.cu's).
 //
 // Replaces: flash_attention_pallas, repro/kernels/flash_attention.py:82 (its
 // pallas_call at :102), with the semantics of its oracle, repro/kernels/ref.py
@@ -37,13 +38,15 @@
 // against a running max that is always finite (it starts at -1e30). exp is
 // expf, the accurate one, so float32 inputs agree with mha to ~1e-6.
 // No tensor cores: TF32 would not reach the float32 tolerance of the tests
-// (3e-5); wgmma with TMA-fed tiles is a later version's work.
+// (3e-5).  bfloat16 at D 64, 128 and 256 runs on them instead, in
+// csrc/flash_attention_wgmma.cu (wgmma fed by TMA).
 //
 // A launch the card refuses (too much shared memory, a grid too large) is
 // reported by cudaGetLastError(), which rt_flash_attention returns.
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,21 +290,21 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out,
                      int B, int H, int Hkv, int Sq, int Sk, int causal, int has_window,
                      int window, float scale, cudaStream_t stream) {
-  switch (D) {
 #define RT_D_CASE(DD)                                                              \
   case DD:                                                                         \
     return launch<T, DD>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, has_window,      \
                          window, scale, stream);
-    RT_D_CASE(16) RT_D_CASE(32) RT_D_CASE(64) RT_D_CASE(128) RT_D_CASE(256)
-#undef RT_D_CASE
-    default:
-      return cudaErrorInvalidValue;
+  switch (D) { RT_D_CASE(16) RT_D_CASE(32) }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (D) { RT_D_CASE(64) RT_D_CASE(128) RT_D_CASE(256) }
   }
+#undef RT_D_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// bf16: 0 for float32 operands, 1 for bfloat16.
+// bf16: 0 for float32 operands, 1 for bfloat16 (D 16 or 32 only).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   int B, int H, int Hkv, int Sq, int Sk, int D,
                                   int causal, int has_window, int window, float scale,

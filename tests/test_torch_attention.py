@@ -104,7 +104,9 @@ def test_flash_attention_is_the_twelfth_kernel_and_counts_no_dispatch():
     assert list(ops.KERNELS)[-1] == "flash_attention" and len(ops.KERNELS) == 12
     kern = ops.KERNELS["flash_attention"]
     assert kern.replaces == "src/repro/kernels/flash_attention.py:82"
-    assert kern.source == "src/repro_torch/kernels/csrc/flash_attention.cu"
+    assert kern.source == cu_flash.SOURCES["wgmma"]
+    assert cu_flash.SOURCES == {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                                "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     q, k, v = (torch.from_numpy(x) for x in _qkv(0, 1, 2, 1, 64, 64, 16))
     ops.reset_dispatch_count()
     launches = kern.launches
@@ -123,3 +125,83 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take():
         cu_flash.flash_attention(q48, q48, q48)
     with pytest.raises(ValueError, match="different devices"):
         ops.flash_attention(q, k.to("meta"), v)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _wgmma_model(q, k, v, causal=True, window=None, scale=None, bk=64):
+    """The arithmetic of csrc/flash_attention_wgmma.cu, tile by tile over
+    64-key tiles, in plain torch: bf16 q, k, v; float32 logits, scaled into
+    the log2 domain, masked (-1e30, or -inf past Sk); float32 running max m;
+    P = 2^(x - m), summed into l in float32 and rounded to bf16 before P V;
+    the output O / l rounded once to bf16.  Every tile is visited: a tile the
+    kernel skips adds exactly nothing here (P = 0 against a real running max,
+    or weights that the first real max multiplies by 2^-1e30 = 0)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=1)
+    vf = v.float().repeat_interleave(H // Hkv, dim=1)
+    scale_log2 = torch.tensor((scale if scale is not None else D ** -0.5), dtype=torch.float32)
+    scale_log2 = scale_log2 * torch.tensor(LOG2E, dtype=torch.float32)
+    pos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, bk):
+        keys = torch.arange(k0, k0 + bk)[None, :]
+        kt = torch.zeros((B, H, bk, D))
+        vt = torch.zeros((B, H, bk, D))
+        n = min(bk, Sk - k0)
+        kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
+        x = (q.float() @ kt.transpose(2, 3)) * scale_log2
+        seen = torch.ones((Sq, bk), dtype=torch.bool)
+        if causal:
+            seen &= keys <= pos
+        if window is not None:
+            seen &= pos - keys < window
+        x = torch.where(seen, x, torch.tensor(-1e30))
+        x = torch.where(keys < Sk, x, torch.tensor(-float("inf")))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        p = torch.exp2(x - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,win,std", [
+    (1, 16, 8, 1024, 1024, 128, True, None, 1.0),   # qwen3's widths
+    (1, 16, 8, 1024, 1024, 128, True, None, 2.0),
+    (1, 4, 2, 512, 512, 64, True, None, 0.3),
+    (1, 4, 2, 512, 512, 256, True, None, 1.0),       # gemma-7b's head dim
+    (1, 4, 2, 300, 300, 128, True, 5, 1.0),          # a window smaller than a tile
+    (1, 4, 2, 200, 456, 128, True, None, 1.0),       # Sq < Sk
+    (1, 4, 2, 456, 200, 128, True, None, 2.0),       # Sq > Sk: 256 rows see no key
+])
+def test_bf16_probabilities_stay_within_one_bf16_step(B, H, Hkv, Sq, Sk, D, causal, win, std):
+    """Rounding P to bf16 before P V (the tensor-core kernel's one departure
+    from ref.mha, which keeps P in float32) stays within the bf16 rule of the
+    card tests against the JAX package's ref.mha: 2^-7 of the largest output
+    of each row, so a row that averages a thousand keys is held to its own
+    scale and not to that of a row that sees a few."""
+    rng = np.random.default_rng(Sq * 13 + Sk + D)
+    arrays = [rng.standard_normal(s).astype(np.float32) * std
+              for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    want = np.asarray(jref.mha(*bf, causal=causal, window=win), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16) for x in bf)
+    got = _wgmma_model(tq, tk, tv, causal=causal, window=win).float().numpy()
+    assert np.isfinite(got).all()
+    ratio = np.abs(got - want) / (2.0 ** -7 * np.abs(want).max(axis=-1, keepdims=True))
+    assert ratio.max() <= 1.0, ratio.max()
+
+
+@pytest.mark.parametrize("dtype,D,way", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores")])
+def test_route_is_a_rule_on_dtype_and_head_dim(dtype, D, way):
+    assert cu_flash.route(dtype, D) == way

@@ -374,6 +374,15 @@ def test_batched_and_pushdown_on_card_match_cpu(dev, tables):
                                          "dict_decode_batch")), launches
 
 
+def _within_one_bf16_step_per_row(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """|got - want| <= 2^-7 max|want[row]| on every output row: one bf16 step
+    of the row's largest output.  A causal row that averages thousands of
+    keys has outputs near 0.03 while the first rows reach 3, so a bound from
+    the tensor's largest output would let a stale or skipped key tile pass."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 2.0 ** -7 * want.float().abs().amax(dim=-1, keepdim=True)).all())
+
+
 # the CPU test's shapes (tests/test_torch_attention.py), D = 256, ragged
 # lengths, Sq != Sk both ways, non-causal and windowed
 FLASH_CASES = [(2, 4, 2, 256, 256, 64, True, None), (1, 8, 8, 256, 256, 128, True, None),
@@ -388,7 +397,7 @@ FLASH_CASES = [(2, 4, 2, 256, 256, 64, True, None), (1, 8, 8, 256, 256, 128, Tru
 def test_flash_attention(dev, B, H, Hkv, Sq, Sk, D, causal, win, dtype):
     """float32: the reference test's atol 3e-5 / rtol 1e-4 (sums in another
     order); bfloat16: both round a float32 result once, so they may differ by
-    one bf16 step, at most 2^-7 of the largest output."""
+    one bf16 step, at most 2^-7 of the row's largest output."""
     rng = np.random.default_rng(Sq * 31 + Sk + D)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3).to(dev, dtype)
                for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
@@ -400,7 +409,56 @@ def test_flash_attention(dev, B, H, Hkv, Sq, Sk, D, causal, win, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
     else:
-        assert float((got.float() - want).abs().max()) <= 2.0 ** -7 * float(want.abs().max())
+        assert _within_one_bf16_step_per_row(got, want)
+
+
+# bf16 cases for the wgmma route (D in 64, 128, 256) at its edges: ragged Sk,
+# Sq > Sk with rows that see no key, Sq < Sk, windows of 5 and 100, GQA 8:1
+# and 16:8, B 2, qwen3's heads at S 4096, non-causal, and inputs of standard
+# deviation 0.3, 1 and 2 (peakier softmax rows)
+WGMMA_CASES = [(1, 4, 2, 200, 200, 128, True, None, 0.3), (2, 4, 2, 130, 77, 64, False, None, 1.0),
+               (1, 4, 2, 320, 96, 128, True, None, 0.3), (1, 4, 2, 96, 320, 128, True, None, 1.0),
+               (1, 4, 4, 300, 300, 128, True, 5, 1.0), (1, 4, 2, 517, 517, 64, True, 100, 2.0),
+               (1, 8, 1, 256, 256, 128, True, None, 0.3), (1, 16, 8, 640, 640, 128, True, None, 2.0),
+               (2, 4, 2, 256, 256, 128, True, None, 1.0), (1, 16, 8, 4096, 4096, 128, True, None, 1.0),
+               (1, 4, 2, 384, 384, 64, True, None, 1.0), (1, 2, 2, 300, 300, 256, True, None, 1.0),
+               (1, 2, 1, 257, 191, 256, False, 40, 2.0), (1, 4, 2, 256, 256, 128, False, None, 0.3)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,win,std", WGMMA_CASES)
+def test_flash_attention_wgmma_route(dev, B, H, Hkv, Sq, Sk, D, causal, win, std):
+    """The tensor-core kernel rounds P to bf16 before P V; it stays within
+    one bf16 step of the float32 oracle, 2^-7 of each row's largest output,
+    the bound of test_flash_attention."""
+    rng = np.random.default_rng(Sq * 37 + Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * std)
+               .to(dev, torch.bfloat16) for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    routes = dict(cu_flash.ROUTE_LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert cu_flash.ROUTE_LAUNCHES == {**routes, "wgmma": routes["wgmma"] + 1}
+    want = ref.mha(q, k, v, causal=causal, window=win).float()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _within_one_bf16_step_per_row(got, want)
+
+
+@pytest.mark.parametrize("D,dtype", [(16, torch.bfloat16), (32, torch.bfloat16),
+                                     (64, torch.float32), (128, torch.float32),
+                                     (256, torch.float32)])
+def test_flash_attention_cuda_core_route(dev, D, dtype):
+    """float32 operands and D in (16, 32) stay on the CUDA-core kernel."""
+    q = torch.randn((1, 2, 96, D), device=dev).to(dtype)
+    routes = dict(cu_flash.ROUTE_LAUNCHES)
+    cu_flash.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert cu_flash.ROUTE_LAUNCHES == {**routes, "cuda_cores": routes["cuda_cores"] + 1}
+
+
+def test_flash_attention_wgmma_route_needs_16_byte_alignment(dev):
+    buf = torch.zeros(4 + 64 * 128, dtype=torch.bfloat16, device=dev)
+    q = buf[4:].view(1, 1, 64, 128)  # 8 bytes past an aligned base
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        cu_flash.flash_attention(q, q, q)
 
 
 def test_flash_attention_rejects_bad_operands(dev):
