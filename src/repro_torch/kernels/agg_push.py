@@ -35,16 +35,26 @@ def _planes(nb: int, n_groups: int, vdtype: torch.dtype, device) -> Tuple[torch.
     return tuple(torch.empty((nb, n_groups), dtype=dt, device=device) for dt in dts)
 
 
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """`t`, or a copy of it when its data does not start on an `nbytes`
+    boundary (a view at an odd offset; torch's own allocations are aligned)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                 n_groups: int) -> Tuple[torch.Tensor, ...]:
     """(nblocks, 4096) int32/float32 values, int32 group ids and bool/int32
-    mask on the card -> 5 x (nblocks, n_groups): cnt, s0, s1, mn, mx."""
+    mask on the card -> 5 x (nblocks, n_groups): cnt, s0, s1, mn, mx.  The
+    kernel reads values, ids and an int32 mask in 16-byte vectors and a bool
+    mask in 4-byte words."""
     if not 1 <= n_groups <= MAX_GROUPS:
         raise ValueError(f"n_groups={n_groups} outside 1..{MAX_GROUPS}")
     build.check_operand(values, "values", (torch.int32, torch.float32), (None, PACK_BLOCK))
     nb = int(values.shape[0])
     build.check_operand(gids, "gids", (torch.int32,), (nb, PACK_BLOCK), values.device)
     build.check_operand(mask, "mask", tuple(_MASK_KINDS), (nb, PACK_BLOCK), values.device)
+    values, gids = _aligned(values, 16), _aligned(gids, 16)
+    mask = _aligned(mask, 4 * mask.element_size())
     outs = _planes(nb, n_groups, values.dtype, values.device)
     if nb:
         build.launch("rt_grouped_agg", values.device, values, gids, mask, n_groups,

@@ -23,29 +23,49 @@
 //                decoded value column never reaches device memory.
 // Over 3.35 TB/s on an H100.
 //
-// Design, grouped_agg: one CTA of 256 threads per 4096-row block; thread t
-// owns rows t + 256*i, i = 0..15, so each step's loads are coalesced.
-//   - Integer planes (cnt, the int sums, the int min/max, and the float
-//     min/max taken on the bits' order) are exact in any order. Each step,
-//     the warp splits into lanes of equal group id
-//     (cooperative_groups::labeled_partition over __match_any_sync), each
-//     such set reduces in registers (__reduce_*_sync), and one lane per set
-//     adds into the group's shared-memory cell with an integer atomic: at
-//     most one shared atomic per (warp, group, plane) per step.
-//   - The float sum is not exact in any order, and float atomics would make
-//     its order the scheduler's. Its order is fixed instead, and the plain
-//     version (kernels/ref.py grouped_agg) performs the same float32 adds:
-//     thread t adds its rows in order i = 0..15 into its own slot of the
-//     group, slot[g][t] in shared memory (bank t % 32, conflict-free); then
-//     the 256 slots of each group fold by a halving tree, slot[j] +=
-//     slot[j + s] for s = 128, 64, ..., 1, with a barrier between levels.
-//     256 slots x 128 groups x 4 bytes is 128 KiB, so the launcher raises
-//     the kernel's dynamic shared-memory limit to the card's opt-in maximum
-//     on its first launch.
-//   - Float min/max: a NaN member makes the cell NaN (0x7FC00000), as
-//     jnp.min/max propagate it (fminf/fmaxf would drop it); other values
-//     compare as order-preserving integer keys of their bits, so -0.0 is
-//     below +0.0 whatever the order of arrival.
+// Design, grouped_agg: one warp per 4096-row block; a CTA holds kRegWarps
+// blocks on the register path (the last CTA may hold fewer: a warp past the
+// last block returns, and no barrier spans warps) and one on the
+// shared-memory path, so that a CTA's shared memory is one block's and up to
+// 12 fit an SM at G = 128. Lane l owns the rows
+// 128 i + 4 l + j (i = 0..31, j = 0..3): each pass i the warp reads 512
+// contiguous bytes of values and of ids, one 16-byte vector a lane, and the
+// lane's 4 mask entries in one load; the loads of the next kDepth passes are
+// issued before the arithmetic of the current kDepth, so a lone warp (a
+// 16-block launch) keeps 8 passes in flight. A row counts where mask != 0
+// and 0 <= gid < G; a warp
+// none of whose 128 rows of a pass counts skips that pass's arithmetic, so
+// an uncounted row costs its loads and one test.
+//   - The float sum's order is a function of row positions alone (the plain
+//     version, kernels/ref.py grouped_agg, performs the same float32 adds):
+//     lane l adds its counted rows in row order into its own slot of their
+//     group, zero-started; the 32 slots of a group then fold by a halving
+//     tree, slot[l] += slot[l + s] for s = 16, 8, ..., 1, which is the
+//     warp's shuffle-down tree. A cell with no counted row, or only -0.0
+//     rows, stays +0.0. No float atomics, and nothing depends on G, the
+//     window's shift or the launch shape.
+//   - Integer planes (cnt, the hi/lo int sums, the int min/max, and the
+//     float min/max on the bits' order) are exact in any order.
+//   - G <= kRegGroups (the ungrouped count or sum, l_returnflag's 3 groups):
+//     each lane keeps every group's accumulators in registers, float slots
+//     included, and the warp reduces each once at the end with the hardware
+//     __reduce_{add,min,max}_sync and the shuffle tree. No shared memory.
+//   - Larger G (up to 128): the warp's slots, [G][32] floats (16 KiB at G =
+//     128), and its integer cells live in shared memory; lane l touches only
+//     column l of the slots (bank l, conflict-free). Per pass, two warp
+//     reductions find the smallest and largest counted id: when they agree
+//     (a sorted column, a narrow window) the lanes combine their 4 rows in
+//     registers, the warp reduces each plane and one lane updates the cell;
+//     otherwise each counted row updates its cell with integer shared
+//     atomics. The fold takes 32 groups at a time through the halving tree
+//     as a transpose (31 shuffles, 5 deep; fold_level), and skips 32 groups
+//     none of whose rows counted.
+//   - Float min/max: the keys are the bits' order-preserving integer map, so
+//     -0.0 is below +0.0 whatever the order of arrival. A NaN row enters the
+//     min plane as +inf's key and the max plane as 0x7FFFFFFF, above +inf's
+//     key: a cell whose max key passes +inf's has a NaN member and gives NaN
+//     (0x7FC00000) in both planes, as jnp.min/max propagate it (fminf/fmaxf
+//     would drop it).
 // Design, fused_agg: one CTA of 128 threads per block, one thread per lane.
 // Each thread unpacks its 32 values in registers (rt::unpack_lane), reads the
 // matching mask entries (coalesced across the warp), and keeps cnt, the two
@@ -53,138 +73,371 @@
 // __reduce_*_sync, and thread 0 combines the four warps' results. Every plane
 // is an integer, so the result is exact.
 
-#include <cooperative_groups.h>
-#include <cooperative_groups/reduce.h>
-
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;                   // grouped_agg CTA
-constexpr int kSteps = rt::kBlock / kThreads;   // 16 rows per thread
+constexpr int kChunk = 4;                       // AGG_CHUNK: rows per lane per pass
+constexpr int kPassRows = 32 * kChunk;          // 128 rows per pass (AGG_OWNERS = 32)
+constexpr int kPasses = rt::kBlock / kPassRows; // 32 passes per block
+constexpr int kDepth = 4;                       // passes loaded ahead
+constexpr int kRegGroups = 4;                   // G up to this: register accumulators
+constexpr int kRegWarps = 4;                    // blocks per CTA, register path
 constexpr int kMaxGroups = 128;                 // MAX_GROUPS
 constexpr int kWarps = rt::kLanes / 32;         // fused_agg CTA: 4 warps
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoGroup = 0xffffffffu;      // above every counted id
 constexpr int32_t kIntMinIdent = 0x7FFFFFFF;    // AGG_INT_MIN_IDENT
 constexpr int32_t kIntMaxIdent = -0x7FFFFFFF - 1;  // AGG_INT_MAX_IDENT
 constexpr int32_t kPosInfKey = 0x7F800000;      // key of +inf (AGG_FLT_MIN_IDENT)
 constexpr int32_t kNegInfKey = -0x7F800000 - 1; // key of -inf: 0x807FFFFF
+constexpr int32_t kNaNKey = 0x7FFFFFFF;         // a NaN row in the max plane
 constexpr uint32_t kNaNBits = 0x7FC00000u;
+
+static_assert(rt::kBlock % (kPassRows * kDepth) == 0, "passes must fill whole batches");
+static_assert((32 * kMaxGroups + 3 * kMaxGroups) * 4 <= 48 * 1024,
+              "the shared path's dynamic shared memory needs no opt-in");
 
 // float bits -> a signed key in the floats' order; its own inverse
 __device__ __forceinline__ int32_t float_key(int32_t bits) {
   return bits ^ ((bits >> 31) & 0x7FFFFFFF);
 }
 
-template <bool kFloat, typename MaskT>
-__global__ void __launch_bounds__(kThreads)
-    grouped_agg_kernel(const uint32_t* __restrict__ values,
-                       const int32_t* __restrict__ gids,
-                       const MaskT* __restrict__ mask, int n_groups,
-                       int32_t* __restrict__ cnt, uint32_t* __restrict__ s0,
-                       int32_t* __restrict__ s1, uint32_t* __restrict__ mn,
-                       uint32_t* __restrict__ mx) {
-  extern __shared__ int32_t smem[];
-  const int G = n_groups;
-  int32_t* s_cnt = smem;
-  int32_t* s_hi = s_cnt + G;  // int sum of v >> 16
-  int32_t* s_lo = s_hi + G;   // int sum of v & 0xFFFF
-  int32_t* s_mn = s_lo + G;   // int min, or the key of the float min
-  int32_t* s_mx = s_mn + G;
-  int32_t* s_nan = s_mx + G;  // float cells with a NaN member
-  float* slots = reinterpret_cast<float*>(s_nan + G);  // [G][kThreads], float only
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ uint32_t word(const int4& v, int j) {
+  return static_cast<uint32_t>(j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w);
+}
+__device__ __forceinline__ uint32_t word(uint32_t bytes, int j) {
+  return (bytes >> (8 * j)) & 0xFFu;
+}
 
-  const int t = threadIdx.x;
-  const size_t b = blockIdx.x;
-  for (int g = t; g < G; g += kThreads) {
-    s_cnt[g] = 0;
-    s_hi[g] = 0;
-    s_lo[g] = 0;
-    s_mn[g] = kFloat ? kPosInfKey : kIntMinIdent;
-    s_mx[g] = kFloat ? kNegInfKey : kIntMaxIdent;
-    s_nan[g] = 0;
-  }
-  if constexpr (kFloat) {
-    for (int i = t; i < G * kThreads; i += kThreads) slots[i] = 0.0f;
-  }
-  __syncthreads();
+// One lane's 4 rows of one pass: values, ids, mask entries (4 bytes of a
+// bool mask, or 4 int32).
+template <typename MaskT>
+struct Rows {
+  using MaskVec = std::conditional_t<sizeof(MaskT) == 1, uint32_t, int4>;
+  uint4 v;
+  int4 g;
+  MaskVec m;
+};
 
-  const auto warp = cg::tiled_partition<32>(cg::this_thread_block());
-  const size_t base = b * rt::kBlock;
-  for (int i = 0; i < kSteps; ++i) {
-    const size_t row = base + i * kThreads + t;
-    const uint32_t w = __ldg(values + row);
-    const int32_t g = __ldg(gids + row);
-    const bool counted = (mask[row] != 0) && g >= 0 && g < G;
-    // every lane of the warp takes part; uncounted lanes form one set whose
-    // results are dropped
-    const int label = counted ? g : -1;
-    const auto set = cg::labeled_partition(warp, label);
-    const int one = 1;
-    const int n = cg::reduce(set, one, cg::plus<int>());
+// The 4 rows decoded: value bits, id (unsigned, so a negative id is out of
+// range), and whether the row counts.
+struct Quad {
+  uint32_t w[kChunk];
+  uint32_t g[kChunk];
+  bool c[kChunk];
+};
+
+template <typename MaskT>
+__device__ __forceinline__ Quad decode(const Rows<MaskT>& r, uint32_t G) {
+  Quad q;
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    q.w[j] = word(r.v, j);
+    q.g[j] = word(r.g, j);
+    q.c[j] = word(r.m, j) != 0 && q.g[j] < G;
+  }
+  return q;
+}
+
+// Walks block `b`'s 32 passes for this lane, calling step(quad) on each in
+// pass order; the loads of passes p + kDepth .. p + 2 kDepth - 1 are issued
+// before the arithmetic of passes p .. p + kDepth - 1.
+template <typename MaskT, typename Step>
+__device__ __forceinline__ void for_each_pass(const uint32_t* __restrict__ values,
+                                              const int32_t* __restrict__ gids,
+                                              const MaskT* __restrict__ mask,
+                                              size_t b, int lane, uint32_t G,
+                                              Step&& step) {
+  using MaskVec = typename Rows<MaskT>::MaskVec;
+  const size_t base = b * rt::kBlock + lane * kChunk;
+  auto load = [&](Rows<MaskT>& r, int p) {
+    const size_t row = base + static_cast<size_t>(p) * kPassRows;
+    r.v = __ldg(reinterpret_cast<const uint4*>(values + row));
+    r.g = __ldg(reinterpret_cast<const int4*>(gids + row));
+    r.m = __ldg(reinterpret_cast<const MaskVec*>(mask + row));
+  };
+  Rows<MaskT> cur[kDepth], nxt[kDepth];
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) load(cur[d], d);
+#pragma unroll 1
+  for (int p = 0; p < kPasses; p += kDepth) {
+    if (p + kDepth < kPasses) {
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) load(nxt[d], p + kDepth + d);
+    }
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) step(decode(cur[d], G));
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) cur[d] = nxt[d];
+  }
+}
+
+// G <= kG: every group's accumulators in registers.
+template <bool kFloat, typename MaskT, int kG>
+__global__ void __launch_bounds__(kRegWarps * 32)
+    grouped_agg_regs(const uint32_t* __restrict__ values,
+                     const int32_t* __restrict__ gids,
+                     const MaskT* __restrict__ mask, int n_groups, int nblocks,
+                     int32_t* __restrict__ cnt, uint32_t* __restrict__ s0,
+                     int32_t* __restrict__ s1, uint32_t* __restrict__ mn,
+                     uint32_t* __restrict__ mx) {
+  const int lane = threadIdx.x & 31;
+  const size_t b = static_cast<size_t>(blockIdx.x) * kRegWarps + (threadIdx.x >> 5);
+  if (b >= static_cast<size_t>(nblocks)) return;
+  const uint32_t G = static_cast<uint32_t>(n_groups);
+  int32_t n[kG], hs[kG], ls[kG], lo[kG], hi[kG];
+  float sum[kG];
+#pragma unroll
+  for (int q = 0; q < kG; ++q) {
+    n[q] = hs[q] = ls[q] = 0;
+    sum[q] = 0.0f;
+    lo[q] = kFloat ? kPosInfKey : kIntMinIdent;
+    hi[q] = kFloat ? kNegInfKey : kIntMaxIdent;
+  }
+  for_each_pass(values, gids, mask, b, lane, G, [&](const Quad& r) {
+    if (!__any_sync(kFull, r.c[0] | r.c[1] | r.c[2] | r.c[3])) return;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+#pragma unroll
+      for (int q = 0; q < kG; ++q) {
+        // with kG == 1 a counted row's id is 0
+        const bool h = r.c[j] && (kG == 1 || r.g[j] == static_cast<uint32_t>(q));
+        n[q] += h ? 1 : 0;
+        if constexpr (kFloat) {
+          const float x = __uint_as_float(r.w[j]);
+          const bool nan = x != x;
+          const int32_t key = float_key(static_cast<int32_t>(r.w[j]));
+          sum[q] = h ? sum[q] + x : sum[q];
+          lo[q] = min(lo[q], h && !nan ? key : kPosInfKey);
+          hi[q] = max(hi[q], h ? (nan ? kNaNKey : key) : kNegInfKey);
+        } else {
+          const int32_t v = static_cast<int32_t>(r.w[j]);
+          hs[q] += h ? v >> 16 : 0;
+          ls[q] += h ? v & 0xFFFF : 0;
+          lo[q] = min(lo[q], h ? v : kIntMinIdent);
+          hi[q] = max(hi[q], h ? v : kIntMaxIdent);
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int q = 0; q < kG; ++q) {
+    if (q >= n_groups) break;
+    const int32_t nq = __reduce_add_sync(kFull, n[q]);
+    const int32_t lq = __reduce_min_sync(kFull, lo[q]);
+    const int32_t hq = __reduce_max_sync(kFull, hi[q]);
+    const size_t o = b * n_groups + q;
     if constexpr (kFloat) {
-      const float x = __uint_as_float(w);
-      if (counted) slots[g * kThreads + t] += x;
-      const bool nan = x != x;
-      const int32_t key = float_key(static_cast<int32_t>(w));
-      // a NaN row takes part in neither key; it flags its cell instead
-      const int32_t lo_key = nan ? kPosInfKey : key;
-      const int32_t hi_key = nan ? kNegInfKey : key;
-      const int is_nan = nan ? 1 : 0;
-      const int32_t lo = cg::reduce(set, lo_key, cg::less<int>());
-      const int32_t hi = cg::reduce(set, hi_key, cg::greater<int>());
-      const int any_nan = cg::reduce(set, is_nan, cg::greater<int>());
-      if (counted && set.thread_rank() == 0) {
-        atomicAdd(&s_cnt[g], n);
-        atomicMin(&s_mn[g], lo);
-        atomicMax(&s_mx[g], hi);
-        if (any_nan) atomicOr(&s_nan[g], 1);
+      float v = sum[q];
+#pragma unroll
+      for (int s = 16; s >= 1; s >>= 1) v = v + __shfl_down_sync(kFull, v, s);
+      if (lane == 0) {
+        const bool nan = hq > kPosInfKey;
+        cnt[o] = nq;
+        s0[o] = __float_as_uint(v);
+        s1[o] = 0;
+        mn[o] = nan ? kNaNBits : static_cast<uint32_t>(float_key(lq));
+        mx[o] = nan ? kNaNBits : static_cast<uint32_t>(float_key(hq));
       }
     } else {
-      const int32_t v = static_cast<int32_t>(w);
-      const int32_t hi16 = v >> 16;
-      const int32_t lo16 = v & 0xFFFF;
-      const int32_t hs = cg::reduce(set, hi16, cg::plus<int>());
-      const int32_t ls = cg::reduce(set, lo16, cg::plus<int>());
-      const int32_t lo = cg::reduce(set, v, cg::less<int>());
-      const int32_t hi = cg::reduce(set, v, cg::greater<int>());
-      if (counted && set.thread_rank() == 0) {
-        atomicAdd(&s_cnt[g], n);
-        atomicAdd(&s_hi[g], hs);
-        atomicAdd(&s_lo[g], ls);
-        atomicMin(&s_mn[g], lo);
-        atomicMax(&s_mx[g], hi);
+      const int32_t hsq = __reduce_add_sync(kFull, hs[q]);
+      const int32_t lsq = __reduce_add_sync(kFull, ls[q]);
+      if (lane == 0) {
+        cnt[o] = nq;
+        s0[o] = static_cast<uint32_t>(hsq);
+        s1[o] = lsq;
+        mn[o] = static_cast<uint32_t>(lq);
+        mx[o] = static_cast<uint32_t>(hq);
       }
     }
   }
-  __syncthreads();
+}
 
+// The halving tree of 32 groups at once. Lane l holds its own slot of
+// groups g0 .. g0 + 31 (+0.0 past G) in v[0..31]; at the level of stride S a
+// lane keeps half its groups (the upper half where lane & S) and adds its
+// partner's (lane ^ S) slot of each, so tree position j meets position j + S
+// as the plain version's slot[j] += slot[j + S] does. The upper lane adds
+// the two in the other order: float addition commutes bit for bit (a NaN
+// comes out as the card's one NaN either way). After S = 1, v[0] of lane l
+// is group g0 + l's root: 31 shuffles for 32 groups, 5 deep.
+template <int S>
+__device__ __forceinline__ void fold_level(float (&v)[32], int lane) {
+  const bool up = (lane & S) != 0;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const float keep = up ? v[k + S] : v[k];
+    const float give = up ? v[k] : v[k + S];
+    v[k] = keep + __shfl_xor_sync(kFull, give, S);
+  }
+  if constexpr (S > 1) fold_level<S / 2>(v, lane);
+}
+
+// 32-bit words of shared memory a block takes on the shared path
+__host__ __device__ constexpr int smem_words(bool is_float, int G) {
+  return is_float ? 32 * G + 3 * G : 5 * G;
+}
+
+// G > kRegGroups: one warp, one block; its slots and cells in shared memory.
+template <bool kFloat, typename MaskT>
+__global__ void __launch_bounds__(32)
+    grouped_agg_smem(const uint32_t* __restrict__ values,
+                     const int32_t* __restrict__ gids,
+                     const MaskT* __restrict__ mask, int n_groups,
+                     int32_t* __restrict__ cnt, uint32_t* __restrict__ s0,
+                     int32_t* __restrict__ s1, uint32_t* __restrict__ mn,
+                     uint32_t* __restrict__ mx) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int G = n_groups;
+  const int lane = threadIdx.x;
+  const size_t b = blockIdx.x;
+  float* slot = reinterpret_cast<float*>(smem);  // [G][32], float only
+  int32_t* s_cnt = smem + (kFloat ? 32 * G : 0);
+  int32_t* s_hi = s_cnt + G;                    // int only
+  int32_t* s_lo = s_hi + G;                     // int only
+  int32_t* s_mn = kFloat ? s_cnt + G : s_lo + G;
+  int32_t* s_mx = s_mn + G;
+  for (int g = lane; g < G; g += 32) {
+    s_cnt[g] = 0;
+    if constexpr (!kFloat) {
+      s_hi[g] = 0;
+      s_lo[g] = 0;
+    }
+    s_mn[g] = kFloat ? kPosInfKey : kIntMinIdent;
+    s_mx[g] = kFloat ? kNegInfKey : kIntMaxIdent;
+  }
   if constexpr (kFloat) {
-    // the fixed-order fold of each group's 256 slots
-    for (int s = kThreads / 2; s >= 1; s >>= 1) {
-      for (int idx = t; idx < G * s; idx += kThreads) {
-        const int g = idx / s;
-        const int j = idx - g * s;
-        slots[g * kThreads + j] += slots[g * kThreads + j + s];
-      }
-      __syncthreads();
-    }
+    for (int i = lane; i < G * 8; i += 32)
+      reinterpret_cast<float4*>(slot)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+  __syncwarp();
 
-  for (int g = t; g < G; g += kThreads) {
+  for_each_pass(values, gids, mask, b, lane, static_cast<uint32_t>(G), [&](const Quad& r) {
+    if (!__any_sync(kFull, r.c[0] | r.c[1] | r.c[2] | r.c[3])) return;
+    uint32_t glo = kNoGroup, ghi = 0;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (r.c[j]) {
+        glo = min(glo, r.g[j]);
+        ghi = max(ghi, r.g[j]);
+      }
+    }
+    const uint32_t g0 = __reduce_min_sync(kFull, glo);
+    if (g0 == __reduce_max_sync(kFull, ghi)) {
+      // every counted row of the pass is in group g0
+      int32_t n = 0;
+      if constexpr (kFloat) {
+        float t = slot[g0 * 32 + lane];
+        int32_t lo = kPosInfKey, hi = kNegInfKey;
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (r.c[j]) {
+            const float x = __uint_as_float(r.w[j]);
+            const int32_t key = float_key(static_cast<int32_t>(r.w[j]));
+            const bool nan = x != x;
+            t = t + x;
+            n += 1;
+            lo = nan ? lo : min(lo, key);
+            hi = max(hi, nan ? kNaNKey : key);
+          }
+        }
+        slot[g0 * 32 + lane] = t;
+        n = __reduce_add_sync(kFull, n);
+        lo = __reduce_min_sync(kFull, lo);
+        hi = __reduce_max_sync(kFull, hi);
+        if (lane == 0) {
+          atomicAdd(&s_cnt[g0], n);
+          atomicMin(&s_mn[g0], lo);
+          atomicMax(&s_mx[g0], hi);
+        }
+      } else {
+        int32_t hs = 0, ls = 0, lo = kIntMinIdent, hi = kIntMaxIdent;
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (r.c[j]) {
+            const int32_t v = static_cast<int32_t>(r.w[j]);
+            n += 1;
+            hs += v >> 16;
+            ls += v & 0xFFFF;
+            lo = min(lo, v);
+            hi = max(hi, v);
+          }
+        }
+        n = __reduce_add_sync(kFull, n);
+        hs = __reduce_add_sync(kFull, hs);
+        ls = __reduce_add_sync(kFull, ls);
+        lo = __reduce_min_sync(kFull, lo);
+        hi = __reduce_max_sync(kFull, hi);
+        if (lane == 0) {
+          atomicAdd(&s_cnt[g0], n);
+          atomicAdd(&s_hi[g0], hs);
+          atomicAdd(&s_lo[g0], ls);
+          atomicMin(&s_mn[g0], lo);
+          atomicMax(&s_mx[g0], hi);
+        }
+      }
+      return;
+    }
+    // the float slots first (a lane's 4 rows may share a slot, so they
+    // chain), then the integer atomics, which return nothing to wait for
+    if constexpr (kFloat) {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (r.c[j]) slot[r.g[j] * 32 + lane] += __uint_as_float(r.w[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (!r.c[j]) continue;
+      const uint32_t g = r.g[j];
+      atomicAdd(&s_cnt[g], 1);
+      if constexpr (kFloat) {
+        const float x = __uint_as_float(r.w[j]);
+        const int32_t key = float_key(static_cast<int32_t>(r.w[j]));
+        const bool nan = x != x;
+        if (!nan) atomicMin(&s_mn[g], key);
+        atomicMax(&s_mx[g], nan ? kNaNKey : key);
+      } else {
+        const int32_t v = static_cast<int32_t>(r.w[j]);
+        atomicAdd(&s_hi[g], v >> 16);
+        atomicAdd(&s_lo[g], v & 0xFFFF);
+        atomicMin(&s_mn[g], v);
+        atomicMax(&s_mx[g], v);
+      }
+    }
+  });
+  __syncwarp();
+
+  for (int g = lane; g < G; g += 32) {
     const size_t o = b * G + g;
     cnt[o] = s_cnt[g];
     if constexpr (kFloat) {
-      s0[o] = __float_as_uint(slots[g * kThreads]);
+      const bool nan = s_mx[g] > kPosInfKey;
       s1[o] = 0;
-      mn[o] = s_nan[g] ? kNaNBits : static_cast<uint32_t>(float_key(s_mn[g]));
-      mx[o] = s_nan[g] ? kNaNBits : static_cast<uint32_t>(float_key(s_mx[g]));
+      mn[o] = nan ? kNaNBits : static_cast<uint32_t>(float_key(s_mn[g]));
+      mx[o] = nan ? kNaNBits : static_cast<uint32_t>(float_key(s_mx[g]));
     } else {
       s0[o] = static_cast<uint32_t>(s_hi[g]);
       s1[o] = s_lo[g];
       mn[o] = static_cast<uint32_t>(s_mn[g]);
       mx[o] = static_cast<uint32_t>(s_mx[g]);
+    }
+  }
+  if constexpr (kFloat) {
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      float v[32];
+      // 32 groups none of whose rows counted have +0.0 roots: no fold
+      if (__any_sync(kFull, g0 + lane < G && s_cnt[g0 + lane] != 0)) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) v[k] = g0 + k < G ? slot[(g0 + k) * 32 + lane] : 0.0f;
+        fold_level<16>(v, lane);
+      } else {
+        v[0] = 0.0f;
+      }
+      if (g0 + lane < G) s0[b * G + g0 + lane] = __float_as_uint(v[0]);
     }
   }
 }
@@ -246,16 +499,32 @@ cudaError_t launch_grouped(const void* values, const void* gids,
                            const void* mask, int n_groups, void* cnt, void* s0,
                            void* s1, void* mn, void* mx, int nblocks,
                            cudaStream_t stream) {
-  auto kernel = grouped_agg_kernel<kFloat, MaskT>;
-  static const rt::Setup setup = rt::make_setup(kernel, kThreads, true);
-  if (setup.err != cudaSuccess) return setup.err;
-  const size_t smem = (6 * static_cast<size_t>(n_groups) +
-                       (kFloat ? static_cast<size_t>(n_groups) * kThreads : 0)) * 4;
-  kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(values), static_cast<const int32_t*>(gids),
-      static_cast<const MaskT*>(mask), n_groups, static_cast<int32_t*>(cnt),
-      static_cast<uint32_t*>(s0), static_cast<int32_t*>(s1),
-      static_cast<uint32_t*>(mn), static_cast<uint32_t*>(mx));
+  const auto v = static_cast<const uint32_t*>(values);
+  const auto g = static_cast<const int32_t*>(gids);
+  const auto m = static_cast<const MaskT*>(mask);
+  const auto c = static_cast<int32_t*>(cnt);
+  const auto a = static_cast<uint32_t*>(s0);
+  const auto l = static_cast<int32_t*>(s1);
+  const auto lo = static_cast<uint32_t*>(mn);
+  const auto hi = static_cast<uint32_t*>(mx);
+  if (n_groups <= kRegGroups) {
+    const int ctas = (nblocks + kRegWarps - 1) / kRegWarps;
+    if (n_groups == 1)
+      grouped_agg_regs<kFloat, MaskT, 1><<<ctas, kRegWarps * 32, 0, stream>>>(
+          v, g, m, n_groups, nblocks, c, a, l, lo, hi);
+    else
+      grouped_agg_regs<kFloat, MaskT, kRegGroups><<<ctas, kRegWarps * 32, 0, stream>>>(
+          v, g, m, n_groups, nblocks, c, a, l, lo, hi);
+    return cudaGetLastError();
+  }
+  auto kernel = grouped_agg_smem<kFloat, MaskT>;
+  // shared memory before L1, so that as many warps fit per SM as the slots
+  // allow (12 at G = 128: the 1,472-block stack in one wave)
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (setup != cudaSuccess) return setup;
+  const size_t smem = static_cast<size_t>(smem_words(kFloat, n_groups)) * 4;
+  kernel<<<nblocks, 32, smem, stream>>>(v, g, m, n_groups, c, a, l, lo, hi);
   return cudaGetLastError();
 }
 
@@ -281,6 +550,10 @@ extern "C" int rt_grouped_agg(const void* values, const void* gids,
   if (nblocks <= 0 || n_groups < 1 || n_groups > kMaxGroups ||
       (mask_kind != 0 && mask_kind != 1))
     return cudaErrorInvalidValue;
+  // each lane reads 16-byte vectors of values and ids and 4 or 16 bytes of mask
+  if (reinterpret_cast<uintptr_t>(values) % 16 || reinterpret_cast<uintptr_t>(gids) % 16 ||
+      reinterpret_cast<uintptr_t>(mask) % (mask_kind ? 16 : 4))
+    return cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_float) {

@@ -267,11 +267,18 @@ AGG_INT_MIN_IDENT = 2**31 - 1
 AGG_INT_MAX_IDENT = -(2**31)
 AGG_FLT_MIN_IDENT = float("inf")
 AGG_FLT_MAX_IDENT = float("-inf")
-# The float sum's fixed order, shared with csrc/agg_push.cu: "thread" t of
-# AGG_THREADS owns rows t, t + 256, ..., t + 3840 and adds them in that order
-# into its own per-group slot; the 256 slots of a group then fold by a
-# halving tree (slot[j] += slot[j + s] for s = 128, 64, ..., 1).
-AGG_THREADS = 256
+# The float sum's fixed order, shared with csrc/agg_push.cu.  It depends on
+# row positions alone (not on n_groups, a window's shift, the block count or
+# the launch shape), so windows side by side equal the whole domain and the
+# card equals the CPU bit for bit.  "Owner" l of AGG_OWNERS takes the rows
+# AGG_CHUNK * (AGG_OWNERS * i + l) + j, for i = 0, 1, ... and j = 0 ..
+# AGG_CHUNK - 1, in row order (rows 4l..4l+3, then 128 + 4l.., ...), adding
+# each counted row into its own slot of the row's group, zero-started; the
+# AGG_OWNERS slots of a group then fold by a halving tree (slot[l] +=
+# slot[l + s] for s = 16, 8, ..., 1).  A cell with no counted row, or only
+# -0.0 rows, is +0.0.
+AGG_OWNERS = 32
+AGG_CHUNK = 4
 
 
 def _float_key(bits: torch.Tensor) -> torch.Tensor:
@@ -319,12 +326,18 @@ def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 
     cnt = scatter(torch.ones_like(g), 0, "sum")
     if values.dtype.is_floating_point:
-        T = AGG_THREADS
-        acc = torch.zeros((nb, G + 1, T), dtype=torch.float32, device=dev)
+        T, C = AGG_OWNERS, AGG_CHUNK
         v = values.to(torch.float32)
+
+        def by_step(x: torch.Tensor) -> torch.Tensor:
+            """(nb, width) -> (nb, steps, T): [b, s, l] is owner l's s-th row."""
+            x = x.reshape(nb, width // (T * C), T, C).transpose(2, 3)
+            return x.reshape(nb, width // T, T)
+
+        acc = torch.zeros((nb, G + 1, T), dtype=torch.float32, device=dev)
+        vs, ss = by_step(v), by_step(slot)
         for i in range(width // T):
-            rows = slice(i * T, (i + 1) * T)
-            acc.scatter_add_(1, slot[:, None, rows], v[:, None, rows])
+            acc.scatter_add_(1, ss[:, i:i + 1], vs[:, i:i + 1])
         acc = acc[:, :G]
         s = T // 2
         while s:

@@ -293,38 +293,84 @@ def test_fused_scan_batch(dev, k):
 
 
 def _agg_inputs(rng, nb, G, dtype, mask_dtype):
+    """Values over the dtype's range (int32 at +-2^31; float32 with +-inf,
+    -0.0 and a NaN), ids past both ends of [0, G), a random mask; a group
+    whose counted rows are all -0.0 (group G - 1 of block 0, or all of block
+    2 at G = 1) and, from 3 blocks on, an all-masked last block."""
+    g = rng.integers(-1, G + 1, (nb, 4096)).astype(np.int32)
     if dtype == torch.float32:
         v = (rng.standard_normal((nb, 4096)) * 1e4).astype(np.float32)
+        if G > 1:
+            v[0, g[0] == G - 1] = -0.0
+        elif nb > 2:
+            v[2] = -0.0
         v[0, :3] = [np.inf, -np.inf, -0.0]
-        v[1, 7] = np.nan
+        v[min(1, nb - 1), 7] = np.nan
     else:
         v = rng.integers(-2**31, 2**31, (nb, 4096)).astype(np.int32)
         v[0, :4] = [-2**31, 2**31 - 1, -1, 0]
-    g = rng.integers(-1, G + 1, (nb, 4096)).astype(np.int32)
     g[0, :4] = 0
-    g[1, 7] = 0
+    g[min(1, nb - 1), 7] = 0
     m = rng.random((nb, 4096)) < 0.7
     m[0, :4] = True
-    m[1, 7] = True
-    m[-1] = False
+    m[min(1, nb - 1), 7] = True
+    if nb > 2:
+        m[-1] = False
     return (torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m).to(mask_dtype))
 
 
-@pytest.mark.parametrize("G", [1, 3, 128])
+@pytest.mark.parametrize("nb", [1, 17, 300])
+@pytest.mark.parametrize("G", [1, 2, 3, 64, 127, 128])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
-def test_grouped_agg(dev, G, dtype, mask_dtype):
+def test_grouped_agg(dev, G, dtype, mask_dtype, nb):
     """Every plane bit for bit, the float sum included (the same fixed
-    order), NaN cells as 0x7FC00000, gids out of range and an all-masked
-    block."""
-    rng = np.random.default_rng(G)
-    v, g, m = (t.to(dev) for t in _agg_inputs(rng, 17, G, dtype, mask_dtype))
+    order), NaN cells as 0x7FC00000, a cell of -0.0 rows as +0.0, gids out
+    of range and an all-masked block; block counts that leave the last CTA
+    partly empty."""
+    rng = np.random.default_rng(G * 1000 + nb)
+    v, g, m = (t.to(dev) for t in _agg_inputs(rng, nb, G, dtype, mask_dtype))
     got = cu_agg.grouped_agg(v, g, m, G)
     torch.cuda.synchronize()
     want = ref.grouped_agg(v, g, m, G)
     assert all(_same(a, b) for a, b in zip(got, want))
     if dtype == torch.float32:
-        assert got[3].view(torch.int32)[1, 0].item() == 0x7FC00000
+        assert got[3].view(torch.int32)[min(1, nb - 1), 0].item() == 0x7FC00000
+        zb, zg = (0, G - 1) if G > 1 else (2, 0)
+        if zb < nb:
+            assert got[0][zb, zg].item() > 0 and got[1].view(torch.int32)[zb, zg].item() == 0
+
+
+@pytest.mark.parametrize("G", [1, 3, 128])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_grouped_agg_no_counted_row(dev, G, dtype):
+    """A window that no row falls in (ids shifted below and above it, as in
+    most of the engine's windows over a wide domain): the identity fills, a
+    +0.0 float sum, and the plain version's planes."""
+    rng = np.random.default_rng(G + 5)
+    v, g, m = (t.to(dev) for t in _agg_inputs(rng, 17, G, dtype, torch.bool))
+    g = torch.where(g % 2 == 0, g - 2 * G - 1, g + 2 * G)
+    got = cu_agg.grouped_agg(v, g, m, G)
+    torch.cuda.synchronize()
+    want = ref.grouped_agg(v, g, m, G)
+    assert all(_same(a, b) for a, b in zip(got, want))
+    assert not got[0].any() and not got[1].view(torch.int32).any()
+    lo, hi = ((float("inf"), float("-inf")) if dtype == torch.float32
+              else (2**31 - 1, -2**31))
+    assert (got[3] == lo).all() and (got[4] == hi).all()
+
+
+def test_grouped_agg_unaligned_views(dev):
+    """Operands whose data start off a 16-byte boundary (views at an odd
+    offset) give the same planes as aligned copies."""
+    rng = np.random.default_rng(9)
+    v, g, m = (t.to(dev) for t in _agg_inputs(rng, 5, 3, torch.float32, torch.int32))
+    shifted = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].reshape(t.shape)
+               for t in (v, g, m)]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    got = cu_agg.grouped_agg(*shifted, 3)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, ref.grouped_agg(v, g, m, 3)))
 
 
 @pytest.mark.parametrize("k", [1, 6, 32])

@@ -457,26 +457,66 @@ def test_grouped_agg_against_reference(G, dtype):
 
 
 def test_grouped_agg_float_sum_order_is_the_kernels():
-    """The plain float sum adds in the order csrc/agg_push.cu does: row
-    t + 256*i into slot (group, t) for i = 0..15, then slot[j] += slot[j+s]
-    for s = 128..1.  Recomputed here with numpy float32 adds, bit for bit."""
-    rng = np.random.default_rng(77)
-    G, T = 3, ref.AGG_THREADS
-    v, g, m = _agg_inputs(rng, 2, G, "float32")
-    v[np.isnan(v) | np.isinf(v)] = 1.25
-    slots = np.zeros((2, G, T), np.float32)
-    for b in range(2):
-        for i in range(4096 // T):
-            for t in range(T):
-                r = i * T + t
+    """The plain float sum adds in the order csrc/agg_push.cu does: row r
+    belongs to owner (r // 4) % 32 (lane l of the block's warp reads rows
+    128 i + 4 l .. 128 i + 4 l + 3 in pass i) and is added, in row order,
+    into slot (group, owner), zero-started; then slot[l] += slot[l + s] for
+    s = 16, 8, 4, 2, 1.  Recomputed here with numpy float32 adds, bit for
+    bit, at 3 and 128 groups."""
+    assert (ref.AGG_OWNERS, ref.AGG_CHUNK) == (32, 4)  # the kernel's warp and vector
+    T, C = ref.AGG_OWNERS, ref.AGG_CHUNK
+    for G in (3, 128):
+        rng = np.random.default_rng(77 + G)
+        v, g, m = _agg_inputs(rng, 2, G, "float32")
+        v[np.isnan(v) | np.isinf(v)] = 1.25
+        slots = np.zeros((2, G, T), np.float32)
+        for b in range(2):
+            for r in range(4096):
                 if m[b, r] and 0 <= g[b, r] < G:
-                    slots[b, g[b, r], t] = np.float32(slots[b, g[b, r], t] + v[b, r])
-    s = T // 2
-    while s:
-        slots[:, :, :s] = slots[:, :, :s] + slots[:, :, s:2 * s]
-        s //= 2
-    got = ref.grouped_agg(torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m), G)
-    np.testing.assert_array_equal(got[1].numpy().view(np.int32), slots[:, :, 0].view(np.int32))
+                    own = (r // C) % T
+                    slots[b, g[b, r], own] = np.float32(slots[b, g[b, r], own] + v[b, r])
+        s = T // 2
+        while s:
+            slots[:, :, :s] = slots[:, :, :s] + slots[:, :, s:2 * s]
+            s //= 2
+        got = ref.grouped_agg(torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(m), G)
+        np.testing.assert_array_equal(got[1].numpy().view(np.int32),
+                                      slots[:, :, 0].view(np.int32))
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.int32) if t.dtype == torch.float32 else t.numpy()
+
+
+def test_grouped_agg_float_sum_independent_of_window():
+    """A cell's planes depend on its own rows' positions alone: the same
+    rows at 3 groups and shifted into a 128-group window give the same bits;
+    a 2,556-group domain equals its 20 MAX_GROUPS-wide windows side by side
+    (as the engine launches them); a cell whose rows are all -0.0 sums to
+    +0.0, like an empty one."""
+    rng = np.random.default_rng(78)
+    nb = 3
+    v = (rng.standard_normal((nb, 4096)) * 1e4).astype(np.float32)
+    g = rng.integers(0, 3, (nb, 4096)).astype(np.int32)
+    m = rng.random((nb, 4096)) < 0.7
+    v[0, g[0] == 2] = -0.0
+    t = torch.from_numpy
+    small = ref.grouped_agg(t(v), t(g), t(m), 3)
+    assert small[0][0, 2] > 0 and _bits(small[1])[0, 2] == 0
+    for shift in (0, 57, 125):
+        wide = ref.grouped_agg(t(v), t(g + shift), t(m), ops.MAX_GROUPS)
+        for a, b in zip(small, wide):
+            np.testing.assert_array_equal(_bits(a), _bits(b[:, shift:shift + 3]))
+        assert not np.delete(_bits(wide[1]), range(shift, shift + 3), axis=1).any()
+    D = 2556
+    gd = rng.integers(0, D, (nb, 4096)).astype(np.int32)
+    gd[1, :64] = D - 1  # the last, narrower window
+    whole = ref.grouped_agg(t(v), t(gd), t(m), D)
+    windows = [ref.grouped_agg(t(v), t(gd - base), t(m), min(ops.MAX_GROUPS, D - base))
+               for base in range(0, D, ops.MAX_GROUPS)]
+    assert len(windows) == 20
+    for p, w in enumerate(whole):
+        np.testing.assert_array_equal(_bits(w), _bits(torch.cat([x[p] for x in windows], 1)))
 
 
 def test_grouped_agg_float_min_max_order_free():
