@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero:
    timed with CUDA events (median of single launches, each after a 256 MiB
    L2 flush and a ~0.1 ms device spin that hides the host's launch
    overhead) beside its bound, the plain version's time and, where one
-   exists, one PyTorch call's time;
+   exists, one PyTorch call's time (for dict_decode, torch.take of the
+   unpacked, clipped codes: the lookup half alone, a yardstick; its cases
+   include l_shipdate's k=12 dictionary of 2,557 entries);
 4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) twice
    into temporary directories: unsorted, and sorted (lineitem on l_shipdate,
    whose pages are then RLE in every row group);
@@ -49,7 +51,9 @@ Phases, in order; any failure exits non-zero:
    scan-then-aggregate (agreement.scan_then_aggregate) and to device="cpu"
    (float sums included: both add in the kernel's order);
 8. print per (query, file order) wall time, peak device memory and, from
-   torch.profiler, the device's busy time and idle share;
+   torch.profiler, the device's busy time and idle share, and the self
+   device time and launches summed over every dict_decode_kernel
+   instantiation;
 9. the LM serving path at the full width of qwen3-1.7b (28 layers, d_model
    2048, 16 heads, 8 kv heads of 128, d_ff 6144, vocab 151,936 padded to
    153,600; ~1.72 B bf16 parameters drawn by `init_params` from --seed),
@@ -231,14 +235,16 @@ def max_abs_err(got, want) -> float:
     return 0.0
 
 
-def case(cases, name, label, blocks, run, plain, nbytes, nops, library=None, stage=None):
+def case(cases, name, label, blocks, run, plain, nbytes, nops, library=None, stage=None,
+         done=None):
     """One timed comparison: `run` (the kernel) against `plain` (its plain
     version), with the bytes and integer operations its bound counts, and
     optionally one PyTorch call (`library`) and the engine stage around the
-    kernel (`stage`) on the same inputs."""
+    kernel (`stage`) on the same inputs; `done`, if given, is called once the
+    case is timed (to free what only its timing needed)."""
     cases.append({"name": name, "label": label, "blocks": blocks, "run": run,
                   "plain": plain, "bytes": nbytes, "ops": nops, "library": library,
-                  "stage": stage})
+                  "stage": stage, "done": done})
 
 
 def kernel_cases(rng):
@@ -260,24 +266,38 @@ def kernel_cases(rng):
              packed_bytes(nb, k) + nb * 4096 * 4, nb * 4096 * ops_per_value("bitunpack", k))
 
     # dict_decode: l_orderkey at SF1 is DICT k=14 with ~16.1K int entries
-    # (> 48 KiB of shared memory); l_discount is DICT k=4 over 11 floats
+    # (63 KiB); l_shipdate is DICT k=12 over ~2.5K day numbers (q6 launches
+    # it 92 times a query); l_discount is DICT k=4 over 11 floats.  One
+    # PyTorch call, torch.take on codes already unpacked and clipped,
+    # computes the lookup half alone: the yardstick.
     def dict_case(label, nb, k, d_len, dtype):
         p = make_words(rng, nb, k)
         if dtype == "float32":
             d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32)).cuda()
         else:
             d = torch.from_numpy(rng.integers(-2**31, 2**31, d_len).astype(np.int32)).cuda()
+        # the yardstick's int64 codes, made at its first call and freed once
+        # the case is timed: held from here on, they shift where later cases'
+        # tensors land (on an H100, a stack case's 48 MB moved
+        # dict_decode_batch's stack time past run-to-run noise)
+        codes = []
+
+        def take():
+            if not codes:
+                codes.append(ref.bitunpack(p, k).clamp(0, d_len - 1).long())
+            return torch.take(d, codes[0])
+
         case(cases, "dict_decode", label, nb,
              lambda: dict_decode.dict_decode(p, d, k),
              lambda: ref.dict_decode(p, d, k),
              packed_bytes(nb, k) + d_len * 4 + nb * 4096 * 4,
-             nb * 4096 * ops_per_value("dict_decode", k))
+             nb * 4096 * ops_per_value("dict_decode", k), library=take, done=codes.clear)
 
-    dict_case("path k=14 D=16143 shared", PATH_BLOCKS, 14, 16_143, "int32")
-    dict_case("stack k=14 D=16143 shared", STACK_BLOCKS, 14, 16_143, "int32")
+    dict_case("path k=14 D=16143 (l_orderkey)", PATH_BLOCKS, 14, 16_143, "int32")
+    dict_case("stack k=14 D=16143", STACK_BLOCKS, 14, 16_143, "int32")
     dict_case("k=4 D=11 float32", PATH_BLOCKS, 4, 11, "float32")
-    dict_case("k=16 D=65536 global (too large for shared)", PATH_BLOCKS, 16, 65_536, "int32")
-    dict_case("k=16 D=65536 global, stack", STACK_BLOCKS, 16, 65_536, "float32")
+    dict_case("k=16 D=65536 (dict_encode's largest)", PATH_BLOCKS, 16, 65_536, "int32")
+    dict_case("k=16 D=65536, stack", STACK_BLOCKS, 16, 65_536, "float32")
     dict_case("k=32 D=40 (negative codes)", PATH_BLOCKS, 32, 40, "int32")
 
     # delta_decode: o_orderkey / p_partkey at SF1 are DELTA k=2
@@ -551,6 +571,10 @@ def kernel_cases(rng):
     fused_agg_case("stack k=6, int32 mask", STACK_BLOCKS, 6, torch.int32)
     fused_agg_case("k=1", PATH_BLOCKS, 1)
     fused_agg_case("k=32 (int32 range)", PATH_BLOCKS, 32)
+
+    # dict_decode's l_shipdate case, last so that every case above draws the
+    # same inputs from the seed as before it
+    dict_case("path k=12 D=2557 (l_shipdate)", PATH_BLOCKS, 12, 2_557, "int32")
     return cases
 
 
@@ -574,6 +598,8 @@ def check_kernels(seed: int) -> dict:
         plain_ms = median_ms(c["plain"], max(3, iters // 3), flush)
         library_ms = median_ms(c["library"], iters, flush) if c["library"] else None
         stage_ms = median_ms(c["stage"], iters, flush) if c["stage"] else None
+        if c["done"]:
+            c["done"]()
         bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = c["ops"] / INT32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -618,9 +644,10 @@ def run_queries(engine, readers, queries, on_card: bool):
 
 def profiled(fn):
     """One call of `fn` under torch.profiler: the device's busy time (the sum
-    of the self time of every CUDA kernel and copy) and its four largest
-    items.  The profiler slows the host side, so the wall time it sees is
-    not used."""
+    of the self time of every CUDA kernel and copy), its four largest items
+    and, for `dict_decode_kernel`, (self ms, launches) summed over every
+    instantiation and those of each instantiation.  The profiler slows the
+    host side, so the wall time it sees is not used."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -628,8 +655,12 @@ def profiled(fn):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    dd = [e for e in dev if "dict_decode_kernel<" in e.key]
+    each = [(e.key[e.key.index("dict_decode_kernel<") + 18:].split(">")[0] + ">",
+             round(e.self_device_time_total / 1e3, 3), e.count) for e in dd]
     return busy_ms, [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
-                     for e in top]
+                     for e in top], (sum(e.self_device_time_total for e in dd) / 1e3,
+                                     sum(e.count for e in dd), each)
 
 
 def device_busy(engine, readers, queries) -> dict:
@@ -734,7 +765,7 @@ def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
         busy_numbers = " ".join(
             f"{'batched' if b else 'sequential'}: busy_ms={busy_ms:.3f} "
             f"idle_share={1 - busy_ms / runs[b][1]:.3f} top={top[:2]};"
-            for b, (busy_ms, top) in busy.items())
+            for b, (busy_ms, top, _) in busy.items())
         if part == "a":
             same_scan(runs[True][0], runs[False][0], f"{order} {name}")
             log(f"      (a) {name}: rows={int(runs[True][0].count)} " + path_numbers(runs)
@@ -914,7 +945,7 @@ def lm_serving(seed: int, device: str = "cuda"):
     for r in reqs2:
         again.submit(r)
     again.step()  # admits all four
-    busy_ms, top = profiled(again.step)
+    busy_ms, top, _ = profiled(again.step)
     again.run_until_drained()
     if {r.rid: r.out for r in reqs2} != got:
         raise AssertionError("a second engine gave other tokens")
@@ -1139,9 +1170,13 @@ def main(argv=None) -> int:
                 f"cpu_ms={cpu_ms[name]:.2f} peak_bytes={peaks[name]}")
         log(f"[8] {order}: device busy per query (torch.profiler, one more warm run;"
             " idle share against warm_ms):")
-        for name, (busy_ms, top) in busy.items():
+        for name, (busy_ms, top, (dd_ms, dd_n, each)) in busy.items():
             idle = 1 - busy_ms / warm_ms[name] if busy_ms else float("nan")
+            per = f"{dd_ms / dd_n * 1e3:.2f}" if dd_n else "-"
             log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
+            log(f"      {name}: dict_decode_kernel (every instantiation): self_ms={dd_ms:.3f} "
+                f"launches={dd_n} us_per_launch={per}; by instantiation "
+                f"(<K>, self ms, launches): {each}")
 
     # phase 9
     log(f"[9] the LM serving path on the card: {LM_ARCH} at full width")
@@ -1181,6 +1216,10 @@ def main(argv=None) -> int:
                                stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
         elif name == "grouped_agg":
             kernels[-1].update(library="Tensor.scatter_add of the s0 plane alone")
+        elif name == "dict_decode":
+            kernels[-1].update(
+                library="torch.take of the unpacked, clipped codes (the lookup half alone)",
+                variant="__ldg lookups in place, no fill; 512 threads a block, 8 rows a thread")
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

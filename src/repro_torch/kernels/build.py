@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bitunpack.cu", "dict_decode.cu", "delta_decode.cu", "fused_scan.cu",
            "rle_decode.cu", "filter_compact.cu", "bloom_probe.cu", "agg_push.cu",
            "flash_attention.cu", "flash_attention_wgmma.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each entry point, after its pointer/int/float arguments the stream
 SIGNATURES = {
     "rt_bitunpack": (_P, _P, _I, _I),
-    "rt_dict_decode": (_P, _P, _I, _P, _I, _I, _I),
+    "rt_dict_decode": (_P, _P, _I, _P, _I, _I),
     "rt_delta_decode": (_P, _P, _P, _I, _I),
     "rt_fused_scan": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I),
     "rt_rle_decode": (_P, _P, _P, _I),

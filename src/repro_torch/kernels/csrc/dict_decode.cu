@@ -10,87 +10,133 @@
 // the D*4-byte dictionary is read once: (512*k + 16384) * nblocks + 4*D bytes
 // over 3.35 TB/s on an H100.
 //
-// Design: dictionary entries are moved as raw 32-bit words, so one kernel is
-// exact for int32 and float32 dictionaries alike. The dictionary goes into
-// dynamic shared memory when it fits a block (the wrapper decides, up to the
-// 227 KiB opt-in limit; on its first launch the launcher raises the kernel's
-// cudaFuncAttributeMaxDynamicSharedMemorySize to that limit), else it is read
-// from global memory through the read-only cache (__ldg). Each CTA loads the
-// dictionary once and walks a grid-stride loop over blocks, so the fill is
-// amortised; the grid is sized by the occupancy the shared-memory footprint
-// allows, from card and kernel limits read once per instantiation.
-// One thread per lane; code loads and value stores are coalesced.
+// Design: dictionary entries move as raw 32-bit words, so one kernel is exact
+// for int32 and float32 dictionaries alike. Lookups read the dictionary in
+// place through the read-only cache (__ldg): there is no fill. A CTA of
+// kGroups * 128 = 512 threads decodes one block at a time in a grid-stride
+// walk: thread (g, l) owns rows 8g .. 8g + 7 of lane l and loads only the
+// code words that hold them (coalesced across the warp), so a one-row-group
+// launch of 16 blocks keeps 16 warps of lookups in flight on each of 16 SMs,
+// and the next block's words load before this block's lookups. The grid is
+// as many CTAs as fit at once, up to one per block.
+// Timed on an H100 (PERF.md, section 6): staging the dictionary in
+// shared memory, by threads or by 1-D bulk copies (alone or multicast over
+// clusters of 2 to 16 CTAs), lost to __ldg at one row group for every D and
+// at the stack for D up to 45,000, tied it at 50,000 and won only above
+// that over 184 blocks or more: launches and dictionaries larger than the
+// writer's row groups make (16 blocks; its automatic DICT choice stops at
+// 16,384 entries). Splitting a 65,536-entry dictionary over a cluster's
+// shared memory (mapa lookups) took 1.5-2.4 times as long as __ldg.
 
 #include "common.cuh"
 
 namespace {
 
-template <int K, bool kShared>
-__global__ void __launch_bounds__(rt::kLanes)
-    dict_decode_kernel(const uint32_t* __restrict__ packed,
-                       const uint32_t* __restrict__ dict, int dict_len,
-                       uint32_t* __restrict__ out, int nblocks) {
-  extern __shared__ uint32_t sdict[];
-  if constexpr (kShared) {
-    // kFill independent loads in flight per thread: a one-load-at-a-time
-    // loop waits a full memory latency per 128 entries
-    constexpr int kFill = 16;
-    const int step = blockDim.x;
-    int i = threadIdx.x;
-    for (; i + (kFill - 1) * step < dict_len; i += kFill * step) {
-      uint32_t v[kFill];
+constexpr int kGroups = 4;                           // row groups per block
+constexpr int kThreads = kGroups * rt::kLanes;       // threads per CTA
+constexpr int kRowsPer = rt::kRows / kGroups;        // rows a thread decodes
+static_assert(rt::kRows % kGroups == 0, "row groups must split a block's rows");
+
+// One thread's words of a block: those that hold rows R0 .. R0 + N - 1.
+template <int K, int R0, int N>
+struct Words {
+  static constexpr int kFirst = (R0 * K) >> 5;
+  static constexpr int kCount = (((R0 + N) * K - 1) >> 5) - kFirst + 1;
+  uint32_t w[kCount];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ block, int lane) {
 #pragma unroll
-      for (int u = 0; u < kFill; ++u) v[u] = __ldg(dict + i + u * step);
-#pragma unroll
-      for (int u = 0; u < kFill; ++u) sdict[i + u * step] = v[u];
-    }
-    for (; i < dict_len; i += step) sdict[i] = __ldg(dict + i);
-    __syncthreads();
+    for (int j = 0; j < kCount; ++j) w[j] = __ldg(block + (kFirst + j) * rt::kLanes + lane);
   }
-  const int lane = threadIdx.x;
-  const int32_t last = dict_len - 1;
-  for (size_t b = blockIdx.x; b < static_cast<size_t>(nblocks);
-       b += gridDim.x) {
-    const uint32_t* block = packed + b * K * rt::kLanes;
-    uint32_t* o = out + b * rt::kBlock + lane;
-    rt::unpack_lane<K>(block, lane, [&](int s, uint32_t v) {
-      int32_t c = static_cast<int32_t>(v);
-      c = c < 0 ? 0 : (c > last ? last : c);
-      if constexpr (kShared) {
-        o[s * rt::kLanes] = sdict[c];
+
+  // Row R0 + i as an int32 code clipped to [0, last], for i = 0..N-1.
+  __device__ __forceinline__ void codes(int32_t last, uint32_t (&code)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      uint32_t v;
+      if constexpr (K == 32) {
+        v = w[i];
       } else {
-        o[s * rt::kLanes] = __ldg(dict + c);
+        const int off = (R0 + i) * K - kFirst * 32;
+        const int w0 = off >> 5;
+        const int sh = off & 31;
+        v = w[w0] >> sh;
+        if (sh + K > 32) v |= w[w0 + 1 < kCount ? w0 + 1 : kCount - 1] << (32 - sh);
+        v &= (1u << K) - 1u;
       }
-    });
+      const int32_t c = static_cast<int32_t>(v);
+      code[i] = static_cast<uint32_t>(c < 0 ? 0 : (c > last ? last : c));
+    }
+  }
+};
+
+// The grid-stride walk of the threads of row group G: rows G * kRowsPer ..
+// of every block this CTA takes. The next block's words load before this
+// block's lookups.
+template <int K, int G>
+__device__ __forceinline__ void walk(const uint32_t* __restrict__ packed,
+                                     const uint32_t* __restrict__ dict, int dict_len,
+                                     uint32_t* __restrict__ out, int nblocks) {
+  const int lane = threadIdx.x % rt::kLanes;
+  const int32_t last = dict_len - 1;
+  const size_t step = gridDim.x;
+  Words<K, G * kRowsPer, kRowsPer> words;
+  size_t b = blockIdx.x;
+  if (b < static_cast<size_t>(nblocks)) words.load(packed + b * K * rt::kLanes, lane);
+  for (; b < static_cast<size_t>(nblocks); b += step) {
+    uint32_t code[kRowsPer];
+    words.codes(last, code);
+    if (b + step < static_cast<size_t>(nblocks))
+      words.load(packed + (b + step) * K * rt::kLanes, lane);
+    uint32_t* o = out + b * rt::kBlock + G * kRowsPer * rt::kLanes + lane;
+#pragma unroll
+    for (int i = 0; i < kRowsPer; ++i) o[i * rt::kLanes] = __ldg(dict + code[i]);
   }
 }
 
-template <int K, bool kShared>
-cudaError_t launch(const void* packed, const void* dict, int dict_len,
-                   void* out, int nblocks, cudaStream_t stream) {
-  auto kernel = dict_decode_kernel<K, kShared>;
-  static const rt::Setup setup = rt::make_setup(kernel, rt::kLanes, kShared);
+// walk<K, group> for the runtime `group` (uniform across each warp).
+template <int K, int G = 0>
+__device__ __forceinline__ void walk_group(int group, const uint32_t* __restrict__ packed,
+                                           const uint32_t* __restrict__ dict, int dict_len,
+                                           uint32_t* __restrict__ out, int nblocks) {
+  if constexpr (G + 1 < kGroups) {
+    if (group != G) {
+      walk_group<K, G + 1>(group, packed, dict, dict_len, out, nblocks);
+      return;
+    }
+  }
+  walk<K, G>(packed, dict, dict_len, out, nblocks);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    dict_decode_kernel(const uint32_t* __restrict__ packed,
+                       const uint32_t* __restrict__ dict, int dict_len,
+                       uint32_t* __restrict__ out, int nblocks) {
+  walk_group<K>(threadIdx.x / rt::kLanes, packed, dict, dict_len, out, nblocks);
+}
+
+template <int K>
+cudaError_t launch(const void* packed, const void* dict, int dict_len, void* out, int nblocks,
+                   cudaStream_t stream) {
+  auto kernel = dict_decode_kernel<K>;
+  static const rt::Setup setup = rt::make_setup(kernel, kThreads, false);
   if (setup.err != cudaSuccess) return setup.err;
-  // the shared branch fits as many CTAs per SM as this dictionary leaves room for
-  const size_t smem = kShared ? static_cast<size_t>(dict_len) * 4 : 0;
-  const int grid = rt::grid_size(setup, smem, nblocks);
-  kernel<<<grid, rt::kLanes, smem, stream>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const uint32_t*>(dict),
-      dict_len, static_cast<uint32_t*>(out), nblocks);
+  kernel<<<rt::grid_size(setup, 0, nblocks), kThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const uint32_t*>(dict), dict_len,
+      static_cast<uint32_t*>(out), nblocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rt_dict_decode(const void* packed, const void* dict,
-                              int dict_len, void* out, int nblocks, int k,
-                              int use_shared, void* stream) {
+extern "C" int rt_dict_decode(const void* packed, const void* dict, int dict_len, void* out,
+                              int nblocks, int k, void* stream) {
   if (nblocks <= 0 || dict_len <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rt::with_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
-    return use_shared ? launch<K, true>(packed, dict, dict_len, out, nblocks, s)
-                      : launch<K, false>(packed, dict, dict_len, out, nblocks, s);
+    return launch<K>(packed, dict, dict_len, out, nblocks, s);
   });
   return static_cast<int>(err);
 }

@@ -7,9 +7,7 @@ TRUE dictionary length.  `dict_decode_batch` ports
 blocks in one launch, each clipping to and reading its own page's
 dictionary, which stays one (P, Dmax) row per page on the card.  Entries
 move as raw 32-bit words, so each kernel serves int32 and float32
-dictionaries.  `dict_decode` stages a dictionary of up to
-`SHARED_DICT_MAX_BYTES` in shared memory and reads a larger one from global
-memory; `dict_decode_batch` reads every page's row through the read-only
+dictionaries, and each reads its dictionary in place through the read-only
 cache.
 """
 
@@ -24,17 +22,6 @@ SOURCE = "src/repro_torch/kernels/csrc/dict_decode.cu"
 KERNEL = build.Kernel("dict_decode", SOURCE, "src/repro/kernels/dict_decode.py:146")
 BATCH = build.Kernel("dict_decode_batch", SOURCE, "src/repro/kernels/dict_decode.py:97")
 
-# H100's opt-in dynamic shared memory per block (227 KiB): 58,112 entries.
-# dict_encode allows 65,536 (256 KiB), which takes the global-memory branch.
-SHARED_DICT_MAX_BYTES = 232_448
-
-
-def uses_shared(dict_len: int) -> bool:
-    """Whether a dictionary of `dict_len` 4-byte entries is staged in shared
-    memory (True) or read from global memory (False)."""
-    return 0 < dict_len * 4 <= SHARED_DICT_MAX_BYTES
-
-
 def dict_decode(packed: torch.Tensor, dictionary: torch.Tensor, k: int) -> torch.Tensor:
     """(nblocks, k, 128) int32 code words + (D,) int32/float32 dictionary on
     the card -> (nblocks, 32, 128) values of the dictionary's dtype."""
@@ -46,8 +33,7 @@ def dict_decode(packed: torch.Tensor, dictionary: torch.Tensor, k: int) -> torch
     d = int(dictionary.numel())
     out = torch.empty((nb, SUBLANES, LANES), dtype=dictionary.dtype, device=packed.device)
     if nb:
-        build.launch("rt_dict_decode", packed.device, packed, dictionary, d, out,
-                     nb, k, int(uses_shared(d)))
+        build.launch("rt_dict_decode", packed.device, packed, dictionary, d, out, nb, k)
         KERNEL.launches += 1
     return out
 

@@ -64,23 +64,33 @@ def test_bitunpack_every_k(dev, nb):
         assert _same(got, ref.bitunpack(p, k)), k
 
 
-@pytest.mark.parametrize("d_len,k,dtype", [
-    (5, 3, torch.int32),            # codes past the end clip to the last entry
-    (11, 4, torch.float32),
-    (16_384, 14, torch.int32),      # > 48 KiB of shared memory (l_orderkey's size)
-    (58_112, 16, torch.float32),    # the largest shared-memory dictionary
-    (65_536, 16, torch.int32),      # does not fit: read from global memory
-    (40, 32, torch.int32),          # k = 32: negative codes clip to entry 0
+@pytest.mark.parametrize("d_len,k,dtype,nb,view", [
+    (5, 3, torch.int32, 17, False),            # codes past the end clip to the last entry
+    (11, 4, torch.float32, 17, False),
+    (16_384, 14, torch.int32, 17, False),      # > 48 KiB (l_orderkey's size)
+    (58_112, 16, torch.float32, 17, False),    # the H100's 227 KiB of shared memory a CTA
+    (65_536, 16, torch.int32, 17, False),      # dict_encode's largest
+    (40, 32, torch.int32, 17, False),          # k = 32: negative codes clip to entry 0
+    # one block, and grids that do not divide among the CTAs that fit
+    (16_143, 14, torch.int32, 1, False),
+    (16_143, 14, torch.int32, 1473, False),
+    (58_108, 16, torch.float32, 1473, False),
+    # dictionaries under one 16-byte unit
+    (1, 3, torch.float32, 17, False),
+    (3, 5, torch.int32, 17, False),
+    # a view off a 16-byte boundary
+    (16_143, 14, torch.int32, 17, True),
+    (65_536, 16, torch.float32, 1473, True),
 ])
-def test_dict_decode_both_branches(dev, d_len, k, dtype):
-    rng = np.random.default_rng(d_len)
-    p = _words(rng, 17, k).to(dev)
+def test_dict_decode_both_branches(dev, d_len, k, dtype, nb, view):
+    rng = np.random.default_rng(d_len + nb)
+    p = _words(rng, nb, k).to(dev)
+    n = d_len + view
     if dtype == torch.float32:
-        d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32))
+        d = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     else:
-        d = torch.from_numpy(rng.integers(-2**31, 2**31, d_len).astype(np.int32))
-    d = d.to(dev)
-    assert cu_dict.uses_shared(d_len) == (d_len <= 58_112)
+        d = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32))
+    d = d.to(dev)[1:] if view else d.to(dev)
     got = cu_dict.dict_decode(p, d, k)
     torch.cuda.synchronize()
     assert _same(got, ref.dict_decode(p, d, k))

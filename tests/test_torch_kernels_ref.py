@@ -338,12 +338,30 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                              torch.zeros(1024, dtype=torch.uint8))
 
 
-def test_shared_dictionary_threshold():
-    assert cu_dict.uses_shared(1)
-    assert cu_dict.uses_shared(16_384)  # l_orderkey's dictionary: > 48 KiB
-    assert cu_dict.uses_shared(58_112)  # 227 KiB, the H100's opt-in limit
-    assert not cu_dict.uses_shared(58_113)
-    assert not cu_dict.uses_shared(65_536)  # dict_encode's largest
+@pytest.mark.parametrize("d_len,k,nb,view", [
+    (1, 3, 17, False),             # a dictionary of one entry: every code reads it
+    (3, 5, 17, False),             # under one 16-byte unit
+    (5, 3, 1, False),              # one block
+    (40, 32, 17, False),           # k = 32: negative codes clip to entry 0
+    (16_143, 14, 1, False),        # l_orderkey's dictionary
+    (16_143, 14, 17, True),        # a view off a 16-byte boundary
+    (2_557, 12, 16, False),        # l_shipdate's dictionary, one row group
+    (58_108, 16, 3, False),
+    (58_112, 16, 3, True),
+    (65_536, 16, 2, False),        # dict_encode's largest
+    (65_536, 32, 2, True),
+])
+def test_dict_decode_edge_shapes(d_len, k, nb, view):
+    """ops.dict_decode on CPU tensors (the plain version) against the JAX
+    reference at the shapes the card test holds the kernel to."""
+    rng = np.random.default_rng(d_len + nb)
+    w, t = _words(rng, nb, k)
+    d = rng.integers(-2**31, 2**31, d_len + view).astype(np.int32)
+    td = torch.from_numpy(d)[1:] if view else torch.from_numpy(d)
+    with jax.disable_jit():
+        want = jops.dict_decode(jnp.asarray(w), jnp.asarray(d[1:] if view else d), k,
+                                backend="ref")
+    _eq(ops.dict_decode(t, td, k), want)
 
 
 # ---------------------------------------------------------------------------
