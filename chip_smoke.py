@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero:
    for the batch and aggregate kernels: pages of different dictionary sizes
    and a size of 0, per-block empty ranges, 1, 3 and 128 groups, group ids
    out of range, a 128-group window that no row falls in, all-masked blocks,
-   int32 at +-2^31, float +-inf and NaN, int32 masks, k = 1, 6, 32); each
+   int32 at +-2^31, float +-inf and NaN, int32 masks, k = 1, 6, 32; for
+   fused_scan's grid-stride walk, 5,000 blocks, more than one wave of CTAs,
+   and 1,473, not a multiple of the grid, with ragged per-block ranges and
+   empty ones (1, 0) for fused_scan_batch); each
    timed with CUDA events (median of single launches, each after a 256 MiB
    L2 flush and a ~0.1 ms device spin that hides the host's launch
    overhead) beside its bound, the plain version's time and, where one
@@ -51,9 +54,10 @@ Phases, in order; any failure exits non-zero:
    scan-then-aggregate (agreement.scan_then_aggregate) and to device="cpu"
    (float sums included: both add in the kernel's order);
 8. print per (query, file order) wall time, peak device memory and, from
-   torch.profiler, the device's busy time and idle share, and the self
-   device time and launches summed over every dict_decode_kernel
-   instantiation;
+   torch.profiler, the device's busy time and idle share, and for every
+   port kernel that ran (every __global__ function in kernels/csrc; always
+   dict_decode_kernel) its self device time, launches and us a launch in
+   situ, summed over its instantiations and per instantiation;
 9. the LM serving path at the full width of qwen3-1.7b (28 layers, d_model
    2048, 16 heads, 8 kv heads of 128, d_ff 6144, vocab 151,936 padded to
    153,600; ~1.72 B bf16 parameters drawn by `init_params` from --seed),
@@ -88,6 +92,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,6 +134,7 @@ STACK_BLOCKS = 1472  # 92 row groups: all of SF1 lineitem's
 RLE_PATH_BLOCKS = 64  # one row group in 1,024-value RLE / probe blocks
 RLE_STACK_BLOCKS = 5888  # 92 row groups
 PART_BLOCKS = 196  # the part table's 200,704 padded rows, Q19's compacted scan
+WALK_BLOCKS = (5000, 1473)  # more than one wave of CTAs; not a multiple of the grid
 # 32-bit integer issue slots per decoded value, counted from each kernel's
 # source, on top of the k-bit unpack's 2 (a funnel shift and a mask; none for
 # k = 32).  A shuffle takes 2 slots, as it issues at half the integer rate.
@@ -324,7 +330,20 @@ def kernel_cases(rng):
     # fused_scan: l_shipdate codes at SF1 are DICT k=12; Q1 keeps codes <= 2466.
     # The dictionary arm (not on the engine's path) with int32 and float32
     # dictionaries whose codes run past their end.
-    for label, nb, k, lo, hi, d_len, dtype in [
+    def fused_scan_case(label, nb, k, lo, hi, d_len, dtype):
+        p = make_words(rng, nb, k)
+        d = None
+        if dtype == "int32":
+            d = torch.from_numpy(np.sort(rng.integers(0, 2557, d_len)).astype(np.int32)).cuda()
+        elif dtype == "float32":
+            d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32)).cuda()
+        case(cases, "fused_scan", label, nb,
+             lambda: fused_scan.fused_scan(p, k, lo, hi, d),
+             lambda: ref.fused_scan(p, k, lo, hi, d),
+             packed_bytes(nb, k) + nb * 4096 + nb * 4 + d_len * 4,
+             nb * 4096 * ops_per_value("fused_scan" if d is None else "fused_scan_dict", k))
+
+    for args in [
             ("path k=12", PATH_BLOCKS, 12, 0, 2466, 0, None),
             ("stack k=12", STACK_BLOCKS, 12, 1000, 1029, 0, None),
             ("k=1 full", PATH_BLOCKS, 1, 0, 1, 0, None),
@@ -334,17 +353,7 @@ def kernel_cases(rng):
             ("dictionary arm k=4 D=11 float32", PATH_BLOCKS, 4, 0, 0, 11, "float32"),
             ("dictionary arm k=12 D=3000 float32, stack", STACK_BLOCKS, 12, -1, 1, 3000,
              "float32")]:
-        p = make_words(rng, nb, k)
-        d = None
-        if dtype == "int32":
-            d = torch.from_numpy(np.sort(rng.integers(0, 2557, d_len)).astype(np.int32)).cuda()
-        elif dtype == "float32":
-            d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32)).cuda()
-        case(cases, "fused_scan", label, nb,
-             lambda p=p, k=k, lo=lo, hi=hi, d=d: fused_scan.fused_scan(p, k, lo, hi, d),
-             lambda p=p, k=k, lo=lo, hi=hi, d=d: ref.fused_scan(p, k, lo, hi, d),
-             packed_bytes(nb, k) + nb * 4096 + nb * 4 + d_len * 4,
-             nb * 4096 * ops_per_value("fused_scan" if d is None else "fused_scan_dict", k))
+        fused_scan_case(*args)
 
     # rle_decode: sorted l_shipdate at SF1, 2,346 rows a day, is one or two
     # runs per block; the writer's own encoder makes those pages.  Then
@@ -575,6 +584,18 @@ def kernel_cases(rng):
     # dict_decode's l_shipdate case, last so that every case above draws the
     # same inputs from the seed as before it
     dict_case("path k=12 D=2557 (l_shipdate)", PATH_BLOCKS, 12, 2_557, "int32")
+
+    # fused_scan's and fused_scan_batch's grid-stride walk, after every older
+    # case for the same reason: more blocks than one wave of CTAs holds, and a
+    # block count that is not a multiple of the grid; the batch with ragged
+    # per-block ranges, every seventh block the empty (1, 0)
+    for nb in WALK_BLOCKS:
+        fused_scan_case(f"walk: {nb} blocks k=12", nb, 12, 1000, 1029, 0, None)
+    for nb in WALK_BLOCKS:
+        lo = rng.integers(0, 4000, nb)
+        hi = lo + rng.integers(0, 400, nb)
+        lo[::7], hi[::7] = 1, 0
+        scan_batch_case(f"walk: {nb} blocks k=12, ragged ranges", 12, lo, hi)
     return cases
 
 
@@ -642,12 +663,29 @@ def run_queries(engine, readers, queries, on_card: bool):
     return out, times, peaks, launches
 
 
+def port_kernel_functions() -> tuple:
+    """The names of the port's CUDA kernels (every __global__ function in
+    kernels/csrc), as torch.profiler's kernel names carry them."""
+    csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+    names = set()
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(re.findall(  # launch bounds may hold one level of parentheses
+                    r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
+                    r"(\w+)\s*\(", fh.read()))
+    return tuple(sorted(names))
+
+
+PORT_KERNELS = port_kernel_functions()
+
+
 def profiled(fn):
     """One call of `fn` under torch.profiler: the device's busy time (the sum
     of the self time of every CUDA kernel and copy), its four largest items
-    and, for `dict_decode_kernel`, (self ms, launches) summed over every
-    instantiation and those of each instantiation.  The profiler slows the
-    host side, so the wall time it sees is not used."""
+    and, for each of the port's kernels that ran, (self ms, launches) summed
+    over its instantiations and those of each instantiation ("<K, ...>").
+    The profiler slows the host side, so the wall time it sees is not used."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -655,12 +693,17 @@ def profiled(fn):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
-    dd = [e for e in dev if "dict_decode_kernel<" in e.key]
-    each = [(e.key[e.key.index("dict_decode_kernel<") + 18:].split(">")[0] + ">",
-             round(e.self_device_time_total / 1e3, 3), e.count) for e in dd]
+    kernels = {}
+    for e in dev:
+        for name in PORT_KERNELS:
+            hit = re.search(rf"(?<!\w){name}(<[^>]*>)?\(", e.key)
+            if hit:
+                ms, n, each = kernels.get(name, (0.0, 0, []))
+                each.append((hit.group(1) or "", round(e.self_device_time_total / 1e3, 3),
+                             e.count))
+                kernels[name] = (ms + e.self_device_time_total / 1e3, n + e.count, each)
     return busy_ms, [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
-                     for e in top], (sum(e.self_device_time_total for e in dd) / 1e3,
-                                     sum(e.count for e in dd), each)
+                     for e in top], kernels
 
 
 def device_busy(engine, readers, queries) -> dict:
@@ -1154,7 +1197,7 @@ def main(argv=None) -> int:
             for name in Q.QUERIES:
                 agreement.compare(name, got[name], want[name], per_supp)
                 log(f"      {name} agrees: {got[name]}")
-            report[order] = (first_ms, warm_ms, cpu_ms, peaks, busy)
+            report[order] = (first_ms, warm_ms, cpu_ms, peaks, busy, per_query)
 
             # phase 7: batched scans and aggregate pushdown
             log(f"[7] {order}: batched scans and aggregate pushdown on the card:")
@@ -1162,7 +1205,7 @@ def main(argv=None) -> int:
             log(f"      launches {batched_launches[order]}")
 
     # phase 8
-    for order, (first_ms, warm_ms, cpu_ms, peaks, busy) in report.items():
+    for order, (first_ms, warm_ms, cpu_ms, peaks, busy, per_query) in report.items():
         log(f"[8] {order}: per query on the card (wall ms after synchronize; first run,"
             " warm run; peak device memory):")
         for name in Q.QUERIES:
@@ -1170,13 +1213,22 @@ def main(argv=None) -> int:
                 f"cpu_ms={cpu_ms[name]:.2f} peak_bytes={peaks[name]}")
         log(f"[8] {order}: device busy per query (torch.profiler, one more warm run;"
             " idle share against warm_ms):")
-        for name, (busy_ms, top, (dd_ms, dd_n, each)) in busy.items():
+        for name, (busy_ms, top, kernels) in busy.items():
             idle = 1 - busy_ms / warm_ms[name] if busy_ms else float("nan")
-            per = f"{dd_ms / dd_n * 1e3:.2f}" if dd_n else "-"
             log(f"      {name}: busy_ms={busy_ms:.3f} idle_share={idle:.3f} top={top}")
-            log(f"      {name}: dict_decode_kernel (every instantiation): self_ms={dd_ms:.3f} "
-                f"launches={dd_n} us_per_launch={per}; by instantiation "
-                f"(<K>, self ms, launches): {each}")
+            # every port kernel that ran, in situ; dict_decode's line always.
+            # A kernel the query launched but the profiler did not see is
+            # named (the trace can drop records, so this does not fail).
+            unseen = [k for k, n in per_query[name].items()
+                      if n and f"{k}_kernel" in PORT_KERNELS and f"{k}_kernel" not in kernels]
+            if unseen:
+                log(f"      {name}: launched but not in the trace: {unseen}")
+            for kern in sorted(set(kernels) | {"dict_decode_kernel"}):
+                k_ms, k_n, each = kernels.get(kern, (0.0, 0, []))
+                per = f"{k_ms / k_n * 1e3:.2f}" if k_n else "-"
+                log(f"      {name}: {kern} (every instantiation): self_ms={k_ms:.3f} "
+                    f"launches={k_n} us_per_launch={per}; by instantiation "
+                    f"(<K, ...>, self ms, launches): {each}")
 
     # phase 9
     log(f"[9] the LM serving path on the card: {LM_ARCH} at full width")
@@ -1220,6 +1272,10 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 library="torch.take of the unpacked, clipped codes (the lookup half alone)",
                 variant="__ldg lookups in place, no fill; 512 threads a block, 8 rows a thread")
+        elif name in ("fused_scan", "fused_scan_batch"):
+            kernels[-1].update(
+                variant="grid-stride walk: 512 threads a block, 8 rows a thread, the mask "
+                "staged in shared memory and written 8 contiguous bytes a thread")
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

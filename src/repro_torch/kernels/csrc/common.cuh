@@ -47,6 +47,40 @@ __device__ __forceinline__ void unpack_lane(const uint32_t* __restrict__ block,
   }
 }
 
+// One thread's words of a packed block when a block's 32 rows are spread over
+// several threads of one lane: the words that hold rows R0 .. R0 + N - 1 of
+// lane `lane` and no others, loaded coalesced across the warp.
+template <int K, int R0, int N>
+struct Words {
+  static_assert(K >= 1 && K <= 32, "bit width out of range");
+  static_assert(R0 >= 0 && N >= 1 && R0 + N <= kRows, "rows out of range");
+  static constexpr int kFirst = (R0 * K) >> 5;
+  static constexpr int kCount = (((R0 + N) * K - 1) >> 5) - kFirst + 1;
+  uint32_t w[kCount];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ block, int lane) {
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) w[j] = __ldg(block + (kFirst + j) * kLanes + lane);
+  }
+
+  // Row R0 + i as an unsigned K-bit value, for i = 0..N-1.
+  __device__ __forceinline__ void values(uint32_t (&v)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if constexpr (K == 32) {
+        v[i] = w[i];
+      } else {
+        const int off = (R0 + i) * K - kFirst * 32;
+        const int w0 = off >> 5;
+        const int sh = off & 31;
+        uint32_t x = w[w0] >> sh;
+        if (sh + K > 32) x |= w[w0 + 1 < kCount ? w0 + 1 : kCount - 1] << (32 - sh);
+        v[i] = x & ((1u << K) - 1u);
+      }
+    }
+  }
+};
+
 // Runs f(std::integral_constant<int, K>{}) for the runtime bit width k, so a
 // launcher instantiates its kernel template once per K = 1..32.
 template <typename F>

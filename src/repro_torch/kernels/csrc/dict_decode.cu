@@ -37,39 +37,6 @@ constexpr int kThreads = kGroups * rt::kLanes;       // threads per CTA
 constexpr int kRowsPer = rt::kRows / kGroups;        // rows a thread decodes
 static_assert(rt::kRows % kGroups == 0, "row groups must split a block's rows");
 
-// One thread's words of a block: those that hold rows R0 .. R0 + N - 1.
-template <int K, int R0, int N>
-struct Words {
-  static constexpr int kFirst = (R0 * K) >> 5;
-  static constexpr int kCount = (((R0 + N) * K - 1) >> 5) - kFirst + 1;
-  uint32_t w[kCount];
-
-  __device__ __forceinline__ void load(const uint32_t* __restrict__ block, int lane) {
-#pragma unroll
-    for (int j = 0; j < kCount; ++j) w[j] = __ldg(block + (kFirst + j) * rt::kLanes + lane);
-  }
-
-  // Row R0 + i as an int32 code clipped to [0, last], for i = 0..N-1.
-  __device__ __forceinline__ void codes(int32_t last, uint32_t (&code)[N]) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      uint32_t v;
-      if constexpr (K == 32) {
-        v = w[i];
-      } else {
-        const int off = (R0 + i) * K - kFirst * 32;
-        const int w0 = off >> 5;
-        const int sh = off & 31;
-        v = w[w0] >> sh;
-        if (sh + K > 32) v |= w[w0 + 1 < kCount ? w0 + 1 : kCount - 1] << (32 - sh);
-        v &= (1u << K) - 1u;
-      }
-      const int32_t c = static_cast<int32_t>(v);
-      code[i] = static_cast<uint32_t>(c < 0 ? 0 : (c > last ? last : c));
-    }
-  }
-};
-
 // The grid-stride walk of the threads of row group G: rows G * kRowsPer ..
 // of every block this CTA takes. The next block's words load before this
 // block's lookups.
@@ -80,12 +47,17 @@ __device__ __forceinline__ void walk(const uint32_t* __restrict__ packed,
   const int lane = threadIdx.x % rt::kLanes;
   const int32_t last = dict_len - 1;
   const size_t step = gridDim.x;
-  Words<K, G * kRowsPer, kRowsPer> words;
+  rt::Words<K, G * kRowsPer, kRowsPer> words;
   size_t b = blockIdx.x;
   if (b < static_cast<size_t>(nblocks)) words.load(packed + b * K * rt::kLanes, lane);
   for (; b < static_cast<size_t>(nblocks); b += step) {
     uint32_t code[kRowsPer];
-    words.codes(last, code);
+    words.values(code);
+#pragma unroll
+    for (int i = 0; i < kRowsPer; ++i) {  // clip to [0, last]
+      const int32_t c = static_cast<int32_t>(code[i]);
+      code[i] = static_cast<uint32_t>(c < 0 ? 0 : (c > last ? last : c));
+    }
     if (b + step < static_cast<size_t>(nblocks))
       words.load(packed + (b + step) * K * rt::kLanes, lane);
     uint32_t* o = out + b * rt::kBlock + G * kRowsPer * rt::kLanes + lane;

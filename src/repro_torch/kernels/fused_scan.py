@@ -8,6 +8,13 @@ dictionary-free arm only: it rewrites a DICT predicate onto codes.
 `fused_scan_batch` ports `fused_scan_batch_pallas`
 (repro/kernels/fused_scan.py:61): stacked BITPACK blocks, each with its own
 bounds, mask only.
+
+Both launch one grid-stride walk (512-thread CTAs, 8 rows a thread, the next
+block's words loaded ahead, the mask staged in shared memory and written 8
+contiguous bytes a thread), as many CTAs as fit on the card at once; the
+source's header has the design and the variants that were timed against
+it.  The kernel stores the mask 8 bytes at a time, so it writes only into a
+mask that the wrapper has just allocated (aligned by the allocator).
 """
 
 from __future__ import annotations

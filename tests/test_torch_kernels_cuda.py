@@ -27,6 +27,7 @@ from repro_torch.kernels import flash_attention as cu_flash
 from repro_torch.kernels import fused_scan as cu_fused
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rle_decode as cu_rle
+from repro_torch.lakeformat.encodings import bitpack_encode
 from repro_torch.lakeformat.reader import LakeReader
 from repro_torch.models import model as tmodel
 from repro_torch.serve.engine import Request, ServeEngine
@@ -300,6 +301,103 @@ def test_fused_scan_batch(dev, k):
     got = cu_fused.fused_scan_batch(p, k, lo, hi)
     torch.cuda.synchronize()
     assert _same(got, ref.fused_scan_batch(p, k, lo, hi)) and not bool(got[1].any())
+
+
+# The grid-stride walk of csrc/fused_scan.cu: one block, one row group, a
+# block count that is not a multiple of the CTAs that fit (1,473) and more
+# than one wave (5,000).
+WALK_BLOCKS = [1, 16, 1473, 5000]
+WALK_KS = [1, 7, 12, 31, 32]
+
+
+def _walk_words(rng, nb, k):
+    """Packed words whose value x = min(2^k - 1, 5) fills block 0 (every row
+    passes lo = hi = x), x - 1 fills block 1 (none passes) and block 2 but its
+    last row (only that row passes); the other blocks are random."""
+    top = (1 << k) - 1
+    vals = rng.integers(0, top + 1, size=(nb, 4096), dtype=np.uint64)
+    x = min(top, 5)
+    vals[0] = x
+    if nb > 1:
+        vals[1] = x - 1
+    if nb > 2:
+        vals[2] = x - 1
+        vals[2, -1] = x
+    packed = bitpack_encode(vals.reshape(-1), k).view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(packed)), x
+
+
+@pytest.mark.parametrize("k", WALK_KS)
+@pytest.mark.parametrize("nb", WALK_BLOCKS)
+def test_fused_scan_walk(dev, nb, k):
+    rng = np.random.default_rng(nb * 33 + k)
+    p, x = _walk_words(rng, nb, k)
+    p = p.to(dev)
+    ranges = [(x, x), (1, 0), (-2**31, 2**31 - 1), (0, (1 << (k - 1)) - 1), (-2**31, -1)]
+    for lo, hi in ranges:
+        mask, cnt = cu_fused.fused_scan(p, k, lo, hi)
+        torch.cuda.synchronize()
+        want_mask, want_cnt = ref.fused_scan(p, k, lo, hi)
+        assert _same(mask, want_mask) and _same(cnt, want_cnt), (lo, hi)
+    mask, cnt = cu_fused.fused_scan(p, k, x, x)
+    assert int(cnt[0]) == 4096
+    if nb > 2:
+        assert cnt[1:3].tolist() == [0, 1] and bool(mask[2, -1]) and not bool(mask[2, :-1].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("k", [7, 12, 32])
+@pytest.mark.parametrize("nb", WALK_BLOCKS)
+def test_fused_scan_walk_dictionary_arm(dev, nb, k, dtype):
+    """Dictionaries shorter than 2^k, so codes run past D and clip to its
+    last entry; with k = 32 negative codes clip to entry 0."""
+    rng = np.random.default_rng(nb * 7 + k + len(str(dtype)))
+    p = _words(rng, nb, k).to(dev)
+    d_len = 100 if k == 7 else 3000
+    if dtype == torch.float32:
+        d = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32))
+        ranges = [(-1, 1), (0, 0), (1, 0)]
+    else:
+        d = torch.from_numpy(rng.integers(-50, 50, d_len).astype(np.int32))
+        ranges = [(-10, 10), (-2**31, 2**31 - 1), (1, 0)]
+    d = d.to(dev)
+    for lo, hi in ranges:
+        mask, cnt = cu_fused.fused_scan(p, k, lo, hi, d)
+        torch.cuda.synchronize()
+        want_mask, want_cnt = ref.fused_scan(p, k, lo, hi, d)
+        assert _same(mask, want_mask) and _same(cnt, want_cnt), (lo, hi)
+
+
+@pytest.mark.parametrize("k", WALK_KS)
+@pytest.mark.parametrize("nb", WALK_BLOCKS)
+def test_fused_scan_batch_walk(dev, nb, k):
+    """Ragged per-block ranges, every third block the empty (1, 0)."""
+    rng = np.random.default_rng(nb * 11 + k)
+    p, x = _walk_words(rng, nb, k)
+    p = p.to(dev)
+    ends = np.sort(rng.integers(-2**31, 2**31, (nb, 2)), axis=1) if k == 32 else \
+        np.sort(rng.integers(0, 1 << k, (nb, 2)), axis=1)
+    lo, hi = ends[:, 0].astype(np.int32), ends[:, 1].astype(np.int32)
+    lo[0], hi[0] = x, x
+    lo[1::3], hi[1::3] = 1, 0
+    lo_t, hi_t = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+    got = cu_fused.fused_scan_batch(p, k, lo_t, hi_t)
+    torch.cuda.synchronize()
+    assert _same(got, ref.fused_scan_batch(p, k, lo_t, hi_t))
+    assert bool(got[0].all()) and not bool(got[1::3].any())
+
+
+@pytest.mark.parametrize("nb", [1, 16, 1473])
+def test_dict_decode_every_k_with_shared_words(dev, nb):
+    """dict_decode unpacks through rt::Words in common.cuh, which
+    fused_scan.cu shares: every bit width against the plain version."""
+    rng = np.random.default_rng(nb + 5)
+    d = torch.from_numpy(rng.integers(-2**31, 2**31, 2557).astype(np.int32)).to(dev)
+    for k in range(1, 33):
+        p = _words(rng, nb, k).to(dev)
+        got = cu_dict.dict_decode(p, d, k)
+        torch.cuda.synchronize()
+        assert _same(got, ref.dict_decode(p, d, k)), k
 
 
 def _agg_inputs(rng, nb, G, dtype, mask_dtype):

@@ -587,6 +587,42 @@ def test_batch_kernels_against_pallas_interpret():
         jops.fused_scan_batch(w, 6, lo, hi, backend="pallas"))
 
 
+@pytest.mark.parametrize("nb", [1, 5])
+@pytest.mark.parametrize("k", [1, 7, 12, 32])
+def test_fused_scan_plain_versions_against_pallas_interpret(k, nb):
+    """ref.fused_scan (both arms) and ref.fused_scan_batch, which the card's
+    walk is held to bit for bit, against fused_scan_pallas and
+    fused_scan_batch_pallas in interpret mode, as the reference's own tests
+    run them: masks and counts exact.  The Pallas kernel takes its
+    dictionary as int32 padded to a multiple of 128 and clips codes to the
+    padded length, so the dictionaries here are 128-multiples (codes past D
+    still clip to the same entry on both sides) and the float32 one holds
+    whole numbers, which its int32 cast keeps."""
+    rng = np.random.default_rng(1300 + 10 * k + nb)
+    w, t = _words(rng, nb, k)
+    jw = jnp.asarray(w)
+    for lo, hi in RANGES:
+        jm, jc = jops.fused_scan(jw, k, lo, hi, backend="pallas")
+        m, c = ref.fused_scan(t, k, lo, hi)
+        _eq(m, jm)
+        _eq(c, jc)
+    d_len = 128 if k < 12 else 384
+    d_int = rng.integers(-1000, 1000, d_len).astype(np.int32)
+    for d in (d_int, d_int.astype(np.float32)):
+        for lo, hi in [(-100, 100), (1, 0), (-2**31, 2**31 - 1)]:
+            jm, jc = jops.fused_scan(jw, k, lo, hi, jnp.asarray(d), backend="pallas")
+            m, c = ref.fused_scan(t, k, lo, hi, torch.from_numpy(d))
+            _eq(m, jm)
+            _eq(c, jc)
+    top = 2**31 - 1 if k == 32 else (1 << k) - 1
+    ends = np.sort(rng.integers(-2**31 if k == 32 else 0, top, (nb, 2), endpoint=True), axis=1)
+    lo, hi = ends[:, 0].astype(np.int32), ends[:, 1].astype(np.int32)
+    if nb > 1:
+        lo[1], hi[1] = 1, 0  # the empty range
+    _eq(ref.fused_scan_batch(t, k, torch.from_numpy(lo), torch.from_numpy(hi)),
+        jops.fused_scan_batch(w, k, lo, hi, backend="pallas"))
+
+
 def test_batch_and_agg_ops_route_cpu_tensors_to_plain_versions():
     """The batch and aggregate entries of ops count ONE dispatch each and run
     the plain version on CPU tensors; no kernel launches."""
