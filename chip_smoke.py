@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero:
    overhead) beside its bound, the plain version's time and, where one
    exists, one PyTorch call's time (for dict_decode, torch.take of the
    unpacked, clipped codes: the lookup half alone, a yardstick; its cases
-   include l_shipdate's k=12 dictionary of 2,557 entries);
+   include l_shipdate's k=12 dictionary of 2,557 entries; for
+   dict_decode_batch, torch.take of the flattened page dictionaries at
+   page * Dmax + the clipped code, and a case in the bucket shape phase 7
+   launches most: k = 4, float32, 184 pages of 11 and 9 entries);
 4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) twice
    into temporary directories: unsorted, and sorted (lineitem on l_shipdate,
    whose pages are then RLE in every row group);
@@ -52,7 +55,10 @@ Phases, in order; any failure exits non-zero:
    sequential and batched (warm ms: the median of three runs; device busy
    time and idle share as in (a)), bit-identical to each other, to
    scan-then-aggregate (agreement.scan_then_aggregate) and to device="cpu"
-   (float sums included: both add in the kernel's order);
+   (float sums included: both add in the kernel's order); per plan and
+   path, every port kernel's self device time, launches and us a launch in
+   situ from that profile (as phase 8 prints them), and per file order one
+   line of each kernel's totals over phase 7's profiled scans, by path;
 8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share, and for every
    port kernel that ran (every __global__ function in kernels/csrc; always
@@ -461,7 +467,10 @@ def kernel_cases(rng):
     # dict_decode_batch: l_orderkey at SF1 is DICT k=14, one dictionary of
     # ~16.1K entries per row group; the stack holds 92 pages of 16 blocks.
     # Then pages of different sizes with a size of 0, a dictionary too large
-    # for shared memory, float32 dictionaries and negative k = 32 codes.
+    # for shared memory, float32 dictionaries and negative k = 32 codes.  The
+    # yardstick, as dict_decode's: torch.take of the flattened (P, Dmax)
+    # dictionaries at page * Dmax + the clipped code, the lookup half alone
+    # (its int64 indices made at its first call, freed once the case is timed).
     def dict_batch_case(label, k, sizes, nbs, dtype):
         dmax = max(max(sizes), 1)
         if dtype == "float32":
@@ -474,11 +483,21 @@ def kernel_cases(rng):
                                               for i, nb in enumerate(nbs)])).cuda()
         nb = sum(nbs)
         p = make_words(rng, nb, k)
+        flat = []
+
+        def take():
+            if not flat:
+                page = pg.long().clamp(0, len(sizes) - 1)[:, None, None]
+                last = sz.long().clamp(1, dmax)[page] - 1
+                code = torch.minimum(ref.bitunpack(p, k).long().clamp(min=0), last)
+                flat.append(page * dmax + code)
+            return torch.take(d, flat[0])
+
         case(cases, "dict_decode_batch", label, nb,
              lambda: dict_decode.dict_decode_batch(p, d, sz, pg, k),
              lambda: ref.dict_decode_batch(p, d, sz, pg, k),
              packed_bytes(nb, k) + nb * 4096 * 4 + 4 * sum(sizes) + 4 * nb + 4 * len(sizes),
-             nb * 4096 * ops_per_value("dict_decode_batch", k))
+             nb * 4096 * ops_per_value("dict_decode_batch", k), library=take, done=flat.clear)
 
     dict_batch_case("path k=14 D=16143, 1 page", 14, [16_143], [PATH_BLOCKS], "int32")
     stack_sizes = [int(x) for x in rng.integers(16_000, 16_385, 92)]
@@ -596,6 +615,12 @@ def kernel_cases(rng):
         hi = lo + rng.integers(0, 400, nb)
         lo[::7], hi[::7] = 1, 0
         scan_batch_case(f"walk: {nb} blocks k=12, ragged ranges", 12, lo, hi)
+
+    # dict_decode_batch at the bucket phase 7 launches most, after every older
+    # case for the same reason: Q1's l_discount and l_tax together, DICT k=4
+    # over 11 and 9 float32 entries, 92 row groups each (2,944 blocks)
+    dict_batch_case("k=4 D=11/9 float32, 184 pages (Q1's bucket)", 4, [11, 9] * 92,
+                    [PATH_BLOCKS] * 184, "float32")
     return cases
 
 
@@ -680,6 +705,16 @@ def port_kernel_functions() -> tuple:
 PORT_KERNELS = port_kernel_functions()
 
 
+def port_kernel_of(key: str):
+    """(name, its template arguments "<K, ...>" or "") of the port kernel
+    that a torch.profiler key names, or None for any other kernel."""
+    for name in PORT_KERNELS:
+        hit = re.search(rf"(?<!\w){name}(<[^>]*>)?\(", key)
+        if hit:
+            return name, hit.group(1) or ""
+    return None
+
+
 def profiled(fn):
     """One call of `fn` under torch.profiler: the device's busy time (the sum
     of the self time of every CUDA kernel and copy), its four largest items
@@ -695,13 +730,12 @@ def profiled(fn):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
     kernels = {}
     for e in dev:
-        for name in PORT_KERNELS:
-            hit = re.search(rf"(?<!\w){name}(<[^>]*>)?\(", e.key)
-            if hit:
-                ms, n, each = kernels.get(name, (0.0, 0, []))
-                each.append((hit.group(1) or "", round(e.self_device_time_total / 1e3, 3),
-                             e.count))
-                kernels[name] = (ms + e.self_device_time_total / 1e3, n + e.count, each)
+        hit = port_kernel_of(e.key)
+        if hit:
+            name, args = hit
+            ms, n, each = kernels.get(name, (0.0, 0, []))
+            each.append((args, round(e.self_device_time_total / 1e3, 3), e.count))
+            kernels[name] = (ms + e.self_device_time_total / 1e3, n + e.count, each)
     return busy_ms, [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
                      for e in top], kernels
 
@@ -709,6 +743,18 @@ def profiled(fn):
 def device_busy(engine, readers, queries) -> dict:
     """Per query: `profiled` of one more run."""
     return {name: profiled(lambda q=q: q(engine, readers)) for name, q in queries.items()}
+
+
+def log_in_situ(prefix: str, kernels: dict, always=()) -> None:
+    """One line per port kernel in `profiled`'s result (and per name in
+    `always`, ran or not): self ms, launches and us a launch, summed over its
+    instantiations and per instantiation."""
+    for kern in sorted(set(kernels) | set(always)):
+        k_ms, k_n, each = kernels.get(kern, (0.0, 0, []))
+        per = f"{k_ms / k_n * 1e3:.2f}" if k_n else "-"
+        log(f"      {prefix}: {kern} (every instantiation): self_ms={k_ms:.3f} "
+            f"launches={k_n} us_per_launch={per}; by instantiation "
+            f"(<K, ...>, self ms, launches): {each}")
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +847,7 @@ def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
                 all_ms = [ms] + [timed_scan(gpu, li, plan, blooms, b)[1] for _ in range(2)]
                 runs[b] = (res, sorted(all_ms)[1], dispatches, copies, all_ms)
 
+    in_situ = {}  # kernel -> path -> [self ms, launches] over every profiled scan
     for (part, name), runs in warm.items():
         plan, blooms = scans[part, name]
         busy = {b: profiled(lambda b=b: gpu.scan(li, plan, blooms=blooms, batched=b))
@@ -813,24 +860,36 @@ def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
             same_scan(runs[True][0], runs[False][0], f"{order} {name}")
             log(f"      (a) {name}: rows={int(runs[True][0].count)} " + path_numbers(runs)
                 + " " + busy_numbers)
-            continue
-        want = agreement.scan_then_aggregate(gpu, li, plan)
-        cpu_aggs = cpu.scan(li, plan, batched=True).aggregates
-        for batched, r in runs.items():
-            got = r[0].aggregates
-            for k in want:
-                if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
-                    raise AssertionError(f"{order} {name} batched={batched}: {k} differs from "
-                                         f"scan-then-aggregate: {got[k]} vs {want[k]}")
-                # both add in the kernel's fixed float order, so the card's
-                # float sums are the CPU path's bit for bit
-                if not np.array_equal(got[k], cpu_aggs[k]):
-                    raise AssertionError(f"{order} {name} batched={batched}: {k} differs "
-                                         f"from the CPU: {got[k]} vs {cpu_aggs[k]}")
-        shown = {k: (v.tolist() if v.size <= 8 else f"{v.size} groups, total {v.sum()}")
-                 for k, v in want.items()}
-        log(f"      (b) {name}: {shown} bit-identical to the CPU path: True; "
-            + path_numbers(runs) + " " + busy_numbers)
+        else:
+            want = agreement.scan_then_aggregate(gpu, li, plan)
+            cpu_aggs = cpu.scan(li, plan, batched=True).aggregates
+            for batched, r in runs.items():
+                got = r[0].aggregates
+                for k in want:
+                    if got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k]):
+                        raise AssertionError(f"{order} {name} batched={batched}: {k} differs "
+                                             f"from scan-then-aggregate: {got[k]} vs {want[k]}")
+                    # both add in the kernel's fixed float order, so the card's
+                    # float sums are the CPU path's bit for bit
+                    if not np.array_equal(got[k], cpu_aggs[k]):
+                        raise AssertionError(f"{order} {name} batched={batched}: {k} differs "
+                                             f"from the CPU: {got[k]} vs {cpu_aggs[k]}")
+            shown = {k: (v.tolist() if v.size <= 8 else f"{v.size} groups, total {v.sum()}")
+                     for k, v in want.items()}
+            log(f"      (b) {name}: {shown} bit-identical to the CPU path: True; "
+                + path_numbers(runs) + " " + busy_numbers)
+        for b, (_, _, kernels) in busy.items():
+            path = "batched" if b else "sequential"
+            log_in_situ(f"({part}) {name} {path}", kernels)
+            for kern, (k_ms, k_n, _) in kernels.items():
+                tot = in_situ.setdefault(kern, {}).setdefault(path, [0.0, 0])
+                tot[0] += k_ms
+                tot[1] += k_n
+    log(f"      {order}: in situ over phase 7's profiled scans (kernel: path, self ms, "
+        "launches, us a launch): " + "; ".join(
+            f"{kern}: " + ", ".join(f"{path} {ms:.3f} {n} {ms / n * 1e3:.2f}"
+                                    for path, (ms, n) in sorted(paths.items()))
+            for kern, paths in sorted(in_situ.items())))
     return launches
 
 
@@ -1223,12 +1282,7 @@ def main(argv=None) -> int:
                       if n and f"{k}_kernel" in PORT_KERNELS and f"{k}_kernel" not in kernels]
             if unseen:
                 log(f"      {name}: launched but not in the trace: {unseen}")
-            for kern in sorted(set(kernels) | {"dict_decode_kernel"}):
-                k_ms, k_n, each = kernels.get(kern, (0.0, 0, []))
-                per = f"{k_ms / k_n * 1e3:.2f}" if k_n else "-"
-                log(f"      {name}: {kern} (every instantiation): self_ms={k_ms:.3f} "
-                    f"launches={k_n} us_per_launch={per}; by instantiation "
-                    f"(<K, ...>, self ms, launches): {each}")
+            log_in_situ(name, kernels, always=("dict_decode_kernel",))
 
     # phase 9
     log(f"[9] the LM serving path on the card: {LM_ARCH} at full width")
@@ -1272,6 +1326,13 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 library="torch.take of the unpacked, clipped codes (the lookup half alone)",
                 variant="__ldg lookups in place, no fill; 512 threads a block, 8 rows a thread")
+        elif name == "dict_decode_batch":
+            kernels[-1].update(
+                library="torch.take of the flattened (P, Dmax) dictionaries at page * Dmax + "
+                "the clipped code (the lookup half alone; a yardstick, never called by the port)",
+                variant="dict_decode's walk, each CTA taking a run of consecutive blocks, "
+                "each block's page and size loaded ahead, __ldg lookups; 128 threads a block "
+                "(a thread a lane) where Dmax <= 32, 512 (8 rows a thread) above")
         elif name in ("fused_scan", "fused_scan_batch"):
             kernels[-1].update(
                 variant="grid-stride walk: 512 threads a block, 8 rows a thread, the mask "

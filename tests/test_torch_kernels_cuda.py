@@ -400,6 +400,45 @@ def test_dict_decode_every_k_with_shared_words(dev, nb):
         assert _same(got, ref.dict_decode(p, d, k)), k
 
 
+def _ragged_pages(rng, nb, dmax):
+    """(sizes, page) of pages 1-40 blocks long covering nb blocks: the first
+    pages' sizes are 0, 1, Dmax and above Dmax, and from 3 blocks on some
+    blocks name a page below 0 or past the last."""
+    runs = []
+    while sum(runs) < nb:
+        runs.append(int(rng.integers(1, 41)))
+    runs[-1] -= sum(runs) - nb
+    n_pages = len(runs)
+    sizes = rng.integers(0, dmax + 10, n_pages)
+    sizes[:4] = [0, 1, dmax, dmax + 7][:min(4, n_pages)]
+    page = np.repeat(np.arange(n_pages), runs)
+    if nb > 2:
+        page[::97] = -3
+        page[1::89] = n_pages + 2
+    return sizes.astype(np.int32), page.astype(np.int32)
+
+
+# dict_decode_batch's walk (csrc/dict_decode.cu): both dictionary arms, warp
+# shuffles for Dmax <= 32 and __ldg lookups above it
+@pytest.mark.parametrize("dmax", [3, 32, 33, 16_384])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("k", [1, 4, 14, 32])
+@pytest.mark.parametrize("nb", WALK_BLOCKS)
+def test_dict_decode_batch_walk(dev, nb, k, dtype, dmax):
+    rng = np.random.default_rng(nb * 13 + k * 3 + dmax)
+    sizes, page = _ragged_pages(rng, nb, dmax)
+    n_pages = int(sizes.shape[0])
+    if dtype == torch.float32:
+        d = rng.standard_normal((n_pages, dmax)).astype(np.float32)
+    else:
+        d = rng.integers(-2**31, 2**31, (n_pages, dmax)).astype(np.int32)
+    p = _words(rng, nb, k).to(dev)
+    d, sz, pg = (torch.from_numpy(x).to(dev) for x in (d, sizes, page))
+    got = cu_dict.dict_decode_batch(p, d, sz, pg, k)
+    torch.cuda.synchronize()
+    assert _same(got, ref.dict_decode_batch(p, d, sz, pg, k))
+
+
 def _agg_inputs(rng, nb, G, dtype, mask_dtype):
     """Values over the dtype's range (int32 at +-2^31; float32 with +-inf,
     -0.0 and a NaN), ids past both ends of [0, G), a random mask; a group
