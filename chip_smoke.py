@@ -21,9 +21,10 @@ Phases, in order; any failure exits non-zero:
    and a size of 0, per-block empty ranges, 1, 3 and 128 groups, group ids
    out of range, a 128-group window that no row falls in, all-masked blocks,
    int32 at +-2^31, float +-inf and NaN, int32 masks, k = 1, 6, 32; for
-   fused_scan's grid-stride walk, 5,000 blocks, more than one wave of CTAs,
-   and 1,473, not a multiple of the grid, with ragged per-block ranges and
-   empty ones (1, 0) for fused_scan_batch); each
+   the grid-stride walks of fused_scan, fused_scan_batch, fused_agg and
+   filter_compact, 5,000 blocks, more than one wave of CTAs, and 1,473, not
+   a multiple of the grid, with ragged per-block ranges and empty ones
+   (1, 0) for fused_scan_batch); each
    timed with CUDA events (median of single launches, each after a 256 MiB
    L2 flush and a ~0.1 ms device spin that hides the host's launch
    overhead) beside its bound, the plain version's time and, where one
@@ -621,6 +622,14 @@ def kernel_cases(rng):
     # over 11 and 9 float32 entries, 92 row groups each (2,944 blocks)
     dict_batch_case("k=4 D=11/9 float32, 184 pages (Q1's bucket)", 4, [11, 9] * 92,
                     [PATH_BLOCKS] * 184, "float32")
+
+    # fused_agg's and filter_compact's grid-stride walks, after every older
+    # case for the same reason: more blocks than one wave of CTAs holds, and a
+    # block count that is not a multiple of the grid
+    for nb in WALK_BLOCKS:
+        fused_agg_case(f"walk: {nb} blocks k=6, bool mask", nb, 6)
+    for nb in WALK_BLOCKS:
+        compact_case(f"walk: {nb} blocks, 30% kept", nb, ints(nb), bern(nb, 0.3))
     return cases
 
 
@@ -696,9 +705,18 @@ def port_kernel_functions() -> tuple:
     for f in sorted(os.listdir(csrc)):
         if f.endswith(".cu"):
             with open(os.path.join(csrc, f)) as fh:
-                names.update(re.findall(  # launch bounds may hold one level of parentheses
-                    r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
-                    r"(\w+)\s*\(", fh.read()))
+                text = fh.read()
+            for hit in re.finditer(r"__global__\s+void\s+", text):
+                rest = text[hit.end():]
+                if rest.startswith("__launch_bounds__"):
+                    # skip its arguments, however deep their parentheses nest
+                    depth = 0
+                    for i, ch in enumerate(rest):
+                        depth += (ch == "(") - (ch == ")")
+                        if ch == ")" and depth == 0:
+                            break
+                    rest = rest[i + 1:]
+                names.add(re.match(r"\s*(\w+)\s*\(", rest).group(1))
     return tuple(sorted(names))
 
 

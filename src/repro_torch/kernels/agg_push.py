@@ -35,12 +35,6 @@ def _planes(nb: int, n_groups: int, vdtype: torch.dtype, device) -> Tuple[torch.
     return tuple(torch.empty((nb, n_groups), dtype=dt, device=device) for dt in dts)
 
 
-def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """`t`, or a copy of it when its data does not start on an `nbytes`
-    boundary (a view at an odd offset; torch's own allocations are aligned)."""
-    return t if t.data_ptr() % nbytes == 0 else t.clone()
-
-
 def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                 n_groups: int) -> Tuple[torch.Tensor, ...]:
     """(nblocks, 4096) int32/float32 values, int32 group ids and bool/int32
@@ -53,8 +47,8 @@ def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     nb = int(values.shape[0])
     build.check_operand(gids, "gids", (torch.int32,), (nb, PACK_BLOCK), values.device)
     build.check_operand(mask, "mask", tuple(_MASK_KINDS), (nb, PACK_BLOCK), values.device)
-    values, gids = _aligned(values, 16), _aligned(gids, 16)
-    mask = _aligned(mask, 4 * mask.element_size())
+    values, gids = build.aligned(values, 16), build.aligned(gids, 16)
+    mask = build.aligned(mask, 4 * mask.element_size())
     outs = _planes(nb, n_groups, values.dtype, values.device)
     if nb:
         build.launch("rt_grouped_agg", values.device, values, gids, mask, n_groups,
@@ -65,9 +59,12 @@ def grouped_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 
 def fused_agg(packed: torch.Tensor, k: int, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(nblocks, k, 128) int32 BITPACK words and (nblocks, 4096) bool/int32
-    mask on the card -> 5 x (nblocks, 1) int32: cnt, s0, s1, mn, mx."""
+    mask on the card -> 5 x (nblocks, 1) int32: cnt, s0, s1, mn, mx.  The
+    kernel reads the words in 16-byte vectors and a lane's 4 mask entries of
+    a row in one load."""
     nb = build.check_packed(packed, k)
     build.check_operand(mask, "mask", tuple(_MASK_KINDS), (nb, PACK_BLOCK), packed.device)
+    packed, mask = build.aligned(packed, 16), build.aligned(mask, 4 * mask.element_size())
     outs = _planes(nb, 1, torch.int32, packed.device)
     if nb:
         build.launch("rt_fused_agg", packed.device, packed, mask, _MASK_KINDS[mask.dtype],

@@ -178,6 +178,12 @@ def check_operand(t: torch.Tensor, name: str, dtypes, shape, device=None) -> Non
         raise ValueError(f"{name}: too many blocks for one launch")
 
 
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """`t`, or a copy of it when its data does not start on an `nbytes`
+    boundary (a view at an odd offset; torch's own allocations are aligned)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def check_packed(packed: torch.Tensor, k: int) -> int:
     """Validate a packed-block operand for a kernel; returns its block count.
     The kernels take the uint32 words as an int32 view of the same bits."""

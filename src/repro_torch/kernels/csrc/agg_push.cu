@@ -20,7 +20,9 @@
 //   grouped_agg  (4 + 4 + mask bytes) * 4096 per block in, 5 * 4 * G per
 //                block out.
 //   fused_agg    512*k + mask bytes * 4096 per block in, 20 bytes out; the
-//                decoded value column never reaches device memory.
+//                decoded value column never reaches device memory. At k <= 6
+//                with a bool mask its integer operations (chip_smoke.py's
+//                count) bound it instead.
 // Over 3.35 TB/s on an H100.
 //
 // Design, grouped_agg: one warp per 4096-row block; a CTA holds kRegWarps
@@ -66,12 +68,24 @@
 //     key: a cell whose max key passes +inf's has a NaN member and gives NaN
 //     (0x7FC00000) in both planes, as jnp.min/max propagate it (fminf/fmaxf
 //     would drop it).
-// Design, fused_agg: one CTA of 128 threads per block, one thread per lane.
-// Each thread unpacks its 32 values in registers (rt::unpack_lane), reads the
-// matching mask entries (coalesced across the warp), and keeps cnt, the two
-// partial sums, min and max in registers; a warp reduces each with one
-// __reduce_*_sync, and thread 0 combines the four warps' results. Every plane
-// is an integer, so the result is exact.
+// Design, fused_agg: a grid-stride walk of 128-thread CTAs, as many as fit
+// at once (rt::make_setup, rt::grid_size), up to one per block. Warp q of a
+// CTA owns rows 8q .. 8q + 7 of each block it takes, and lane l packed lanes
+// 4l .. 4l + 3, so that row s of its lanes is the 4 block rows whose mask
+// grouped_agg's Rows reads in one 4-byte (bool) or 16-byte (int32) load.
+// The lane loads only the words that hold its 8 rows, as 16-byte vectors
+// (QuadWords), and unpacks its 32 values in registers. Each warp reduces its
+// planes with __reduce_*_sync into double-buffered shared words; after the
+// block's one barrier, warp 0 reduces the 4 warps' planes the same way.
+// Registers are budgeted for 12 CTAs an SM with a bool mask up to k = 12, so
+// that the 1,472-block stack runs in one wave.
+// Every plane is an integer, so the result is exact in any order.
+// Timed on an H100 and dropped (PERF.md, section 6): one warp a block
+// (grouped_agg's register path at G = 1), slower at every shape but 5,000
+// blocks; fused_scan's 512-thread walk (8 rows of one lane a thread),
+// slower at the stack; and this walk with the next block's words and mask
+// loaded ahead, which spilled under the budget (k = 3 and 5-12) and lost
+// 0.9 us at the stack.
 
 #include "common.cuh"
 
@@ -84,7 +98,6 @@ constexpr int kDepth = 4;                       // passes loaded ahead
 constexpr int kRegGroups = 4;                   // G up to this: register accumulators
 constexpr int kRegWarps = 4;                    // blocks per CTA, register path
 constexpr int kMaxGroups = 128;                 // MAX_GROUPS
-constexpr int kWarps = rt::kLanes / 32;         // fused_agg CTA: 4 warps
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoGroup = 0xffffffffu;      // above every counted id
 constexpr int32_t kIntMinIdent = 0x7FFFFFFF;    // AGG_INT_MIN_IDENT
@@ -442,56 +455,165 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-template <int K, typename MaskT>
-__global__ void __launch_bounds__(rt::kLanes)
-    fused_agg_kernel(const uint32_t* __restrict__ packed,
-                     const MaskT* __restrict__ mask, int32_t* __restrict__ cnt,
-                     int32_t* __restrict__ s0, int32_t* __restrict__ s1,
-                     int32_t* __restrict__ mn, int32_t* __restrict__ mx) {
-  __shared__ int32_t part[5][kWarps];
-  const int lane = threadIdx.x;
-  const size_t b = blockIdx.x;
-  const MaskT* m = mask + b * rt::kBlock + lane;
-  int32_t n = 0, hs = 0, ls = 0, lo = kIntMinIdent, hi = kIntMaxIdent;
-  rt::unpack_lane<K>(packed + b * K * rt::kLanes, lane, [&](int s, uint32_t w) {
-    if (m[s * rt::kLanes] != 0) {
-      const int32_t v = static_cast<int32_t>(w);
-      n += 1;
-      hs += v >> 16;
-      ls += v & 0xFFFF;
-      lo = v < lo ? v : lo;
-      hi = v > hi ? v : hi;
-    }
-  });
-  n = __reduce_add_sync(0xffffffffu, n);
-  hs = __reduce_add_sync(0xffffffffu, hs);
-  ls = __reduce_add_sync(0xffffffffu, ls);
-  lo = __reduce_min_sync(0xffffffffu, lo);
-  hi = __reduce_max_sync(0xffffffffu, hi);
-  const int w = lane >> 5;
-  if ((lane & 31) == 0) {
-    part[0][w] = n;
-    part[1][w] = hs;
-    part[2][w] = ls;
-    part[3][w] = lo;
-    part[4][w] = hi;
-  }
-  __syncthreads();
-  if (lane == 0) {
+// fused_agg: a CTA of kFusedWarps warps takes one block at a time; warp q
+// owns rows kFusedRows * q .. + kFusedRows - 1 of the block's 32 and lane l
+// packed lanes 4 l .. 4 l + 3, so that row s of the lane's four packed lanes
+// is block rows 128 s + 4 l + j, whose mask entries Rows reads in one load.
+constexpr int kFusedWarps = 4;
+constexpr int kFusedRows = rt::kRows / kFusedWarps;  // 8
+static_assert(rt::kLanes == 32 * kChunk, "a lane owns kChunk packed lanes");
+
+// CTAs per SM that registers are budgeted for: 12 (40 registers a thread)
+// puts the 1,472-block stack in one wave; a wider mask or wider words hold
+// more registers than that budget leaves without spilling.
+constexpr int fused_min_ctas(int K, int mask_bytes) {
+  return mask_bytes == 1 && K <= 12 ? 12 : 1;
+}
+
+// The 16-byte words of packed lanes 4 l .. 4 l + 3 that hold their rows
+// R0 .. R0 + N - 1 and no others (rt::Words, four lanes at a time).
+template <int K, int R0, int N>
+struct QuadWords {
+  static_assert(K >= 1 && K <= 32, "bit width out of range");
+  static constexpr int kFirst = (R0 * K) >> 5;
+  static constexpr int kCount = (((R0 + N) * K - 1) >> 5) - kFirst + 1;
+  uint4 w[kCount];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ block, int lane) {
 #pragma unroll
-    for (int i = 1; i < kWarps; ++i) {
-      n += part[0][i];
-      hs += part[1][i];
-      ls += part[2][i];
-      lo = part[3][i] < lo ? part[3][i] : lo;
-      hi = part[4][i] > hi ? part[4][i] : hi;
-    }
-    cnt[b] = n;
-    s0[b] = hs;
-    s1[b] = ls;
-    mn[b] = lo;
-    mx[b] = hi;
+    for (int j = 0; j < kCount; ++j)
+      w[j] = __ldg(reinterpret_cast<const uint4*>(block + (kFirst + j) * rt::kLanes) + lane);
   }
+
+  // Row R0 + i of packed lane 4 l + j as an unsigned K-bit value.
+  __device__ __forceinline__ uint32_t value(int i, int j) const {
+    if constexpr (K == 32) {
+      return word(w[i], j);
+    } else {
+      const int off = (R0 + i) * K - kFirst * 32;
+      const int w0 = off >> 5;
+      const int sh = off & 31;
+      uint32_t x = word(w[w0], j) >> sh;
+      if (sh + K > 32) x |= word(w[w0 + 1 < kCount ? w0 + 1 : kCount - 1], j) << (32 - sh);
+      return x & ((1u << K) - 1u);
+    }
+  }
+};
+
+// The five integer planes of one thread, warp or block.
+struct Planes {
+  int32_t n = 0, hs = 0, ls = 0, lo = kIntMinIdent, hi = kIntMaxIdent;
+
+  __device__ __forceinline__ void add(uint32_t w, bool counted) {
+    const int32_t v = static_cast<int32_t>(w);
+    n += counted ? 1 : 0;
+    hs += counted ? v >> 16 : 0;
+    ls += counted ? v & 0xFFFF : 0;
+    lo = min(lo, counted ? v : kIntMinIdent);
+    hi = max(hi, counted ? v : kIntMaxIdent);
+  }
+
+  __device__ __forceinline__ void reduce() {
+    n = __reduce_add_sync(kFull, n);
+    hs = __reduce_add_sync(kFull, hs);
+    ls = __reduce_add_sync(kFull, ls);
+    lo = __reduce_min_sync(kFull, lo);
+    hi = __reduce_max_sync(kFull, hi);
+  }
+};
+
+// The warps' planes of two consecutive blocks of a CTA (by block parity), so
+// that one barrier a block suffices.
+struct FusedStage {
+  int32_t v[2][5][kFusedWarps];
+};
+
+template <typename MaskT>
+struct FusedArgs {
+  const uint32_t* packed;
+  const MaskT* mask;
+  int32_t *cnt, *s0, *s1, *mn, *mx;
+  int nblocks;
+};
+
+// The grid-stride walk of warp Q: rows Q * kFusedRows .. of every block this
+// CTA takes.  Each warp reduces its planes into shared memory; after the
+// block's barrier warp 0 reduces the kFusedWarps of them and writes them.
+// Nothing of the next block is loaded ahead: the registers that would hold
+// it do not fit the budget that puts the stack in one wave.
+template <int K, typename MaskT, int Q>
+__device__ __forceinline__ void fused_walk(const FusedArgs<MaskT>& a, FusedStage& st) {
+  using MaskVec = typename Rows<MaskT>::MaskVec;
+  const int lane = threadIdx.x & 31;
+  auto fold = [&](size_t b, int buf) {
+    QuadWords<K, Q * kFusedRows, kFusedRows> words;
+    words.load(a.packed + b * K * rt::kLanes, lane);
+    const MaskT* mb = a.mask + b * rt::kBlock + Q * kFusedRows * rt::kLanes + kChunk * lane;
+    MaskVec m[kFusedRows];
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i)
+      m[i] = __ldg(reinterpret_cast<const MaskVec*>(mb + i * rt::kLanes));
+    Planes p;
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) p.add(words.value(i, j), word(m[i], j) != 0);
+    }
+    p.reduce();
+    int32_t (&part)[5][kFusedWarps] = st.v[buf];
+    if (lane == 0) {
+      part[0][Q] = p.n;
+      part[1][Q] = p.hs;
+      part[2][Q] = p.ls;
+      part[3][Q] = p.lo;
+      part[4][Q] = p.hi;
+    }
+    rt::cta_barrier();  // every warp's planes of block b are in
+    if constexpr (Q == 0) {
+      Planes t;
+      if (lane < kFusedWarps) {
+        t.n = part[0][lane];
+        t.hs = part[1][lane];
+        t.ls = part[2][lane];
+        t.lo = part[3][lane];
+        t.hi = part[4][lane];
+      }
+      t.reduce();
+      if (lane == 0) {
+        a.cnt[b] = t.n;
+        a.s0[b] = t.hs;
+        a.s1[b] = t.ls;
+        a.mn[b] = t.lo;
+        a.mx[b] = t.hi;
+      }
+    }
+  };
+  // The grid is never wider than the blocks, so every CTA has a first block;
+  // it runs outside the loop, as in fused_scan's walk.
+  size_t b = blockIdx.x;
+  fold(b, 0);
+  int buf = 1;
+  for (b += gridDim.x; b < static_cast<size_t>(a.nblocks); b += gridDim.x, buf ^= 1) fold(b, buf);
+}
+
+// fused_walk<K, MaskT, q> for the runtime warp index q.
+template <int K, typename MaskT, int Q = 0>
+__device__ __forceinline__ void fused_walk_warp(int q, const FusedArgs<MaskT>& a,
+                                                FusedStage& st) {
+  if constexpr (Q + 1 < kFusedWarps) {
+    if (q != Q) {
+      fused_walk_warp<K, MaskT, Q + 1>(q, a, st);
+      return;
+    }
+  }
+  fused_walk<K, MaskT, Q>(a, st);
+}
+
+template <int K, typename MaskT>
+__global__ void __launch_bounds__(kFusedWarps * 32, fused_min_ctas(K, sizeof(MaskT)))
+    fused_agg_kernel(const FusedArgs<MaskT> a) {
+  __shared__ FusedStage st;
+  fused_walk_warp<K, MaskT>(threadIdx.x >> 5, a, st);
 }
 
 template <bool kFloat, typename MaskT>
@@ -532,11 +654,14 @@ template <int K, typename MaskT>
 cudaError_t launch_fused(const void* packed, const void* mask, void* cnt,
                          void* s0, void* s1, void* mn, void* mx, int nblocks,
                          cudaStream_t stream) {
-  fused_agg_kernel<K, MaskT><<<nblocks, rt::kLanes, 0, stream>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const MaskT*>(mask),
-      static_cast<int32_t*>(cnt), static_cast<int32_t*>(s0),
-      static_cast<int32_t*>(s1), static_cast<int32_t*>(mn),
-      static_cast<int32_t*>(mx));
+  auto kernel = fused_agg_kernel<K, MaskT>;
+  static const rt::Setup setup = rt::make_setup(kernel, kFusedWarps * 32, false);
+  if (setup.err != cudaSuccess) return setup.err;
+  const FusedArgs<MaskT> a{static_cast<const uint32_t*>(packed), static_cast<const MaskT*>(mask),
+                           static_cast<int32_t*>(cnt), static_cast<int32_t*>(s0),
+                           static_cast<int32_t*>(s1), static_cast<int32_t*>(mn),
+                           static_cast<int32_t*>(mx), nblocks};
+  kernel<<<rt::grid_size(setup, 0, nblocks), kFusedWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -571,6 +696,10 @@ extern "C" int rt_fused_agg(const void* packed, const void* mask, int mask_kind,
                             int nblocks, int k, void* stream) {
   if (nblocks <= 0 || (mask_kind != 0 && mask_kind != 1))
     return cudaErrorInvalidValue;
+  // each lane reads 16-byte vectors of words and 4 or 16 bytes of mask
+  if (reinterpret_cast<uintptr_t>(packed) % 16 ||
+      reinterpret_cast<uintptr_t>(mask) % (mask_kind ? 16 : 4))
+    return cudaErrorMisalignedAddress;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = rt::with_k(k, [&](auto kc) {
     constexpr int K = decltype(kc)::value;

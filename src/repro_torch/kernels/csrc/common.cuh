@@ -81,6 +81,12 @@ struct Words {
   }
 };
 
+// The barrier of all the CTA's threads, met from any instruction: a CTA whose
+// warps run different instantiations of one walk meets at a barrier that is
+// not the same instruction for every warp (barrier.sync, not
+// __syncthreads' aligned form).
+__device__ __forceinline__ void cta_barrier() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
 // Runs f(std::integral_constant<int, K>{}) for the runtime bit width k, so a
 // launcher instantiates its kernel template once per K = 1..32.
 template <typename F>

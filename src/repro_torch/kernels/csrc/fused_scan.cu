@@ -103,9 +103,6 @@ struct Stage {
   int32_t count[2][kWarps];
 };
 
-// The barrier of all the CTA's threads, met from any instruction.
-__device__ __forceinline__ void cta_barrier() { asm volatile("barrier.sync 0;" ::: "memory"); }
-
 // The grid-stride walk of the threads of row group G: rows G * kRowsPer ..
 // of every block this CTA takes.
 template <int K, int G, int kArm>
@@ -154,7 +151,7 @@ __device__ __forceinline__ void walk(const Args& a, Stage& st) {
       n = __reduce_add_sync(0xffffffffu, n);
       if ((threadIdx.x & 31) == 0) st.count[buf][threadIdx.x >> 5] = n;
     }
-    cta_barrier();  // the staged mask and the warp counts are complete
+    rt::cta_barrier();  // the staged mask and the warp counts are complete
     static_assert(rt::kBlock == kThreads * sizeof(uint2), "one 8-byte piece a thread");
     reinterpret_cast<uint2*>(a.mask + b * rt::kBlock)[threadIdx.x] =
         reinterpret_cast<const uint2*>(st.mask[buf])[threadIdx.x];

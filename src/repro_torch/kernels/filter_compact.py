@@ -24,10 +24,13 @@ KERNEL = build.Kernel("filter_compact", "src/repro_torch/kernels/csrc/filter_com
 
 def filter_compact(values: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nblk, 1024) int32/float32 values + (nblk, 1024) bool mask on the
-    card -> (compacted (nblk, 1024) of the values' dtype, counts (nblk,) int32)."""
+    card -> (compacted (nblk, 1024) of the values' dtype, counts (nblk,) int32).
+    From 512 blocks on, the kernel reads the values in 16-byte vectors and
+    the mask in 4-byte words."""
     build.check_operand(values, "values", (torch.int32, torch.float32), (None, RLE_OUT_BLOCK))
     nblk = int(values.shape[0])
     build.check_operand(mask, "mask", (torch.bool,), (nblk, RLE_OUT_BLOCK), values.device)
+    values, mask = build.aligned(values, 16), build.aligned(mask, 4)
     out = torch.empty_like(values)
     counts = torch.empty((nblk,), dtype=torch.int32, device=values.device)
     if nblk:

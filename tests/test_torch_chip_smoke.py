@@ -21,8 +21,37 @@ def test_port_kernel_functions_finds_every_global_function():
     names = chip_smoke.port_kernel_functions()
     assert count > 0 and len(names) == count, names
     # both carry __launch_bounds__(kThreads, min_ctas(K, kArm)), whose inner
-    # parentheses once hid fused_scan_kernel from the name scan
-    assert {"dict_decode_batch_kernel", "fused_scan_kernel", "dict_decode_kernel"} <= set(names)
+    # parentheses once hid fused_scan_kernel from the name scan;
+    # fused_agg_kernel's hold two levels (fused_min_ctas(K, sizeof(MaskT)))
+    assert {"dict_decode_batch_kernel", "fused_scan_kernel", "dict_decode_kernel",
+            "fused_agg_kernel", "filter_compact_kernel"} <= set(names)
+
+
+def test_port_kernel_functions_skips_nested_launch_bounds(tmp_path, monkeypatch):
+    csrc = tmp_path / "src" / "repro_torch" / "kernels" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text(
+        "__global__ void __launch_bounds__(f(g(1), h(2, (3))), 4) deep_kernel(int a) {}\n"
+        "__global__ void plain_kernel(int a) {}\n"
+        "__global__ void __launch_bounds__(128)\n    bounded_kernel (int a) {}\n")
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    assert chip_smoke.port_kernel_functions() == ("bounded_kernel", "deep_kernel", "plain_kernel")
+
+
+def test_bounds_count_the_same_work_as_before_the_redesigns():
+    """The yardsticks of fused_agg and filter_compact count the same work
+    whatever the kernels' design: the bounds at the stack (k = 6, bool mask;
+    5,888 blocks) are 3.24 and 16.21 us."""
+    assert chip_smoke.ops_per_value("fused_agg", 6) == 9
+    assert chip_smoke.COMPACT_OPS_PER_VALUE == 8
+    nb = chip_smoke.STACK_BLOCKS
+    agg_bytes = nb * (6 * 128 * 4 + 4096 + 20) / chip_smoke.HBM_BYTES_PER_S
+    agg_ops = nb * 4096 * 9 / chip_smoke.INT32_OPS_PER_S
+    assert round(max(agg_bytes, agg_ops) * 1e6, 2) == 3.24 and agg_ops > agg_bytes
+    nb = chip_smoke.RLE_STACK_BLOCKS
+    compact_bytes = nb * (4096 + 1024 + 4096 + 4) / chip_smoke.HBM_BYTES_PER_S
+    compact_ops = nb * 1024 * 8 / chip_smoke.INT32_OPS_PER_S
+    assert round(compact_bytes * 1e6, 2) == 16.21 and compact_bytes > compact_ops
 
 
 @pytest.mark.parametrize("key,want", [
@@ -34,6 +63,12 @@ def test_port_kernel_functions_finds_every_global_function():
      ("fused_scan_kernel", "<12, 0>")),
     ("void (anonymous namespace)::filter_compact_kernel(unsigned int const*, unsigned char "
      "const*, unsigned int*, int*)", ("filter_compact_kernel", "")),
+    ("void (anonymous namespace)::filter_compact_kernel(unsigned int const*, unsigned char "
+     "const*, unsigned int*, int*, int)", ("filter_compact_kernel", "")),
+    ("void (anonymous namespace)::fused_agg_kernel<6, unsigned char>((anonymous "
+     "namespace)::FusedArgs<unsigned char>)", ("fused_agg_kernel", "<6, unsigned char>")),
+    ("void (anonymous namespace)::fused_agg_kernel<32, int>((anonymous "
+     "namespace)::FusedArgs<int>)", ("fused_agg_kernel", "<32, int>")),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<int>, "
      "std::array<char*, 1ul> >(int, at::native::FillFunctor<int>, std::array<char*, 1ul>)", None),
     ("Memcpy HtoD (Pageable -> Device)", None),

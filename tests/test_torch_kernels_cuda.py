@@ -174,21 +174,31 @@ def test_rle_decode(dev, nblk, dtype):
     assert _same(got, ref.rle_decode(v, e))
 
 
-@pytest.mark.parametrize("nblk", [3, 196, 5888])
+# 1,473 and 5,000 blocks: more than one wave of the grid-stride walk, and a
+# count that is not a multiple of the grid; offset 1: a values view 4 bytes
+# past a 16-byte boundary, which the wrapper copies to an aligned tensor
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nblk", [1, 3, 196, 1473, 5000, 5888])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_filter_compact(dev, nblk, dtype):
+def test_filter_compact(dev, nblk, dtype, offset):
     rng = np.random.default_rng(nblk + 1)
     if dtype == torch.float32:
-        v = torch.from_numpy(rng.standard_normal((nblk, 1024)).astype(np.float32))
-        v[0, :2] = torch.tensor([-0.0, float("inf")])
+        v = rng.standard_normal((nblk, 1024)).astype(np.float32)
+        v[0, :5] = [-0.0, np.inf, -np.inf, np.nan, 0.0]
+        v.view(np.int32)[0, 5] = 0x7FC00001  # a NaN with a payload
+        v.view(np.int32)[0, 6] = -0x400000   # a negative NaN (0xFFC00000)
     else:
-        v = torch.from_numpy(rng.integers(-2**31, 2**31, (nblk, 1024)).astype(np.int32))
-    m = torch.from_numpy(rng.random((nblk, 1024)) < 0.4)
-    m[0] = True
-    m[1] = False
-    m[2] = False
-    m[2, -1] = True
-    v, m = v.to(dev), m.to(dev)
+        v = rng.integers(-2**31, 2**31, (nblk, 1024)).astype(np.int32)
+    m = rng.random((nblk, 1024)) < 0.4
+    m[0] = True  # all kept
+    if nblk > 2:
+        m[1] = False  # none kept
+        m[2] = False
+        m[2, -1] = True  # only the last row
+    base = torch.from_numpy(np.concatenate([np.zeros(offset, v.dtype), v.reshape(-1)])).to(dev)
+    v = base[offset:].view(nblk, 1024)
+    assert (v.data_ptr() % 16 != 0) == bool(offset)
+    m = torch.from_numpy(m).to(dev)
     got = cu_compact.filter_compact(v, m)
     torch.cuda.synchronize()
     want = ref.filter_compact(v, m)
@@ -520,16 +530,41 @@ def test_grouped_agg_unaligned_views(dev):
     assert all(_same(a, b) for a, b in zip(got, ref.grouped_agg(v, g, m, 3)))
 
 
-@pytest.mark.parametrize("k", [1, 6, 32])
+# 17 blocks at k = 1, 6, 32, then fused_agg's grid-stride walk at
+# WALK_BLOCKS x WALK_KS
+@pytest.mark.parametrize("nb,k", [(17, 1), (17, 6), (17, 32)]
+                         + [(nb, k) for nb in WALK_BLOCKS for k in WALK_KS])
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
-def test_fused_agg(dev, k, mask_dtype):
-    rng = np.random.default_rng(k + 7)
-    p = _words(rng, 17, k).to(dev)
-    m = torch.from_numpy(rng.random((17, 4096)) < 0.5).to(mask_dtype).to(dev)
-    m[-1] = 0
+def test_fused_agg(dev, nb, k, mask_dtype):
+    """Block 0 counts every row, block 1 none, the last block none; at k = 32
+    block 0 holds -2^31 and 2^31 - 1."""
+    rng = np.random.default_rng(nb * 33 + k + 7)
+    p = _words(rng, nb, k)
+    if k == 32:
+        p[0, :, :2] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+    p = p.to(dev)
+    m = torch.from_numpy(rng.random((nb, 4096)) < 0.5)
+    m[0] = True
+    if nb > 1:
+        m[1] = False
+        m[-1] = False
+    m = m.to(mask_dtype).to(dev)
     got = cu_agg.fused_agg(p, k, m)
     torch.cuda.synchronize()
     assert all(_same(a, b) for a, b in zip(got, ref.fused_agg_scan(p, k, m)))
+
+
+def test_fused_agg_unaligned_views(dev):
+    """Words and a mask whose data start off a 16-byte boundary give the
+    same planes as aligned copies."""
+    rng = np.random.default_rng(10)
+    p = _words(rng, 5, 6).to(dev)
+    m = torch.from_numpy(rng.random((5, 4096)) < 0.5).to(torch.int32).to(dev)
+    shifted = [torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].reshape(t.shape) for t in (p, m)]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    got = cu_agg.fused_agg(shifted[0], 6, shifted[1])
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, ref.fused_agg_scan(p, 6, m)))
 
 
 def test_batched_and_pushdown_on_card_match_cpu(dev, tables):

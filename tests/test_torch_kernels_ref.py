@@ -193,6 +193,25 @@ def test_filter_compact_stable(nb, dtype):
                 (nb, 1024), dtype=torch.bool))[0].any()
 
 
+@pytest.mark.parametrize("masks", ["all", "none", "last"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_filter_compact_whole_block_masks_against_pallas_interpret(masks, dtype):
+    """Every row, no row and only the last row of each block kept: the plain
+    version against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(1300 + len(masks) + len(dtype))
+    v, _ = _rand_compact(rng, 3, dtype)
+    m = np.zeros((3, 1024), bool)
+    if masks == "all":
+        m[:] = True
+    elif masks == "last":
+        m[:, -1] = True
+    jo, jc = jops.filter_compact(jnp.asarray(v), jnp.asarray(m), backend="pallas")
+    o, c = ref.filter_compact(torch.from_numpy(v), torch.from_numpy(m))
+    _eq(o, jo)
+    _eq(c, jc)
+    assert c.tolist() == [int(m[0].sum())] * 3
+
+
 def test_filter_compact_signed_zero_is_a_reference_divergence():
     """The reference's f32 contraction returns +0.0 for a surviving -0.0;
     the port's scatter keeps its sign bit (ROADMAP.md C)."""
@@ -557,20 +576,29 @@ def test_grouped_agg_float_min_max_order_free():
         assert mn.numpy().view(np.int32)[0, 1] == 0x7FC00000 == mx.numpy().view(np.int32)[0, 1]
 
 
-@pytest.mark.parametrize("k", [1, 6, 32])
-def test_fused_agg_against_reference(k):
+@pytest.mark.parametrize("k,mask_dtype", [
+    pytest.param(k, torch.bool, id=str(k)) for k in (1, 6, 13, 31, 32)] + [
+    pytest.param(k, torch.int32, id=f"{k}-int32-mask") for k in (6, 13, 31, 32)])
+def test_fused_agg_against_reference(k, mask_dtype):
+    """Block 0 counts every row, block 2 none; an int32 mask holds values
+    other than 0 and 1."""
     rng = np.random.default_rng(1100 + k)
     w, t = _words(rng, 3, k)
     m = rng.random((3, 4096)) < 0.5
-    m[2] = False
-    got = ref.fused_agg_scan(t, k, torch.from_numpy(m))
+    m[0], m[2] = True, False
+    mask = torch.from_numpy(m).to(mask_dtype)
+    if mask_dtype == torch.int32:
+        mask = mask * torch.from_numpy(rng.integers(-3, 4, (3, 4096), dtype=np.int32) | 1)
+    jm = jnp.asarray(mask.numpy().astype(np.int32))
+    got = ref.fused_agg_scan(t, k, mask)
     with jax.disable_jit():
-        want = jref.fused_agg_scan(jnp.asarray(w), k, jnp.asarray(m, jnp.int32))
-    pallas = jagg_push.fused_agg_pallas(jnp.asarray(w), k, jnp.asarray(m, jnp.int32))
+        want = jref.fused_agg_scan(jnp.asarray(w), k, jm)
+    pallas = jagg_push.fused_agg_pallas(jnp.asarray(w), k, jm)
     for a, b, c in zip(got, want, pallas):
         _eq(a, b)
         _eq(a, c)
     assert got[3][2].item() == 2**31 - 1 and got[4][2].item() == -2**31
+    assert got[0][0].item() == 4096
 
 
 def test_batch_kernels_against_pallas_interpret():
