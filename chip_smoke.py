@@ -60,6 +60,34 @@ Phases, in order; any failure exits non-zero:
    path, every port kernel's self device time, launches and us a launch in
    situ from that profile (as phase 8 prints them), and per file order one
    line of each kernel's totals over phase 7's profiled scans, by path;
+O. the paper's offload configurations on each file order, after phase 7,
+   every launch count set to 0 at its start and read at its end (its
+   comparators run on the CPU): (a) Fig. 2: the six queries on
+   DatapathEngine(device="cuda", offload=m, cache=BlockCache(4 << 30)) for m
+   raw, preloaded and prefiltered (the cached two warmed by one pass, as
+   benchmarks/breakdown.py does), warm wall ms (median of three) and
+   decode% / filter% / rest% computed as breakdown.py does, each mode's
+   answers agreeing with raw's (agreement.compare), each query's lineitem
+   scan (Q19's with its bloom) bit-identical in the three modes and its
+   ScanStats equal to a device="cpu" engine's with the same history, field
+   for field; (b) the six queries on backend="host" (numpy decode), agreeing
+   with raw, wall ms beside raw's; (c) phase 7(b)'s three pushdown plans
+   under pre-aggregated: the second run a cache hit, both bit-identical to
+   raw; (d) scan(batched=True) ≡ sequential under preloaded and prefiltered
+   (twice: cold, then from the store), and the six lineitem plans in one
+   scan_group_batched pass over a shared DecodePool, each bit-identical to its
+   own batched scan, in fewer launches than the six scans; (e) Q1's lineitem
+   scan twice on preloaded stores holding a third and a sixteenth of its
+   decoded bytes: bit-identical to raw, evictions, page hits on the second
+   run, demotions to the encoded tier at a sixteenth, used <= capacity, and
+   torch.cuda.memory_allocated() before and after clear() (the drop at least
+   the store's decoded and prefiltered bytes); (f) CostModel.calibrate on
+   the card at 2^18 and 2^24 values: source "calibrated" under the key
+   "cuda", a failing calibration raising (no nominal fallback there), each
+   encoding's rate and the launch overhead, a save/load round trip, and for
+   each lineitem scan
+   estimate_row_groups' bytes equal to its decoded_bytes_fresh, its
+   estimated seconds printed beside the scan's device busy time;
 8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share, and for every
    port kernel that ran (every __global__ function in kernels/csrc; always
@@ -88,8 +116,8 @@ Phases, in order; any failure exits non-zero:
    yardstick the port never calls, torch's scaled_dot_product_attention (and
    the kernel's time over it);
 10. print one JSON line with every kernel's record (its launches, summed over
-   the counted windows of phases 5 and 7 on both file orders and of phase 9,
-   must be > 0);
+   the counted windows of phases 5, 7 and O on both file orders and of phase
+   9, must be > 0);
 11. print the device line last.
 """
 
@@ -97,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -114,9 +143,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import DatapathEngine, agreement, tpch  # noqa: E402
+from repro_torch.core import BlockCache, DatapathEngine, agreement, tpch  # noqa: E402
 from repro_torch.core import queries as Q  # noqa: E402
-from repro_torch.core.plan import AggSpec, Cmp, ScanPlan  # noqa: E402
+from repro_torch.core.plan import AggSpec, Cmp, ScanPlan, bind_expr  # noqa: E402
+from repro_torch.core.zonemap import prune_row_groups  # noqa: E402
+from repro_torch.datapath import CostModel, DecodePool  # noqa: E402
 from repro_torch.distributed.sharding import local_ctx  # noqa: E402
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
@@ -810,15 +841,26 @@ def timed_scan(engine, reader, plan, blooms, batched: bool):
     return res, (time.perf_counter() - t0) * 1e3, ops.dispatch_count(), ops.transfer_count()
 
 
+def same_rows(a, b, label: str) -> None:
+    """Two row scans equal in columns (floats as bits), mask and count;
+    raises otherwise."""
+    if not (torch.equal(a.mask, b.mask) and int(a.count) == int(b.count)):
+        raise AssertionError(f"{label}: mask/count differ")
+    if sorted(a.columns) != sorted(b.columns):
+        raise AssertionError(f"{label}: columns differ: {sorted(a.columns)} {sorted(b.columns)}")
+    for c in a.columns:
+        x, y = a.columns[c], b.columns[c]
+        if x.dtype != y.dtype or not torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                                                 else x,
+                                                 y.view(torch.int32) if y.dtype == torch.float32
+                                                 else y):
+            raise AssertionError(f"{label}: column {c} differs")
+
+
 def same_scan(a, b, label: str) -> None:
     """Two row scans equal in columns (floats as bits), mask, count and every
     ScanStats field but kernel_launches; raises otherwise."""
-    if not (torch.equal(a.mask, b.mask) and int(a.count) == int(b.count)):
-        raise AssertionError(f"{label}: batched mask/count differ from sequential")
-    if sorted(a.columns) != sorted(b.columns):
-        raise AssertionError(f"{label}: batched columns differ from sequential")
-    for c in a.columns:
-        max_abs_err(a.columns[c], b.columns[c])
+    same_rows(a, b, label)
     sa, sb = dataclasses.asdict(a.stats), dataclasses.asdict(b.stats)
     sa.pop("kernel_launches"), sb.pop("kernel_launches")
     if sa != sb:
@@ -909,6 +951,248 @@ def batched_and_pushdown(gpu, cpu, readers, order: str) -> dict:
                                     for path, (ms, n) in sorted(paths.items()))
             for kern, paths in sorted(in_situ.items())))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase O: the paper's offload configurations
+# ---------------------------------------------------------------------------
+
+OFFLOAD_MODES = ("raw", "preloaded", "prefiltered")
+STORE_BYTES = 4 << 30  # benchmarks/breakdown.py's BlockCache(4 << 30)
+# (e): stores holding a third and a sixteenth of Q1's decoded lineitem
+# columns.  At a third the encoded pages all stay (they price higher per byte
+# than the decodes), so nothing demotes; at a sixteenth pages go too, and a
+# decode whose page went first demotes to it.
+PRESSURE_SHARES = (3, 16)
+# (f): calibration sizes, the cost model's default (2^18 values, whose decode
+# takes about as long as one launch on the card) and 2^24
+CALIBRATION_N = (1 << 18, 1 << 24)
+
+
+def wall(fn):
+    """(fn(), wall ms between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def median3(fn):
+    """(the last of three calls' results, their median wall ms)."""
+    runs = [wall(fn) for _ in range(3)]
+    return runs[-1][0], sorted(m for _, m in runs)[1]
+
+
+def fig2(t_raw: float, t_pre: float, t_filt: float) -> tuple:
+    """benchmarks/breakdown.py's decode%, filter% and rest% of one query."""
+    decode = max(0.0, (t_raw - t_pre) / t_raw * 100)
+    filt = max(0.0, (t_pre - t_filt) / t_raw * 100)
+    return decode, filt, 100 - decode - filt
+
+
+def offload_configurations(readers, order: str, tmpdir: str, device: str = "cuda") -> dict:
+    """Phase O on one file order: (a) Fig. 2's three configurations, (b) the
+    host baseline, (c) pre-aggregated, (d) batched forms and cross-request
+    stacking, (e) the store under pressure, (f) the cost model.  Every
+    launch count is set to 0 at its start and read at its end: every launch
+    in it is on one of these paths (the comparators run on the CPU).
+    Returns those counts."""
+    li = readers["lineitem"]
+    per_supp = agreement.per_supplier_revenue(li)
+    ops.reset_kernel_launches()
+
+    # (a) Fig. 2: raw, preloaded and prefiltered; the cached two warmed with
+    # one pass of the six queries, as benchmarks/breakdown.py does, and each
+    # CPU twin given the same history
+    gpu = {m: DatapathEngine(device=device, offload=m, cache=BlockCache(STORE_BYTES))
+           for m in OFFLOAD_MODES}
+    cpu = {m: DatapathEngine(device="cpu", offload=m, cache=BlockCache(STORE_BYTES))
+           for m in OFFLOAD_MODES}
+    for m in OFFLOAD_MODES[1:]:
+        for q in Q.QUERIES.values():
+            q(gpu[m], readers)
+            q(cpu[m], readers)
+    got, ms = {}, {}
+    for m in OFFLOAD_MODES:
+        for name, q in Q.QUERIES.items():
+            got[m, name], ms[m, name] = median3(lambda q=q, m=m: q(gpu[m], readers))
+    log(f"      (a) {order}: Fig. 2 on the card (warm wall ms, median of three; decode% = "
+        "(raw - preloaded) / raw, filter% = (preloaded - prefiltered) / raw; paper 46 / 17):")
+    pcts = []
+    for name in Q.QUERIES:
+        for m in OFFLOAD_MODES[1:]:
+            agreement.compare(name, got[m, name], got["raw", name], per_supp)
+        pct = fig2(*(ms[m, name] for m in OFFLOAD_MODES))
+        pcts.append(pct)
+        log(f"      (a) {name}: raw_ms={ms['raw', name]:.2f} preloaded_ms="
+            f"{ms['preloaded', name]:.2f} prefiltered_ms={ms['prefiltered', name]:.2f} "
+            f"decode%={pct[0]:.1f} filter%={pct[1]:.1f} rest%={pct[2]:.1f}; preloaded and "
+            "prefiltered agree with raw")
+    avg = [sum(p[i] for p in pcts) / len(pcts) for i in range(3)]
+    log(f"      (a) {order} average: decode%={avg[0]:.1f} filter%={avg[1]:.1f} "
+        f"rest%={avg[2]:.1f} (paper: 46 / 17 / 37)")
+    bloom = Q.q19_bloom(gpu["raw"], readers)
+    cbloom = Q.q19_bloom(cpu["raw"], readers)
+    scans = {name: (make(), {"q19": bloom} if name == "q19" else None,
+                    {"q19": cbloom} if name == "q19" else None)
+             for name, make in Q.LINEITEM_PLANS.items()}
+    for name, (plan, blooms, cblooms) in scans.items():
+        res = {}
+        for m in OFFLOAD_MODES:
+            res[m] = gpu[m].scan(li, plan, blooms=blooms)
+            want = dataclasses.asdict(cpu[m].scan(li, plan, blooms=cblooms).stats)
+            have = dataclasses.asdict(res[m].stats)
+            if have != want:
+                raise AssertionError(f"{order} {name} {m}: ScanStats differ from the CPU engine's: "
+                                     f"{ {k: (have[k], want[k]) for k in have if have[k] != want[k]} }")
+        for m in OFFLOAD_MODES[1:]:
+            same_rows(res[m], res["raw"], f"{order} {name} lineitem scan {m} against raw")
+        log(f"      (a) {name} lineitem scan: rows={int(res['raw'].count)} bit-identical in the "
+            "three modes, ScanStats equal to the CPU engine's; " + " ".join(
+                f"{m}: cache_hit={res[m].stats.cache_hit} decoded_bytes_fresh="
+                f"{res[m].stats.decoded_bytes_fresh} kernel_launches={res[m].stats.kernel_launches};"
+                for m in OFFLOAD_MODES))
+
+    # (b) the host baseline: numpy decode on the host, the rest on the card
+    host = DatapathEngine(device=device, backend="host")
+    line = []
+    for name, q in Q.QUERIES.items():
+        agreement.compare(name, q(host, readers), got["raw", name], per_supp)
+        _, host_ms = wall(lambda q=q: q(host, readers))
+        line.append(f"{name} host_ms={host_ms:.2f} raw_ms={ms['raw', name]:.2f}")
+    log(f"      (b) {order}: backend='host' agrees with raw; warm wall ms: " + "; ".join(line))
+
+    # (c) pre-aggregated: the second run is a cache hit, bit-identical to raw
+    pre_agg = DatapathEngine(device=device, offload="pre-aggregated", cache=BlockCache(STORE_BYTES))
+    for pname, plan in PUSHDOWN_PLANS.items():
+        want = gpu["raw"].scan(li, plan).aggregates
+        (r1, ms1), (r2, ms2) = (wall(lambda plan=plan: pre_agg.scan(li, plan)) for _ in range(2))
+        if r1.stats.cache_hit or not r2.stats.cache_hit:
+            raise AssertionError(f"{order} {pname}: pre-aggregated hits {r1.stats.cache_hit}, "
+                                 f"{r2.stats.cache_hit}; want False, True")
+        for r in (r1, r2):
+            for k in want:
+                if r.aggregates[k].dtype != want[k].dtype or not np.array_equal(r.aggregates[k],
+                                                                                want[k]):
+                    raise AssertionError(f"{order} {pname}: pre-aggregated {k} differs from raw")
+        log(f"      (c) {pname}: first_ms={ms1:.2f} (launches {r1.stats.kernel_launches}) "
+            f"hit_ms={ms2:.2f} (cache_hit True), bit-identical to raw")
+
+    # (d) batched under the cached modes (twice: cold, then served by the
+    # store) against sequential; then the six lineitem plans stacked in one
+    # scan_group_batched pass over a shared DecodePool
+    for m in OFFLOAD_MODES[1:]:
+        seq = DatapathEngine(device=device, offload=m, cache=BlockCache(STORE_BYTES))
+        bat = DatapathEngine(device=device, offload=m, cache=BlockCache(STORE_BYTES))
+        launches = {False: 0, True: 0}
+        for run in range(2):
+            for name, (plan, blooms, _) in scans.items():
+                s_ = seq.scan(li, plan, blooms=blooms)
+                b_ = bat.scan(li, plan, blooms=blooms, batched=True)
+                same_scan(b_, s_, f"{order} {name} {m} run {run}")
+                launches[False] += s_.stats.kernel_launches
+                launches[True] += b_.stats.kernel_launches
+        log(f"      (d) {m}: scan(batched=True) equals sequential on the six lineitem plans, "
+            f"twice; kernel_launches sequential={launches[False]} batched={launches[True]}")
+    raw = gpu["raw"]
+    pending = [(name, raw.resumable_scan(li, plan, blooms=blooms))
+               for name, (plan, blooms, _) in scans.items()]
+    pending = [(name, rs) for name, rs in pending if rs.result is None]
+    items = [{"reader": li, "rgs": list(rs.pending), "plan": rs.plan, "pred": rs.pred,
+              "blooms": rs.blooms, "stats": rs.stats, "offload": None, "owner": name,
+              "trace": None} for name, rs in pending]
+    out, group_ms = wall(lambda: raw.scan_group_batched(items, pool=DecodePool()))
+    for (name, rs), it, (per_rg, _) in zip(pending, items, out):
+        rs.ingest_batched(it["rgs"], per_rg)
+    own = {name: raw.scan(li, scans[name][0], blooms=scans[name][1], batched=True)
+           for name, _ in pending}
+    for name, rs in pending:
+        same_rows(rs.result, own[name], f"{order} {name}: scan_group_batched against its own scan")
+    stacked = sum(rs.stats.kernel_launches for _, rs in pending)
+    alone = sum(r.stats.kernel_launches for r in own.values())
+    if not stacked < alone:
+        raise AssertionError(f"{order}: the stacked pass launched {stacked} kernels, the six "
+                             f"batched scans {alone}")
+    log(f"      (d) scan_group_batched over {len(items)} requests in {group_ms:.2f} ms: each "
+        f"bit-identical to its own batched scan; kernel_launches stacked={stacked} against "
+        f"{alone} for the six batched scans; pool hits "
+        f"{sum(rs.stats.pool_hits for _, rs in pending)}")
+
+    # (e) the store under pressure: Q1's lineitem scan, twice, on preloaded
+    # stores that hold part of its decoded columns
+    plan = scans["q1"][0]
+    want = raw.scan(li, plan)
+    for share in PRESSURE_SHARES:
+        cap = want.stats.decoded_bytes // share
+        eng = DatapathEngine(device=device, offload="preloaded", cache=BlockCache(cap))
+        hits = []
+        for run in range(2):
+            r = eng.scan(li, plan)
+            same_rows(r, want, f"{order} q1 preloaded under 1/{share} of its decoded bytes")
+            if eng.cache.used > cap:
+                raise AssertionError(f"{order}: the store holds {eng.cache.used} B over {cap}")
+            hits.append(r.stats.page_hits)
+        del r
+        st = eng.cache.store.stats()
+        dec = st["tiers"]["decoded"]
+        if dec["evictions"] <= 0 or hits[1] <= 0 or (share > 3 and dec["demotions"] <= 0):
+            raise AssertionError(f"{order} 1/{share}: evictions {dec['evictions']}, second-run "
+                                 f"page hits {hits[1]}, demotions {dec['demotions']}")
+        kept = dec["bytes"] + st["tiers"]["prefiltered"]["bytes"]
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng.cache.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        if device == "cuda" and before - after < kept:
+            raise AssertionError(f"{order} 1/{share}: clear() freed {before - after} B of the "
+                                 f"card, the store held {kept} B of tensors")
+        log(f"      (e) preloaded q1, store of 1/{share} of its {want.stats.decoded_bytes} decoded "
+            f"bytes ({cap} B): bit-identical to raw twice; used={st['used']} <= capacity; "
+            f"decoded evictions={dec['evictions']} demotions={dec['demotions']} encoded "
+            f"evictions={st['tiers']['encoded']['evictions']}; page_hits {hits}; "
+            f"memory_allocated before clear()={before} after={after} (store decoded bytes "
+            f"{dec['bytes']}, prefiltered {st['tiers']['prefiltered']['bytes']})")
+
+    # (f) the cost model on the card: calibrated under the device's key, no
+    # nominal fallback there, estimates equal to the scans' fresh bytes
+    try:
+        CostModel.calibrate(backend="cuda", n=-5)
+    except Exception:  # noqa: BLE001 — the failure it must raise
+        pass
+    else:
+        raise AssertionError("CostModel.calibrate('cuda') fell back instead of raising")
+    key = torch.device(device).type
+    for n in CALIBRATION_N:
+        cm = CostModel.calibrate(backend=key, n=n)
+        if cm.source != "calibrated" or cm.backend != key:
+            raise AssertionError(f"calibrate gave source={cm.source} backend={cm.backend}")
+        path = cm.save(os.path.join(tmpdir, "calibration.json"))
+        back = CostModel.load(path, backend=key)
+        if back.rates != cm.rates or back.launch_overhead_s != cm.launch_overhead_s:
+            raise AssertionError("the calibration did not round-trip through save/load")
+        log(f"      (f) {order}: CostModel.calibrate('{key}', n={n}): source={cm.source}; GB/s "
+            + " ".join(f"{e}={cm.rates[e]:.3f}" for e in sorted(cm.rates))
+            + f"; launch_overhead_us={cm.launch_overhead_s * 1e6:.2f}; save/load round trip "
+            "equal")
+    line = []
+    for name, (plan, blooms, _) in scans.items():
+        rgs = prune_row_groups(li, bind_expr(plan.predicate, li))
+        est = cm.estimate_row_groups(raw, li, plan, rgs)
+        res = raw.scan(li, plan, blooms=blooms)
+        if sum(c.nbytes for c in est) != res.stats.decoded_bytes_fresh:
+            raise AssertionError(f"{order} {name}: estimated {sum(c.nbytes for c in est)} B, the "
+                                 f"scan decoded {res.stats.decoded_bytes_fresh} B")
+        busy_ms = profiled(lambda plan=plan, blooms=blooms: raw.scan(li, plan, blooms=blooms))[0]
+        line.append(f"{name} bytes={res.stats.decoded_bytes_fresh} est_ms="
+                    f"{sum(c.seconds for c in est) * 1e3:.3f} busy_ms={busy_ms:.3f}")
+    log(f"      (f) {order}: estimate_row_groups bytes equal each lineitem scan's "
+        f"decoded_bytes_fresh; estimated ms (the n={CALIBRATION_N[-1]} table) against device "
+        "busy ms: " + "; ".join(line))
+    return ops.kernel_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -1246,6 +1530,7 @@ def main(argv=None) -> int:
         launches = {}
         report = {}
         batched_launches = {}
+        offload_launches = {}
         for order, readers in passes.items():
             # phase 5: the main path on the card
             gpu = DatapathEngine(device="cuda")
@@ -1281,6 +1566,11 @@ def main(argv=None) -> int:
             batched_launches[order] = batched_and_pushdown(gpu, cpu, readers, order)
             log(f"      launches {batched_launches[order]}")
 
+            # phase O: the offload configurations
+            log(f"[O] {order}: the paper's offload configurations on the card:")
+            offload_launches[order] = offload_configurations(readers, order, d)
+            log(f"      launches {offload_launches[order]}")
+
     # phase 8
     for order, (first_ms, warm_ms, cpu_ms, peaks, busy, per_query) in report.items():
         log(f"[8] {order}: per query on the card (wall ms after synchronize; first run,"
@@ -1314,8 +1604,8 @@ def main(argv=None) -> int:
                 else {"blocks": path["blocks"], "stack_blocks": stack["blocks"]})
         kernels.append({
             "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
-            "launches": sum(launches[o][name] + batched_launches[o][name] for o in launches)
-            + lm_launches[name],
+            "launches": sum(launches[o][name] + batched_launches[o][name]
+                            + offload_launches[o][name] for o in launches) + lm_launches[name],
             "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
             "bound_by": path["bound_by"], "library_ms": path["library_ms"], **size,
@@ -1324,6 +1614,7 @@ def main(argv=None) -> int:
             "launches_by_order": {o: launches[o][name] for o in launches},
             "launches_batched_pushdown_by_order": {o: batched_launches[o][name]
                                                    for o in batched_launches},
+            "launches_offload_by_order": {o: offload_launches[o][name] for o in offload_launches},
             "launches_lm": lm_launches[name],
         })
         if name == "flash_attention":
@@ -1358,7 +1649,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the query, batched or LM paths: {idle}")
+        raise AssertionError(f"kernels never launched on the query, batched, offload or LM "
+                             f"paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,26 @@
-"""chip_smoke.py's profiler lines (phases 7 and 8) can name every port kernel.
+"""chip_smoke.py's profiler lines (phases 7 and 8) can name every port kernel,
+and its offload phase (phase O) runs on the CPU at a small scale.
 
 The script imports without a card: it runs nothing at import but reading the
 kernel sources.  A kernel whose name the profiler lines cannot find is
 skipped silently there, so these tests hold the name scan to a plain count.
+Phase O is rehearsed on seed-4 TPC-H files at sf=0.05 with device="cpu"
+engines (synchronize, the profiler and the card's memory counter faked): it
+passes every check, and it stops at the first mode whose answers differ from
+raw's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import pytest
+import torch
 
 import chip_smoke
+from repro_torch.core import tpch
+from repro_torch.lakeformat.reader import LakeReader
 
 CSRC = Path(chip_smoke.ROOT) / "src" / "repro_torch" / "kernels" / "csrc"
 
@@ -75,3 +84,53 @@ def test_bounds_count_the_same_work_as_before_the_redesigns():
 ])
 def test_port_kernel_of_names_the_kernel_and_its_instantiation(key, want):
     assert chip_smoke.port_kernel_of(key) == want
+
+
+# ---------------------------------------------------------------------------
+# phase O, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_tables(tmp_path_factory):
+    d = tmp_path_factory.mktemp("chip_smoke_offload")
+    return tpch.write_tables(str(d), sf=0.05, seed=4, row_group_size=8192)
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "profiled", lambda fn: (fn(), (0.0, [], {}))[1])
+    monkeypatch.setattr(chip_smoke, "CALIBRATION_N", (1 << 12, 1 << 14))
+
+
+def test_offload_phase_rehearsal(small_tables, tmp_path, on_cpu, capsys):
+    readers = {k: LakeReader(p) for k, p in small_tables.items()}
+    chip_smoke.offload_configurations(readers, "unsorted", str(tmp_path), device="cpu")
+    out = capsys.readouterr().out
+    for part in ("(a) unsorted average", "(a) q19 lineitem scan", "(b) unsorted",
+                 "(c) sum_price_count_by_shipdate", "(d) preloaded", "(d) prefiltered",
+                 "(d) scan_group_batched over 6 requests", "(e) preloaded q1, store of 1/3",
+                 "(e) preloaded q1, store of 1/16", "(f) unsorted: CostModel.calibrate('cpu', n=16384)",
+                 "(f) unsorted: estimate_row_groups"):
+        assert part in out, part
+    assert (tmp_path / "calibration.json").exists()
+
+
+def test_offload_phase_stops_when_a_mode_differs_from_raw(small_tables, tmp_path, on_cpu,
+                                                          monkeypatch, capsys):
+    """A preloaded engine whose lineitem scans come back one off: the phase
+    raises at (a)'s agreement check and runs nothing after it."""
+    class OffByOne(chip_smoke.DatapathEngine):
+        def scan(self, reader, plan, *a, **kw):
+            res = super().scan(reader, plan, *a, **kw)
+            if self.offload != "preloaded" or plan.table != "lineitem" or plan.aggregates:
+                return res
+            return dataclasses.replace(res, columns={k: v + 1 for k, v in res.columns.items()})
+
+    monkeypatch.setattr(chip_smoke, "DatapathEngine", OffByOne)
+    readers = {k: LakeReader(p) for k, p in small_tables.items()}
+    with pytest.raises(AssertionError):
+        chip_smoke.offload_configurations(readers, "unsorted", str(tmp_path), device="cpu")
+    out = capsys.readouterr().out
+    assert "(a) q1:" not in out and "(b)" not in out and "(f)" not in out

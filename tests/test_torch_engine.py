@@ -4,7 +4,7 @@ equal, for the fused (BITPACK and DICT-rewritten), InSet, conjunctive,
 no-predicate, DELTA, all-pruned and corrupt-page cases; on sorted files
 (RLE pages) for RLE predicate and projected columns, compact=True and a
 bloom semijoin.  Also what the port refuses: a card that is not there, and
-the features of later slices.  Batched scans and aggregate pushdown have
+the datapath names of later slices.  Batched scans and aggregate pushdown have
 their own files (test_torch_batch_decode.py, test_torch_pushdown.py)."""
 
 import dataclasses
@@ -27,6 +27,7 @@ from repro.lakeformat.reader import LakeReader as JReader
 from repro_torch.core import engine as tengine
 from repro_torch.core import plan as tplan
 from repro_torch.core import tpch as ttpch
+from repro_torch import datapath as tdatapath
 from repro_torch.kernels import ops as tops
 from repro_torch.lakeformat.integrity import CorruptPageError as TCorrupt
 from repro_torch.lakeformat.reader import LakeReader as TReader
@@ -271,31 +272,32 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
         tengine.DatapathEngine(device="cuda:0")
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"offload": "preloaded"}, {"offload": "prefiltered"}, {"offload": "pre-aggregated"},
-    {"backend": "host"}, {"cache": object()},
-])
-def test_later_slices_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.DatapathEngine(device="cpu", **kwargs)
+LATER_NAMES = sorted(tdatapath.LATER)
 
 
-def test_later_scan_features_raise_not_implemented(paths):
-    """A shared decode pool, cross-request stacking and the cost model's
-    footprint mirrors belong to ROADMAP.md A.4."""
-    eng = tengine.DatapathEngine(device="cpu")
-    r = TReader(paths["lineitem"])
-    base = tplan.ScanPlan("lineitem", ["l_quantity"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        eng.scan(r, base, pool={})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        eng.scan(r, base, batched=True, pool={})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        eng.scan_group_batched([])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        tengine.ResumableScan(eng, r, base).ingest_batched([0], [])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        eng.decode_footprint(r, base, [0])
+@pytest.mark.parametrize("name", LATER_NAMES)
+def test_later_slices_raise_not_implemented(name):
+    """Every name of `repro.datapath` that the port has not brought over
+    raises NotImplementedError naming its ROADMAP.md item: A.4b for the
+    service (telemetry included), A.4c for the fabric (catalog included)."""
+    item = "A.4c" if name in ("ScanFabric", "FabricTicket", "Catalog", "Snapshot") else "A.4b"
+    assert tdatapath.LATER[name].startswith(item)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        getattr(tdatapath, name)
+
+
+def test_later_names_cover_the_rest_of_the_reference_package():
+    """The ported names and the raising names together are exactly the
+    reference's `repro.datapath` names; an unknown name is an AttributeError."""
+    import repro.datapath as jdatapath
+
+    ref_names = {n for n in dir(jdatapath) if not n.startswith("_")
+                 and not isinstance(getattr(jdatapath, n), type(sys))}
+    ported = {n for n in dir(tdatapath) if not n.startswith("_")}
+    assert ported.isdisjoint(tdatapath.LATER)
+    assert ref_names == (ported & ref_names) | set(tdatapath.LATER)
+    with pytest.raises(AttributeError):
+        getattr(tdatapath, "NoSuchName")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -306,7 +308,9 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.lakeformat, "
         "repro_torch.kernels.flash_attention, repro_torch.models, repro_torch.models.model, "
         "repro_torch.configs, repro_torch.configs.qwen3_1_7b, repro_torch.serve, "
-        "repro_torch.distributed\n"
+        "repro_torch.distributed, repro_torch.core.cache, repro_torch.datapath, "
+        "repro_torch.datapath.trace, repro_torch.datapath.netsim, "
+        "repro_torch.datapath.costmodel, repro_torch.datapath.blockstore\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
