@@ -88,6 +88,33 @@ O. the paper's offload configurations on each file order, after phase 7,
    each lineitem scan
    estimate_row_groups' bytes equal to its decoded_bytes_fresh, its
    estimated seconds printed beside the scan's device busy time;
+S. the multi-tenant datapath service on each file order, after phase O,
+   every launch count set to 0 at its start and read at its end: (a) the
+   six queries through DatapathService(engine=DatapathEngine(device="cuda",
+   cache=BlockCache(4 << 30))) with run_via_service, agreeing with phase 5's
+   answers (agreement.compare), each query's lineitem scan through
+   ServiceClient.scan bit-identical to the direct scan, wall ms beside phase
+   5's; (b) six tenants submit the six lineitem plans (Q19's with its bloom)
+   in one tick, drained with batch_decode=True and False: every ticket
+   bit-identical to the direct scan, none failed; batched, the pod stacks
+   (xreq_groups >= 1, no fall-back) in fewer launches than the six batched
+   scans alone; drain wall ms, launches, fresh decoded bytes against the six
+   scans', device busy ms and idle share (torch.profiler over one more
+   drain); and phase 7(b)'s pushdown plans through one pod, bit-identical;
+   (c) benchmarks/service_bench.py's skewed workload (one elephant, three
+   mice, 1.5 elephant row groups of decoded bytes a tick) under FIFO and
+   WFQ: bit-identical, the mice's p99 ticks and ms, the Jain index; (d)
+   (b)'s submissions under tests/test_chaos_props.py's recoverable fault mix
+   and retry policy, bit-identical to the clean run with no retries
+   exhausted and every corruption caught, then a fail_forever plan on the
+   part table with two part scans added: those end with a typed
+   StorageFault, the lineitem ones bit-identical; the honesty invariant
+   (sched + recon == actual, a failed slice's unreconciled charge counted)
+   in both; (e) (c)'s WFQ run traced (sample rate 1) and untraced:
+   bit-identical, the wall overhead ratio, the Chrome-trace event count and
+   the trace's decode / filter / rest % beside phase O's; (f) a pod priced
+   with phase O's calibrated table: costmodel_info backend "cuda", source
+   "calibrated", honesty held;
 8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share, and for every
    port kernel that ran (every __global__ function in kernels/csrc; always
@@ -116,8 +143,8 @@ O. the paper's offload configurations on each file order, after phase 7,
    yardstick the port never calls, torch's scaled_dot_product_attention (and
    the kernel's time over it);
 10. print one JSON line with every kernel's record (its launches, summed over
-   the counted windows of phases 5, 7 and O on both file orders and of phase
-   9, must be > 0);
+   the counted windows of phases 5, 7, O and S on both file orders and of
+   phase 9, must be > 0);
 11. print the device line last.
 """
 
@@ -147,7 +174,16 @@ from repro_torch.core import BlockCache, DatapathEngine, agreement, tpch  # noqa
 from repro_torch.core import queries as Q  # noqa: E402
 from repro_torch.core.plan import AggSpec, Cmp, ScanPlan, bind_expr  # noqa: E402
 from repro_torch.core.zonemap import prune_row_groups  # noqa: E402
-from repro_torch.datapath import CostModel, DecodePool  # noqa: E402
+from repro_torch.datapath import (  # noqa: E402
+    PAPER_FIG2_PCT,
+    CostModel,
+    DatapathService,
+    DecodePool,
+    FaultPlan,
+    RetryPolicy,
+    StaticPolicy,
+    StorageFault,
+)
 from repro_torch.distributed.sharding import local_ctx  # noqa: E402
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
@@ -991,13 +1027,14 @@ def fig2(t_raw: float, t_pre: float, t_filt: float) -> tuple:
     return decode, filt, 100 - decode - filt
 
 
-def offload_configurations(readers, order: str, tmpdir: str, device: str = "cuda") -> dict:
+def offload_configurations(readers, order: str, tmpdir: str, device: str = "cuda"):
     """Phase O on one file order: (a) Fig. 2's three configurations, (b) the
     host baseline, (c) pre-aggregated, (d) batched forms and cross-request
     stacking, (e) the store under pressure, (f) the cost model.  Every
     launch count is set to 0 at its start and read at its end: every launch
     in it is on one of these paths (the comparators run on the CPU).
-    Returns those counts."""
+    Returns those counts, (a)'s average decode% / filter% / rest% and (f)'s
+    calibrated table (the larger size's)."""
     li = readers["lineitem"]
     per_supp = agreement.per_supplier_revenue(li)
     ops.reset_kernel_launches()
@@ -1192,6 +1229,253 @@ def offload_configurations(readers, order: str, tmpdir: str, device: str = "cuda
     log(f"      (f) {order}: estimate_row_groups bytes equal each lineitem scan's "
         f"decoded_bytes_fresh; estimated ms (the n={CALIBRATION_N[-1]} table) against device "
         "busy ms: " + "; ".join(line))
+    return ops.kernel_launches(), avg, cm
+
+
+# ---------------------------------------------------------------------------
+# phase S: the multi-tenant datapath service
+# ---------------------------------------------------------------------------
+
+# (c): benchmarks/service_bench.py's skewed workload, one elephant scanning
+# every row group and three mice on 200-day windows of l_shipdate, with its
+# per-tick budget rule (service_bench.py:173): 1.5 elephant row groups of
+# decoded bytes, here of the file's own row-group size
+ELEPHANT_COLS = ["l_extendedprice", "l_quantity"]
+MICE_DAYS = (300, 900, 1500)
+# (d): tests/test_chaos_props.py's recoverable mix and retry policy (:59-61)
+RECOVERABLE = dict(seed=0, transient_rate=0.12, corrupt_rate=0.06, short_read_rate=0.04,
+                   spike_rate=0.25, spike_s=1e-3)
+CHAOS_RETRY = dict(max_attempts=10, timeout_s=0.5, hedge_after_s=5e-4)
+FAILING_TABLE = "part.lake"
+MAX_TICKS = 100_000  # hang guard for every drain
+
+
+@dataclasses.dataclass(frozen=True)
+class OneTableFaults(FaultPlan):
+    """A fault plan whose transient errors hit one table (by basename) only."""
+
+    table: str = ""
+
+    def transient(self, table: str, rg: int, attempt: int) -> bool:
+        return self._table(table) == self.table and super().transient(table, rg, attempt)
+
+
+def drain(pod) -> None:
+    """Tick until the queue is empty, with a hang guard."""
+    for _ in range(MAX_TICKS):
+        if not pod.queue:
+            return
+        pod.tick()
+    raise AssertionError(f"the pod made no progress in {MAX_TICKS} ticks")
+
+
+def new_pod(device: str, **kw):
+    """A pod over a 4 GiB store (service_bench's) on `device`, offload pinned
+    to raw (service_bench's isolation of coalescing from caching)."""
+    kw.setdefault("policy", StaticPolicy("raw"))
+    return DatapathService(engine=DatapathEngine(device=device, cache=BlockCache(STORE_BYTES)),
+                           **kw)
+
+
+def submit_all(pod, subs):
+    """Submit (tenant, reader, plan, blooms) in order; returns (tickets, the
+    admitted requests)."""
+    tickets = [pod.submit(t, r, plan, blooms) for t, r, plan, blooms in subs]
+    return tickets, list(pod.queue)
+
+
+def check_honesty(pod, requests, label: str) -> None:
+    """tests/test_chaos_props.py's invariant, sched + recon == actual per
+    tenant.  A failed slice is never reconciled (the reference's semantics):
+    its charge stays on its request and counts on the actual side."""
+    for tenant, row in pod.telemetry.cost_report().items():
+        unreconciled = sum(r.charged_s for r in requests if r.tenant == tenant)
+        lhs, rhs = row["est_s"] + row["recon_s"], row["actual_s"] + unreconciled
+        if abs(lhs - rhs) > 1e-9 + 1e-9 * abs(rhs):
+            raise AssertionError(f"{label}: tenant {tenant} charged {lhs} s, actual {rhs} s")
+
+
+def skewed(li, device: str, scheduler: str, rg_rows: int, **kw):
+    """(c)'s workload on a fresh pod: (pod, tickets, wall ms of the drain)."""
+    pod = new_pod(device, scheduler=scheduler, tick_bytes=int(rg_rows * 4 * 2 * 1.5), **kw)
+    subs = [("elephant", li, ScanPlan("lineitem", ELEPHANT_COLS), None)]
+    subs += [(f"mouse{i}", li, ScanPlan("lineitem", ["l_extendedprice"],
+                                        Cmp("l_shipdate", "between", (d, d + 200))), None)
+             for i, d in enumerate(MICE_DAYS)]
+    (tickets, _), ms = wall(lambda: (submit_all(pod, subs), drain(pod))[0])
+    return pod, tickets, ms
+
+
+def service_phase(readers, order: str, direct: dict, direct_ms: dict, per_supp, fig2_avg,
+                  calibrated, device: str = "cuda"):
+    """Phase S on one file order: (a) the queries through the service, (b)
+    coalescing and cross-request stacking, (c) fairness, (d) faults, (e) the
+    flight recorder, (f) pricing with phase O's calibrated table.  Every
+    launch count is set to 0 at its start and read at its end.  Returns
+    those counts."""
+    li = readers["lineitem"]
+    ops.reset_kernel_launches()
+    eng = DatapathEngine(device=device)
+
+    # (a) the six queries through one service, against phase 5's answers;
+    # each query's lineitem scan through ServiceClient.scan against the
+    # direct scan, bit for bit
+    svc = DatapathService(engine=DatapathEngine(device=device, cache=BlockCache(STORE_BYTES)))
+    bloom = Q.q19_bloom(eng, readers)
+    scans = {name: (make(), {"q19": bloom} if name == "q19" else None)
+             for name, make in Q.LINEITEM_PLANS.items()}
+    line = []
+    for name in Q.QUERIES:
+        got, ms = wall(lambda name=name: Q.run_via_service(svc, name, readers, tenant=name))
+        agreement.compare(name, got, direct[name], per_supp)
+        plan, blooms = scans[name]
+        same_rows(svc.client(name).scan(li, plan, blooms), eng.scan(li, plan, blooms=blooms),
+                  f"{order} {name}: ServiceClient.scan against the direct scan")
+        line.append(f"{name} {ms:.2f} (direct {direct_ms[name]:.2f})")
+    log(f"      (a) {order}: the six queries through DatapathService agree with phase 5's; "
+        "each lineitem scan through ServiceClient.scan bit-identical to the direct scan; "
+        "wall ms: " + "; ".join(line))
+
+    # (b) six tenants, the six lineitem plans, one tick; stacked and
+    # sequential dispatch
+    subs = [(name, li, plan, blooms) for name, (plan, blooms) in scans.items()]
+    want = {name: eng.scan(li, plan, blooms=blooms, batched=True)
+            for name, (plan, blooms) in scans.items()}
+    before = ops.kernel_launches()
+    _, alone_ms = wall(lambda: [eng.scan(li, plan, blooms=blooms, batched=True)
+                                for plan, blooms in scans.values()])
+    after = ops.kernel_launches()
+    alone = sum(after[k] - before[k] for k in after)  # counted on the card only
+    alone_stats = sum(r.stats.kernel_launches for r in want.values())
+    alone_fresh = sum(r.stats.decoded_bytes_fresh for r in want.values())
+    for batch_decode in (True, False):
+        pod = new_pod(device, batch_per_tick=len(subs), batch_decode=batch_decode)
+        before = ops.kernel_launches()
+        (tickets, requests), ms = wall(lambda: (submit_all(pod, subs), drain(pod))[0])
+        after = ops.kernel_launches()
+        launches = sum(after[k] - before[k] for k in after)
+        c = pod.telemetry.counters
+        for (name, *_), t in zip(subs, tickets):
+            if t.status != "done":
+                raise AssertionError(f"{order} (b) {name}: {t.status} {t.error!r}")
+            same_rows(t.result, want[name], f"{order} (b) {name} batch_decode={batch_decode}")
+        if c.get("failed", 0):
+            raise AssertionError(f"{order} (b): {c['failed']} requests failed")
+        if batch_decode and not (c.get("xreq_groups", 0) >= 1 and c.get("xreq_fallback", 0) == 0
+                                 and c["decode_launches"] < alone_stats
+                                 and (launches < alone or device == "cpu")):
+            raise AssertionError(f"{order} (b): xreq_groups {c.get('xreq_groups', 0)}, "
+                                 f"xreq_fallback {c.get('xreq_fallback', 0)}, launches "
+                                 f"{launches} ({c['decode_launches']:.0f} in ScanStats) "
+                                 f"against {alone} ({alone_stats}) for the six batched scans")
+        check_honesty(pod, requests, f"{order} (b)")
+        if batch_decode:
+            clean = tickets  # (d)'s reference
+        prof_pod = new_pod(device, batch_per_tick=len(subs), batch_decode=batch_decode)
+        busy_ms = profiled(lambda: (submit_all(prof_pod, subs), drain(prof_pod)))[0]
+        log(f"      (b) {order} batch_decode={batch_decode}: six tenants in one tick, "
+            f"bit-identical to the direct scans; drain_ms={ms:.2f} (six batched scans alone, "
+            f"one after another: {alone_ms:.2f}) launches={launches} (alone: {alone}) "
+            f"decode_launches={c.get('decode_launches', 0):.0f} "
+            f"(alone {alone_stats}) "
+            f"xreq_groups={c.get('xreq_groups', 0):.0f} xreq_fallback="
+            f"{c.get('xreq_fallback', 0):.0f} decoded_bytes_fresh="
+            f"{c.get('decoded_bytes_fresh', 0):.0f} (alone {alone_fresh}) "
+            f"decoded_bytes_saved={c.get('decoded_bytes_saved', 0):.0f} busy_ms={busy_ms:.3f} "
+            f"idle_share={1 - busy_ms / ms:.3f}")
+    # phase 7(b)'s pushdown plans through one pod, in one tick
+    pod = new_pod(device, batch_per_tick=len(PUSHDOWN_PLANS))
+    tickets, _ = submit_all(pod, [(name, li, plan, None) for name, plan in PUSHDOWN_PLANS.items()])
+    drain(pod)
+    for (name, plan), t in zip(PUSHDOWN_PLANS.items(), tickets):
+        want_aggs = eng.scan(li, plan, batched=True).aggregates
+        for k, w in want_aggs.items():
+            if t.result is None or not np.array_equal(t.result.aggregates[k], w):
+                raise AssertionError(f"{order} (b) {name}: {k} through the pod differs")
+    log(f"      (b) {order}: phase 7(b)'s {len(tickets)} pushdown plans through one pod, "
+        "bit-identical to the direct batched scans")
+
+    # (c) fairness: FIFO and WFQ on the skewed workload
+    rg_rows = li.row_group_meta(0)["n"]
+    fair = {}
+    for scheduler in ("fifo", "wfq"):
+        pod, tickets, ms = skewed(li, device, scheduler, rg_rows)
+        mice = [t for t in tickets if t.tenant != "elephant"]
+        fair[scheduler] = (pod, tickets)
+        log(f"      (c) {order} {scheduler}: drain_ms={ms:.2f} ticks={pod._tick} mice p99: "
+            f"ticks={max(t.done_tick - t.submitted_tick for t in mice)} "
+            f"ms={max(t.done_s - t.submitted_s for t in mice) * 1e3:.2f}; elephant ticks="
+            f"{tickets[0].done_tick - tickets[0].submitted_tick}; jain_index="
+            f"{pod.telemetry.fairness()['jain_index']:.4f}")
+    for a, b in zip(fair["fifo"][1], fair["wfq"][1]):
+        same_rows(a.result, b.result, f"{order} (c) {a.tenant}: FIFO against WFQ")
+
+    # (d) faults: (b)'s submissions under the recoverable mix, then a
+    # fail_forever plan on one table with two part scans among them
+    pod = new_pod(device, batch_per_tick=len(subs), fault_plan=FaultPlan(**RECOVERABLE),
+                  retry_policy=RetryPolicy(**CHAOS_RETRY))
+    (tickets, requests), ms = wall(lambda: (submit_all(pod, subs), drain(pod))[0])
+    for t, c_ in zip(tickets, clean):
+        same_rows(t.result, c_.result, f"{order} (d) {t.tenant}: chaos against clean")
+    f = pod.telemetry.fault_report()
+    if f["retries_exhausted"] or f["corrupt_detected"] != f["corrupt_injected"] + f["short_reads"]:
+        raise AssertionError(f"{order} (d): {f}")
+    check_honesty(pod, requests, f"{order} (d) recoverable")
+    log(f"      (d) {order} recoverable faults: bit-identical to the clean run; drain_ms={ms:.2f}; "
+        + " ".join(f"{k}={v:.0f}" for k, v in f.items() if not isinstance(v, dict))
+        + f"; fault_seconds={ {k: round(v, 6) for k, v in f['fault_seconds'].items()} }")
+    part = readers["part"]
+    part_plans = {"part_sizes": ScanPlan("part", ["p_partkey", "p_size"], Cmp("p_size", "le", 10)),
+                  "part_attrs": ScanPlan("part", ["p_brand", "p_container", "p_size"])}
+    fsubs = subs + [(name, part, plan, None) for name, plan in part_plans.items()]
+    pod = new_pod(device, batch_per_tick=len(fsubs), retry_policy=RetryPolicy(max_attempts=3))
+    pod.install_faults(OneTableFaults(transient_rate=1.0, fail_forever=True, table=FAILING_TABLE))
+    tickets, requests = submit_all(pod, fsubs)
+    drain(pod)
+    for (name, r, *_), t in zip(fsubs, tickets):
+        if r is part:
+            if t.status != "error" or not isinstance(t.error, StorageFault):
+                raise AssertionError(f"{order} (d) {name}: {t.status} {t.error!r}, want a "
+                                     "StorageFault")
+        else:
+            same_rows(t.result, want[name], f"{order} (d) {name} beside a failing table")
+    check_honesty(pod, requests, f"{order} (d) fail_forever")
+    log(f"      (d) {order} fail_forever on {FAILING_TABLE}: its {len(part_plans)} requests ended "
+        f"with {sorted({type(t.error).__name__ for t in tickets if t.error})}, the six lineitem "
+        "requests bit-identical; honesty held (the failed slices' charges unreconciled); "
+        f"breaker {pod.breaker.report()}")
+
+    # (e) the flight recorder on (c)'s WFQ run: traced against untraced
+    skewed(li, device, "wfq", rg_rows, trace_sample_rate=0.0)  # warm
+    _, off, ms_off = skewed(li, device, "wfq", rg_rows, trace_sample_rate=0.0)
+    pod, on, ms_on = skewed(li, device, "wfq", rg_rows, trace_sample_rate=1.0, trace_capacity=16)
+    for a, b in zip(on, off):
+        same_rows(a.result, b.result, f"{order} (e) {a.tenant}: traced against untraced")
+    rep = pod.telemetry.trace_report()
+    pct = rep["stage_pct"]
+    log(f"      (e) {order}: traced bit-identical to untraced; wall_ms on={ms_on:.2f} "
+        f"off={ms_off:.2f} ratio={ms_on / ms_off:.3f}; chrome_events="
+        f"{len(pod.tracer.recorder.to_chrome_trace()['traceEvents'])}; recorded "
+        f"{rep['recorded']}/{rep['completed']}; trace-derived decode%={pct['decode']:.1f} "
+        f"filter%={pct['filter']:.1f} rest%={pct['rest']:.1f} (phase O's Fig. 2 split: "
+        f"{fig2_avg[0]:.1f} / {fig2_avg[1]:.1f} / {fig2_avg[2]:.1f}; paper "
+        f"{PAPER_FIG2_PCT['decode']:.0f} / {PAPER_FIG2_PCT['filter']:.0f})")
+
+    # (f) pricing with phase O's calibrated table
+    pod = new_pod(device, batch_per_tick=len(subs), cost_model=calibrated)
+    info = pod.telemetry.costmodel_info
+    if info["backend"] != torch.device(device).type or info["source"] != "calibrated":
+        raise AssertionError(f"{order} (f): costmodel_info {info}")
+    tickets, requests = submit_all(pod, subs)
+    drain(pod)
+    for t in tickets:
+        same_rows(t.result, want[t.tenant], f"{order} (f) {t.tenant}")
+    check_honesty(pod, requests, f"{order} (f)")
+    cost = pod.telemetry.cost_report()
+    log(f"      (f) {order}: priced with phase O's calibrated table ({info}); honesty held; "
+        "est / actual ms per tenant: " + "; ".join(
+            f"{t} {row['est_s'] * 1e3:.3f} / {row['actual_s'] * 1e3:.3f}"
+            for t, row in cost.items()))
     return ops.kernel_launches()
 
 
@@ -1531,6 +1815,7 @@ def main(argv=None) -> int:
         report = {}
         batched_launches = {}
         offload_launches = {}
+        service_launches = {}
         for order, readers in passes.items():
             # phase 5: the main path on the card
             gpu = DatapathEngine(device="cuda")
@@ -1568,8 +1853,15 @@ def main(argv=None) -> int:
 
             # phase O: the offload configurations
             log(f"[O] {order}: the paper's offload configurations on the card:")
-            offload_launches[order] = offload_configurations(readers, order, d)
+            offload_launches[order], fig2_avg, calibrated = offload_configurations(readers,
+                                                                                   order, d)
             log(f"      launches {offload_launches[order]}")
+
+            # phase S: the multi-tenant service
+            log(f"[S] {order}: the multi-tenant datapath service on the card:")
+            service_launches[order] = service_phase(readers, order, got, warm_ms, per_supp,
+                                                    fig2_avg, calibrated)
+            log(f"      launches {service_launches[order]}")
 
     # phase 8
     for order, (first_ms, warm_ms, cpu_ms, peaks, busy, per_query) in report.items():
@@ -1605,7 +1897,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
             "launches": sum(launches[o][name] + batched_launches[o][name]
-                            + offload_launches[o][name] for o in launches) + lm_launches[name],
+                            + offload_launches[o][name] + service_launches[o][name]
+                            for o in launches) + lm_launches[name],
             "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
             "bound_by": path["bound_by"], "library_ms": path["library_ms"], **size,
@@ -1615,6 +1908,7 @@ def main(argv=None) -> int:
             "launches_batched_pushdown_by_order": {o: batched_launches[o][name]
                                                    for o in batched_launches},
             "launches_offload_by_order": {o: offload_launches[o][name] for o in offload_launches},
+            "launches_service_by_order": {o: service_launches[o][name] for o in service_launches},
             "launches_lm": lm_launches[name],
         })
         if name == "flash_attention":
@@ -1649,8 +1943,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the query, batched, offload or LM "
-                             f"paths: {idle}")
+        raise AssertionError(f"kernels never launched on the query, batched, offload, service "
+                             f"or LM paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -983,12 +983,16 @@ class DatapathEngine:
                                 fetched, decoded, fmasks, bmasks)
         return per_rg, fetched
 
-    def _batch_bloom_probe(self, slots, pred, blooms, decoded) -> Dict[tuple, Dict]:
+    def _batch_bloom_probe(self, slots, pred, blooms, decoded,
+                           stacked: Optional[Dict] = None) -> Dict[tuple, Dict]:
         """Stack every freshly decoded slice page's keys and probe each
         bloom filter in ONE `ops.bloom_probe` dispatch.  Returns {(item, rg):
         {(name, column): (L,) mask}} for `_eval`; pages served from the pool
         or the cache at finalize are absent and take the per-row-group
-        probe, bit-identical either way."""
+        probe, bit-identical either way.  `stacked` ({(rg, column): keys},
+        cross-request stacking) adds the pages an earlier request of the
+        same pass decodes: this request's pool hits at finalize, whose keys
+        are already on the card."""
         if pred is None or not self._kernels or not blooms:
             return {}
         probes = {(p.name, p.column): p for p in _expr_blooms(pred) if p.name in blooms}
@@ -1001,6 +1005,8 @@ class DatapathEngine:
                     continue
                 item = slot["item"]
                 arr = decoded.get((item, slot["rg"], column))
+                if arr is None and stacked is not None:
+                    arr = stacked.get((slot["rg"], column))
                 if arr is None:
                     continue
                 L = slot["L"]
@@ -1262,16 +1268,23 @@ class DatapathEngine:
             tr_mod.set_slice(*(first if first else (None, None)))
         decoded, fmasks = self._launch_buckets([s for ss in slots_by_item for s in ss])
 
-        # finalize per item, in order: hits, puts, counters, masks (each
-        # request's bloom probes per row group, as the reference's)
+        # finalize per item, in order: hits, puts, counters, masks.  Each
+        # request's bloom probes ride one launch per filter, over its own
+        # fresh pages and those an earlier request decoded in this pass (the
+        # reference probes these per row group; the masks are the same)
+        stacked: Dict[str, Dict] = {}
+        for (i, rg, name), arr in decoded.items():
+            stacked.setdefault(items[i]["reader"].path, {}).setdefault((rg, name), arr)
         out = []
         for i, it in enumerate(items):
             _owner(it)
             _ctx(it)
+            bmasks = self._batch_bloom_probe(slots_by_item[i], it["pred"], it["blooms"], decoded,
+                                             stacked.get(it["reader"].path))
             per_rg = self._finalize(
                 it["reader"], slots_by_item[i], it["plan"], it["pred"], it["blooms"],
                 it["offload"] or self.offload, it["offload"], pool, it["stats"],
-                fetched_by_item[i], decoded, fmasks, {})
+                fetched_by_item[i], decoded, fmasks, bmasks)
             out.append((per_rg, fetched_by_item[i]))
         if tr_mod is not None:
             tr_mod.set_slice(None, None)

@@ -304,3 +304,20 @@ LINEITEM_PLANS = {"q1": q1_plan, "q6": q6_plan, "q12": q12_plan, "q14": q14_plan
                   "q15": q15_plan, "q19": q19_plan}
 SCAN_HEAVY = ("q6", "q14", "q15")
 AGG_HEAVY = ("q1", "q12", "q19")
+
+
+# ---------------------------------------------------------------------------
+# Service-client path: run any query through the shared DatapathService
+# ---------------------------------------------------------------------------
+
+
+def run_via_service(service, name: str, readers: Dict, tenant: str = "default", **kwargs):
+    """Run one of the six queries through a repro_torch.datapath.DatapathService.
+
+    The service client is engine-compatible (`.scan(reader, plan, blooms)`),
+    so every pushed-down scan in the query goes through admission control,
+    the tick scheduler and shared-scan coalescing instead of calling the
+    engine directly.  Its scans are bit-identical to the direct-engine path;
+    the queries' answers agree by `agreement.compare`, since Q15's
+    `index_add_` is atomic on the card (tests/test_torch_service.py)."""
+    return QUERIES[name](service.client(tenant), readers, **kwargs)

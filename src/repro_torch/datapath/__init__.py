@@ -1,6 +1,24 @@
-"""datapath — the SmartNIC's storage tiers, cost model and flight recorder,
-port of `repro.datapath` (ROADMAP.md A.4a).
+"""datapath — the SmartNIC as a shared, scheduled, multi-tenant service,
+port of `repro.datapath` (ROADMAP.md A.4a and A.4b).
 
+service.py    Pod (née DatapathService): bounded queue, admission control,
+              quotas, per-tenant WFQ virtual time + actual-cost
+              reconciliation, auto-tuned coalescing hold window; a pod
+              built without an engine runs on the card
+scheduler.py  fair-share batch formation (wfq/fifo, row-group preemption,
+              cross-tick coalescing holds) + shared decode windows +
+              batched and cross-request stacked dispatch, reconciled by
+              actual kernel launches; a kernel's own failure is never
+              parked on a ticket
+policy.py     adaptive raw/preloaded/prefiltered/pre-aggregated choice per
+              request, hold-window footprint compatibility
+faults.py     storage fault plane: deterministic fault schedules
+              (FaultPlan), bounded retry/backoff/timeout/hedge
+              (RetryPolicy + FaultInjector on the engine's storage-read
+              seam), per-target circuit breaker, typed errors
+telemetry.py  queue depth, decoded-bytes-saved, per-tenant p50/p99/p99.9,
+              Jain index, estimated-vs-actual decode-cost ledger, fault
+              ledger, cost-model provenance
 blockstore.py unified tiered BlockStore (encoded pages / decoded columns
               / prefiltered results): one byte ledger, cost-aware
               eviction priced by the cost model, window-scoped decode
@@ -12,10 +30,8 @@ netsim.py     storage->NIC bandwidth/latency model and prefetch overlap
 trace.py      flight recorder: per-request span trees, bounded ring,
               Chrome-trace export, decode/filter/rest stage attribution
 
-The rest of `repro.datapath` is not ported yet.  Its names raise
-NotImplementedError naming the ROADMAP.md item that brings them: A.4b for
-the service (`service.py`, `scheduler.py`, `policy.py`, `faults.py` and
-`telemetry.py`), A.4c for the fabric (`fabric.py` and `catalog.py`).
+The fabric (`fabric.py`, `catalog.py`) is not ported yet: its four names
+raise NotImplementedError naming ROADMAP.md A.4c.
 """
 
 from repro_torch.datapath.blockstore import (  # noqa: F401
@@ -38,6 +54,35 @@ from repro_torch.datapath.netsim import (  # noqa: F401
     PrefetchPipeline,
     SliceClock,
 )
+from repro_torch.datapath.faults import (  # noqa: F401
+    CircuitBreaker,
+    FaultInjector,
+    FaultPlan,
+    FetchFailed,
+    FetchTimeout,
+    Overloaded,
+    Quarantined,
+    RetryPolicy,
+    StorageFault,
+    TransientFetchError,
+)
+from repro_torch.datapath.policy import (  # noqa: F401
+    AdaptiveOffloadPolicy,
+    StaticPolicy,
+    coalesce_compatible,
+)
+from repro_torch.datapath.scheduler import form_batch, run_tick  # noqa: F401
+from repro_torch.datapath.service import (  # noqa: F401
+    DatapathService,
+    Pod,
+    QueueFull,
+    QuotaExceeded,
+    ScanRequest,
+    ServiceClient,
+    TenantQuota,
+    Ticket,
+)
+from repro_torch.datapath.telemetry import Telemetry, jain_index, quantile  # noqa: F401
 from repro_torch.datapath.trace import (  # noqa: F401
     PAPER_FIG2_PCT,
     STAGES,
@@ -46,25 +91,12 @@ from repro_torch.datapath.trace import (  # noqa: F401
     Tracer,
 )
 
-SERVICE_ITEM = "A.4b the datapath service"
 FABRIC_ITEM = "A.4c the scan fabric"
 
 # every other public name of `repro.datapath`, by the ROADMAP.md item that
 # ports it
-LATER = {
-    **dict.fromkeys((
-        "DatapathService", "Pod", "QueueFull", "QuotaExceeded", "ScanRequest",
-        "ServiceClient", "TenantQuota", "Ticket",  # service.py
-        "form_batch", "run_tick",  # scheduler.py
-        "AdaptiveOffloadPolicy", "StaticPolicy", "coalesce_compatible",  # policy.py
-        "CircuitBreaker", "FaultInjector", "FaultPlan", "FetchFailed", "FetchTimeout",
-        "Overloaded", "Quarantined", "RetryPolicy", "StorageFault",
-        "TransientFetchError",  # faults.py
-        "Telemetry", "jain_index", "quantile",  # telemetry.py
-    ), SERVICE_ITEM),
-    **dict.fromkeys(("ScanFabric", "FabricTicket",  # fabric.py
-                     "Catalog", "Snapshot"), FABRIC_ITEM),  # catalog.py
-}
+LATER = dict.fromkeys(("ScanFabric", "FabricTicket",  # fabric.py
+                       "Catalog", "Snapshot"), FABRIC_ITEM)  # catalog.py
 
 
 def __getattr__(name: str):

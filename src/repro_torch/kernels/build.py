@@ -9,7 +9,9 @@ and flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on anything but 0, so a refused launch
-never passes silently.
+never passes silently.  A failed build, load or launch raises `KernelError`,
+which the datapath service never mistakes for one request's own failure
+(`DEVICE_ERRORS`, datapath/scheduler.py).
 """
 
 from __future__ import annotations
@@ -58,6 +60,18 @@ SIGNATURES = {
 _lib: Optional[ctypes.CDLL] = None
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch: a fault of the card or
+    of the port, never of one scan's input."""
+
+
+# What the card itself raises: a kernel's own failure, and CUDA errors and
+# out-of-memory raised by torch.  The service's per-request fault isolation
+# re-raises these instead of parking them on a ticket.
+DEVICE_ERRORS = tuple(t for t in (KernelError, getattr(torch, "AcceleratorError", None),
+                                  torch.cuda.OutOfMemoryError) if t is not None)
+
+
 @dataclasses.dataclass
 class Kernel:
     """One hand-written kernel: its name, its CUDA source, the TPU kernel it
@@ -88,7 +102,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def _digest() -> str:
@@ -119,13 +133,13 @@ def build() -> Path:
                 for p in procs:
                     p.kill()
                     p.wait()
-                raise RuntimeError(
+                raise KernelError(
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         so = str(Path(tmp) / lib.name)
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
         os.replace(so, lib)  # atomic: concurrent builders never see a partial file
     return lib
@@ -135,7 +149,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load the kernel library {path}: {e}") from e
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = [*args, _P]
@@ -149,7 +167,7 @@ def library() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point `name` on `device`'s current stream.  Tensors are
     passed as their data pointers, floats as C floats, ints as C ints.
-    Raises RuntimeError with CUDA's message when the launch is refused."""
+    Raises KernelError with CUDA's message when the launch is refused."""
     lib = library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a if isinstance(a, float)
               else int(a) for a in args]
@@ -158,7 +176,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         rc = getattr(lib, name)(*c_args, stream)
     if rc != 0:
         msg = lib.rt_error_string(rc).decode()
-        raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")
+        raise KernelError(f"{name} failed: CUDA error {rc} ({msg})")
 
 
 def check_operand(t: torch.Tensor, name: str, dtypes, shape, device=None) -> None:

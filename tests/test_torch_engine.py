@@ -273,17 +273,40 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
 
 
 LATER_NAMES = sorted(tdatapath.LATER)
+# the service's names (ROADMAP.md A.4b), each with the port module it comes from
+SERVICE_NAMES = {
+    **dict.fromkeys(("DatapathService", "Pod", "QueueFull", "QuotaExceeded", "ScanRequest",
+                     "ServiceClient", "TenantQuota", "Ticket"), "service"),
+    **dict.fromkeys(("form_batch", "run_tick"), "scheduler"),
+    **dict.fromkeys(("AdaptiveOffloadPolicy", "StaticPolicy", "coalesce_compatible"), "policy"),
+    **dict.fromkeys(("CircuitBreaker", "FaultInjector", "FaultPlan", "FetchFailed",
+                     "FetchTimeout", "Overloaded", "Quarantined", "RetryPolicy", "StorageFault",
+                     "TransientFetchError"), "faults"),
+    **dict.fromkeys(("Telemetry", "jain_index", "quantile"), "telemetry"),
+}
 
 
 @pytest.mark.parametrize("name", LATER_NAMES)
 def test_later_slices_raise_not_implemented(name):
     """Every name of `repro.datapath` that the port has not brought over
-    raises NotImplementedError naming its ROADMAP.md item: A.4b for the
-    service (telemetry included), A.4c for the fabric (catalog included)."""
-    item = "A.4c" if name in ("ScanFabric", "FabricTicket", "Catalog", "Snapshot") else "A.4b"
-    assert tdatapath.LATER[name].startswith(item)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    raises NotImplementedError naming its ROADMAP.md item: A.4c, the fabric
+    (catalog included)."""
+    assert name in ("ScanFabric", "FabricTicket", "Catalog", "Snapshot")
+    assert tdatapath.LATER[name].startswith("A.4c")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4c"):
         getattr(tdatapath, name)
+
+
+@pytest.mark.parametrize("name", sorted(SERVICE_NAMES))
+def test_service_names_are_ported(name):
+    """The service's names (A.4b) are exported, raise nothing and come from
+    the port's own module of the reference's name."""
+    import repro.datapath as jdatapath
+
+    assert name not in tdatapath.LATER
+    obj = getattr(tdatapath, name)
+    assert obj.__module__ == f"repro_torch.datapath.{SERVICE_NAMES[name]}"
+    assert getattr(jdatapath, name).__module__ == f"repro.datapath.{SERVICE_NAMES[name]}"
 
 
 def test_later_names_cover_the_rest_of_the_reference_package():
@@ -310,7 +333,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.configs, repro_torch.configs.qwen3_1_7b, repro_torch.serve, "
         "repro_torch.distributed, repro_torch.core.cache, repro_torch.datapath, "
         "repro_torch.datapath.trace, repro_torch.datapath.netsim, "
-        "repro_torch.datapath.costmodel, repro_torch.datapath.blockstore\n"
+        "repro_torch.datapath.costmodel, repro_torch.datapath.blockstore, "
+        "repro_torch.datapath.telemetry, repro_torch.datapath.faults, "
+        "repro_torch.datapath.policy, repro_torch.datapath.scheduler, "
+        "repro_torch.datapath.service\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

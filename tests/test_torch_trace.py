@@ -303,13 +303,13 @@ def _traced(mod, tracer_cls, engine_mod, scan):
     with `engine_mod.TRACE` installed; returns (result, span names)."""
     tr = tracer_cls(clock=FakeClock())
     rt = tr.start(1, "t", "lineitem")
-    engine_mod.TRACE = mod
+    hook, engine_mod.TRACE = engine_mod.TRACE, mod
     mod.set_slice(tr, rt)
     try:
         res = scan()
     finally:
         mod.set_slice(None, None)
-        engine_mod.TRACE = None
+        engine_mod.TRACE = hook
     tr.finish(1, "done")
     return res, _names(rt.root, [])
 
@@ -348,9 +348,11 @@ def test_engine_spans_match_the_reference_and_change_nothing(lineitem_path, batc
 def test_untraced_engine_builds_no_span():
     """Without a published slice `_tr()` is None whether or not the hook
     is installed: the untraced path builds no span arguments."""
-    assert tengine._tr() is None
-    tengine.TRACE = trace_mod
+    hook = tengine.TRACE
+    tengine.TRACE = None
     try:
         assert tengine._tr() is None
+        tengine.TRACE = trace_mod
+        assert tengine._tr() is None
     finally:
-        tengine.TRACE = None
+        tengine.TRACE = hook
