@@ -115,6 +115,33 @@ S. the multi-tenant datapath service on each file order, after phase O,
    the trace's decode / filter / rest % beside phase O's; (f) a pod priced
    with phase O's calibrated table: costmodel_info backend "cuda", source
    "calibrated", honesty held;
+F. the scan fabric on each file order, after phase S, every launch count
+   set to 0 at its start and read at its end; fleets are ScanFabric(n_pods=n,
+   device="cuda"), all pods on the one card, offload pinned to raw unless
+   said: (a) for n = 1, 2 and 4, (b)'s six lineitem plans (Q19's with its
+   bloom), a compact=True plan and phase 7(b)'s pushdown plans, each alone
+   through the fleet (columns, mask, count, aggregates bit-identical to the
+   direct scan, ScanStats equal but kernel_launches and batch_pad_blocks),
+   then all in one drain (bit-identical); filter_compact launched exactly
+   once a column of each compact merge; per n the row groups each pod owns,
+   the drain's wall ms, launches by kernel, each pod's median tick seconds
+   and the modeled per-pod busy seconds (benchmarks/service_bench.py's
+   _fabric_busy_s) and their max; (b) 3 pods, a tick budget of one row
+   group: a pod holding a queued sub-scan fails after the first tick,
+   explicitly and silently (drained by its heartbeat), the scan replays
+   bit-identically (replays, reassigned and replayed printed), and failing
+   a one-pod fleet's pod raises; (c) service_bench's _run_fabric_peer: two
+   pods warm under preloaded, add_pod(), the same scan bit-identical, the
+   new pod's peer hits billed to the tenant, the hop's seconds beside their
+   storage equivalent, and clearing its store (whose peer hits alias its
+   siblings' tensors) leaves every sibling's entry; (d) service_bench's
+   _run_fabric_skew with the fleet's WFQ re-level on and off: bit-identical,
+   the mice's p99 ticks and ms, the Jain index and fleet_vtime_seconds (> 0
+   only with the re-level); (e) a fail_forever plan on one pod of three:
+   drained by its breaker, the scan bit-identical; a one-pod fleet keeps its
+   pod and ends FetchFailed; (f) a scan by table name with the catalog
+   re-registered to the other file order mid-scan: the in-flight scan equals
+   its pinned version's, the next one the new version's, no pin left;
 8. print per (query, file order) wall time, peak device memory and, from
    torch.profiler, the device's busy time and idle share, and for every
    port kernel that ran (every __global__ function in kernels/csrc; always
@@ -143,7 +170,7 @@ S. the multi-tenant datapath service on each file order, after phase O,
    yardstick the port never calls, torch's scaled_dot_product_attention (and
    the kernel's time over it);
 10. print one JSON line with every kernel's record (its launches, summed over
-   the counted windows of phases 5, 7, O and S on both file orders and of
+   the counted windows of phases 5, 7, O, S and F on both file orders and of
    phase 9, must be > 0);
 11. print the device line last.
 """
@@ -180,9 +207,12 @@ from repro_torch.datapath import (  # noqa: E402
     DatapathService,
     DecodePool,
     FaultPlan,
+    FetchFailed,
     RetryPolicy,
+    ScanFabric,
     StaticPolicy,
     StorageFault,
+    jain_index,
 )
 from repro_torch.distributed.sharding import local_ctx  # noqa: E402
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
@@ -897,6 +927,12 @@ def same_scan(a, b, label: str) -> None:
     """Two row scans equal in columns (floats as bits), mask, count and every
     ScanStats field but kernel_launches; raises otherwise."""
     same_rows(a, b, label)
+    same_stats(a, b, label)
+
+
+def same_stats(a, b, label: str) -> None:
+    """Two scans' ScanStats equal in every field but kernel_launches (the port
+    pads no stack, so batch_pad_blocks is 0 on every path); raises otherwise."""
     sa, sb = dataclasses.asdict(a.stats), dataclasses.asdict(b.stats)
     sa.pop("kernel_launches"), sb.pop("kernel_launches")
     if sa != sb:
@@ -1480,6 +1516,294 @@ def service_phase(readers, order: str, direct: dict, direct_ms: dict, per_supp, 
 
 
 # ---------------------------------------------------------------------------
+# phase F: the scan fabric
+# ---------------------------------------------------------------------------
+
+FLEET_PODS = (1, 2, 4)
+# (a): a compact plan beside phase S's six: the pods scan it uncompacted and
+# the merge compacts the reassembled stream once, on a surviving pod's
+# engine (one filter_compact launch a column)
+COMPACT_PLAN = ScanPlan("lineitem", ["l_quantity"], Cmp("l_quantity", "le", 3), compact=True)
+# (b), (c), (e), (f): tests/test_fabric.py's unprunable plan, which puts a
+# sub-scan on every pod
+FLEET_PLAN = ScanPlan("lineitem", ["l_extendedprice", "l_quantity"], Cmp("l_quantity", "le", 25))
+
+
+def drain_fabric(fab, on_tick=None) -> int:
+    """Tick until no fabric ticket is active, with a hang guard; calls
+    on_tick(tick) after each tick.  Returns the ticks taken."""
+    for tick in range(1, MAX_TICKS + 1):
+        if not fab.active:
+            return tick - 1
+        fab.tick()
+        if on_tick is not None:
+            on_tick(tick)
+    raise AssertionError(f"the fabric made no progress in {MAX_TICKS} ticks")
+
+
+def new_fabric(device: str, n_pods: int, **kw):
+    """A fleet of n_pods on `device`, offload pinned to raw (phase S's
+    convention: no cache state between scans) unless `policy` is given."""
+    kw.setdefault("policy", StaticPolicy("raw"))
+    return ScanFabric(n_pods=n_pods, device=device, **kw)
+
+
+def fleet_busy_s(fab) -> dict:
+    """benchmarks/service_bench.py's _fabric_busy_s: each live pod's
+    scheduled + reconciled + retained seconds, the modeled occupancy the
+    WFQ clocks charge (pods would run concurrently on their own cards)."""
+    return {pid: sum(sum(d.values()) for d in (
+                fab.pods[pid].telemetry.tenant_sched_seconds,
+                fab.pods[pid].telemetry.tenant_recon_seconds,
+                fab.pods[pid].telemetry.tenant_retained_seconds))
+            for pid in fab.live_pods}
+
+
+def same_aggs(a, b, label: str) -> None:
+    """Two aggregate scans equal in count and every aggregate, bit for bit."""
+    if int(a.count) != int(b.count) or sorted(a.aggregates) != sorted(b.aggregates):
+        raise AssertionError(f"{label}: count or aggregate names differ")
+    for k, w in b.aggregates.items():
+        g = a.aggregates[k]
+        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def same_result(a, b, label: str) -> None:
+    """A row or aggregate scan against another, bit for bit."""
+    (same_aggs if b.aggregates is not None else same_rows)(a, b, label)
+
+
+def fleet_skew(li, device: str, relevel: bool, rg_rows: int):
+    """benchmarks/service_bench.py's _run_fabric_skew: one elephant (two
+    whole-table scans) and three mice over two pods.  Returns (fleet,
+    tickets, {mouse: (done tick, ms since submission)}, ticks, wall ms)."""
+    fab = new_fabric(device, 2, tick_bytes=int(rg_rows * 4 * 2 * 1.5),
+                     reconcile_fairness=relevel)
+    plans = [("elephant", ScanPlan("lineitem", ELEPHANT_COLS)),
+             ("elephant", ScanPlan("lineitem", ["l_discount", "l_tax"]))]
+    plans += [(f"mouse{i}", ScanPlan("lineitem", ["l_extendedprice"],
+                                     Cmp("l_shipdate", "between", (d, d + 200))))
+              for i, d in enumerate(MICE_DAYS)]
+    done = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [fab.submit(tenant, li, plan) for tenant, plan in plans]
+
+    def note(tick):
+        for t in tickets[2:]:
+            if t.status == "done" and t.tenant not in done:
+                done[t.tenant] = (tick, (time.perf_counter() - t0) * 1e3)
+
+    ticks = drain_fabric(fab, note)
+    torch.cuda.synchronize()
+    return fab, tickets, done, ticks, (time.perf_counter() - t0) * 1e3
+
+
+def fabric_phase(readers, order: str, other, device: str = "cuda"):
+    """Phase F on one file order: (a) fleets of 1, 2 and 4 pods against the
+    direct scans, (b) a pod drained explicitly and by its heartbeat, (c)
+    scale-out peer fetch, (d) fleet fairness with the re-level on and off,
+    (e) a breaker drain, (f) the catalog's snapshot isolation (`other` is the
+    other file order's readers).  Every launch count is set to 0 at its start
+    and read at its end.  Returns those counts."""
+    li = readers["lineitem"]
+    rg_rows = li.row_group_meta(0)["n"]
+    ops.reset_kernel_launches()
+    eng = DatapathEngine(device=device)
+
+    # (a) bit identity: each plan alone through the fleet against the direct
+    # scan (ScanStats included), then all of them in one drain
+    bloom = Q.q19_bloom(eng, readers)
+    scans = {name: (make(), {"q19": bloom} if name == "q19" else None)
+             for name, make in Q.LINEITEM_PLANS.items()}
+    scans["compact"] = (COMPACT_PLAN, None)
+    scans.update((name, (plan, None)) for name, plan in PUSHDOWN_PLANS.items())
+    direct = {name: eng.scan(li, plan, blooms=blooms) for name, (plan, blooms) in scans.items()}
+    for n in FLEET_PODS:
+        before = ops.kernel_launches()
+        fab = new_fabric(device, n)
+        alone, alone_ms = wall(lambda: {name: fab.scan(li, plan, blooms, tenant=name)
+                                        for name, (plan, blooms) in scans.items()})
+        for name, res in alone.items():
+            same_result(res, direct[name], f"{order} (a) {n} pods {name}")
+            same_stats(res, direct[name], f"{order} (a) {n} pods {name}")
+        fab = new_fabric(device, n, batch_per_tick=len(scans))
+        tickets, ms = wall(lambda: ([fab.submit(name, li, plan, blooms)
+                                     for name, (plan, blooms) in scans.items()],
+                                    drain_fabric(fab))[0])
+        for t in tickets:
+            if t.status != "done":
+                raise AssertionError(f"{order} (a) {n} pods {t.tenant}: {t.status} {t.error!r}")
+            same_result(t.result, direct[t.tenant], f"{order} (a) {n} pods, one drain, {t.tenant}")
+        after = ops.kernel_launches()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        merges = 2 * len(COMPACT_PLAN.columns)  # (a)'s compact plan, alone and in the drain
+        if launched.get("filter_compact", 0) != merges:
+            raise AssertionError(f"{order} (a) {n} pods: filter_compact launched "
+                                 f"{launched.get('filter_compact', 0)} times, not the "
+                                 f"merges' {merges}")
+        owned = {pid: 0 for pid in fab.live_pods}
+        for rg in range(li.n_row_groups):
+            owned[fab.owner_of(li.path, rg)] += 1
+        strag = fab.report()["stragglers"]
+        busy = fleet_busy_s(fab)
+        log(f"      (a) {order} {n} pods: {len(scans)} plans bit-identical to the direct scans "
+            f"(ScanStats but the launch counts too); one at a time {alone_ms:.2f} ms; one drain "
+            f"drain_ms={ms:.2f} ticks={fab._tick}; row groups owned {owned}; launches "
+            f"{launched}; median tick s "
+            f"{ {p: round(strag[p]['median_s'], 6) for p in fab.live_pods} }; modeled busy s "
+            f"{ {p: round(v, 6) for p, v in busy.items()} } makespan_s={max(busy.values()):.6f}")
+
+    # (b) drain: a pod holding a queued sub-scan fails after the first tick,
+    # explicitly and silently (the heartbeat drains it)
+    want = eng.scan(li, FLEET_PLAN)
+    for silent in (False, True):
+        fab = new_fabric(device, 3, tick_bytes=rg_rows * 8)
+        t = fab.submit("t0", li, FLEET_PLAN)
+        fab.tick()
+        victims = [s.pod_id for s in t.subs.values() if s.ticket.status == "queued"]
+        if len(t.subs) < 2 or not victims:
+            raise AssertionError(f"{order} (b): subs {list(t.subs)}, none queued after a tick")
+        victim = victims[0]
+        fab.fail_pod(victim, silent=silent)
+        gone = {}
+
+        def note(tick, fab=fab, victim=victim, gone=gone):
+            if victim not in fab.live_pods:
+                gone.setdefault("tick", tick)
+
+        ticks, ms = wall(lambda: drain_fabric(fab, note))
+        rep = fab.report()
+        if (t.status != "done" or t.replays < 1 or victim in fab.live_pods
+                or rep["drains"][-1]["dead"] != victim or rep["drains"][-1]["replayed"] < 1):
+            raise AssertionError(f"{order} (b) silent={silent}: {t.status} {t.error!r} "
+                                 f"replays {t.replays} drains {rep['drains']}")
+        same_rows(t.result, want, f"{order} (b) silent={silent}: the replayed scan")
+        log(f"      (b) {order} silent={silent}: {victim} failed after tick 1, drained "
+            + (f"by its heartbeat {gone.get('tick', 0)} ticks later" if silent else "at once")
+            + f"; bit-identical; replays={t.replays} reassigned="
+            f"{rep['drains'][-1]['reassigned']} replayed={rep['drains'][-1]['replayed']} "
+            f"survivors={rep['drains'][-1]['survivors']} ticks={ticks + 1} drain_ms={ms:.2f}")
+    try:
+        new_fabric(device, 1).fail_pod("pod0")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"{order} (b): failing a one-pod fleet's last pod did not raise")
+
+    # (c) scale-out peer fetch: two warm pods, a third joins and steals arcs
+    fab = new_fabric(device, 2, policy=StaticPolicy("preloaded"))
+    same_rows(fab.scan(li, FLEET_PLAN), want, f"{order} (c) warm-up")
+    new = fab.add_pod()
+    got, ms = wall(lambda: fab.scan(li, FLEET_PLAN))
+    same_rows(got, want, f"{order} (c) after add_pod")
+    store, tel = fab.pods[new].store, fab.pods[new].telemetry
+    serves = sum(fab.pods[p].store.peer_serves for p in fab.live_pods)
+    if not (store.peer_hits > 0 and got.stats.peer_bytes == store.peer_hit_bytes > 0
+            and tel.tenant_peer_bytes.get("default", 0) > 0
+            and tel.tenant_peer_seconds.get("default", 0) > 0 and serves == store.peer_hits):
+        raise AssertionError(f"{order} (c): peer_hits {store.peer_hits} bytes "
+                             f"{store.peer_hit_bytes} billed {got.stats.peer_bytes} tenant "
+                             f"{tel.tenant_peer_bytes} serves {serves}")
+    lm = fab.cost_model.link_model()
+    storage_s = (store.peer_hits * lm.latency_us * 1e-6
+                 + store.peer_hit_bytes / (lm.bandwidth_gbps * 1e9))
+    # a peer hit aliases the sibling's tensor: clearing the new store frees
+    # none of the siblings' entries
+    aliased = [(k, e.value, e.value.clone()) for k, e in store._entries.items()
+               if isinstance(e.value, torch.Tensor) and any(
+                   fab.pods[p].store.peek(k) is not None
+                   and fab.pods[p].store.peek(k).value is e.value
+                   for p in fab.live_pods if p != new)]
+    mem = torch.cuda.memory_allocated()
+    store.clear()
+    freed = mem - torch.cuda.memory_allocated()
+    for k, v, copy in aliased:
+        held = [fab.pods[p].store.peek(k) for p in fab.live_pods if p != new]
+        if not any(e is not None and e.value is v for e in held) or not torch.equal(v, copy):
+            raise AssertionError(f"{order} (c): clearing {new}'s store changed a sibling's {k}")
+    if not aliased:
+        raise AssertionError(f"{order} (c): no peer hit aliases a sibling's tensor")
+    log(f"      (c) {order}: {new} joined 2 warm pods; bit-identical in {ms:.2f} ms; "
+        f"peer_hits={store.peer_hits} peer_bytes={store.peer_hit_bytes} (billed to the "
+        f"tenant: {tel.tenant_peer_bytes['default']:.0f} B, "
+        f"{tel.tenant_peer_seconds['default']:.6f} s) hop_s={store.peer_hit_seconds:.6f} "
+        f"against storage_s={storage_s:.6f} ({storage_s / store.peer_hit_seconds:.2f}x); "
+        f"{len(aliased)} of its tensors alias a sibling's; clearing its store freed {freed} B "
+        "of the card and no sibling's entry")
+
+    # (d) fleet fairness: the re-level on and off
+    runs = {relevel: fleet_skew(li, device, relevel, rg_rows) for relevel in (True, False)}
+    for t_on, t_off in zip(runs[True][1], runs[False][1]):
+        same_rows(t_on.result, t_off.result, f"{order} (d) {t_on.tenant}: re-level on and off")
+    for t in runs[True][1]:
+        same_rows(t.result, eng.scan(li, t.plan), f"{order} (d) {t.tenant} against the direct scan")
+    for relevel, (fab, tickets, done, ticks, ms) in runs.items():
+        occ = {}
+        for pid in fab.live_pods:
+            tl = fab.pods[pid].telemetry
+            for tenant in tl.known_tenants():
+                occ[tenant] = (occ.get(tenant, 0.0) + tl.tenant_decoded_bytes.get(tenant, 0.0)
+                               + tl.tenant_retained_bytes.get(tenant, 0.0))
+        charged = sum(fab.pods[p].telemetry.counters.get("fleet_vtime_seconds", 0.0)
+                      for p in fab.live_pods)
+        if (charged > 0) != relevel or len(done) != len(MICE_DAYS):
+            raise AssertionError(f"{order} (d) relevel={relevel}: fleet_vtime_seconds "
+                                 f"{charged}, mice done {done}")
+        log(f"      (d) {order} relevel={relevel}: drain_ms={ms:.2f} ticks={ticks} mice p99: "
+            f"ticks={max(d[0] for d in done.values())} "
+            f"ms={max(d[1] for d in done.values()):.2f}; jain_index="
+            f"{jain_index(list(occ.values())):.4f} fleet_vtime_seconds={charged:.6f}")
+
+    # (e) the breaker drains a pod whose storage fails forever; never the last
+    fab = new_fabric(device, 3, tick_bytes=rg_rows * 8)
+    t = fab.submit("t0", li, FLEET_PLAN)
+    victim = next(iter(t.subs.values())).pod_id
+    fab.inject_faults(victim, FaultPlan(transient_rate=1.0, fail_forever=True),
+                      RetryPolicy(max_attempts=5))
+    ticks, ms = wall(lambda: drain_fabric(fab))
+    if (t.status != "done" or t.replays < 1 or victim in fab.live_pods
+            or fab.report()["breaker_drains"] < 1):
+        raise AssertionError(f"{order} (e): {t.status} {t.error!r} replays {t.replays} live "
+                             f"{fab.live_pods} {fab.report()['breaker_drains']}")
+    same_rows(t.result, want, f"{order} (e) after the breaker drain")
+    one = new_fabric(device, 1, tick_bytes=rg_rows * 8)
+    one.inject_faults("pod0", FaultPlan(transient_rate=1.0, fail_forever=True),
+                      RetryPolicy(max_attempts=5))
+    t1 = one.submit("t0", li, FLEET_PLAN)
+    drain_fabric(one)
+    if (t1.status != "error" or not isinstance(t1.error, FetchFailed)
+            or one.live_pods != ["pod0"] or one.report()["breaker_drains"] != 0):
+        raise AssertionError(f"{order} (e) one pod: {t1.status} {t1.error!r} {one.live_pods}")
+    log(f"      (e) {order}: fail_forever on {victim}: breaker_drains="
+        f"{fab.report()['breaker_drains']}, replays={t.replays}, survivors {fab.live_pods} "
+        f"bit-identical in {ticks} ticks, {ms:.2f} ms; a one-pod fleet keeps its pod and ends "
+        f"with {type(t1.error).__name__}")
+
+    # (f) the catalog: a re-registration mid-scan is invisible to the scan
+    other_li = other["lineitem"]
+    want_other = eng.scan(other_li, FLEET_PLAN)
+    fab = new_fabric(device, 2, tick_bytes=rg_rows * 8)
+    v1 = fab.catalog.register("lineitem", li)
+    t_old = fab.submit("t0", "lineitem", FLEET_PLAN)
+    fab.tick()
+    pinned = fab.catalog.pinned_versions()
+    v2 = fab.catalog.register("lineitem", other_li)
+    t_new = fab.submit("t0", "lineitem", FLEET_PLAN)
+    drain_fabric(fab)
+    same_rows(t_old.result, want, f"{order} (f) the scan pinned to v{v1}")
+    same_rows(t_new.result, want_other, f"{order} (f) the scan submitted at v{v2}")
+    if pinned != [v1] or fab.catalog.pinned_versions():
+        raise AssertionError(f"{order} (f): pins {pinned} mid-scan, "
+                             f"{fab.catalog.pinned_versions()} after the drain")
+    log(f"      (f) {order}: lineitem re-registered to the other file order mid-scan: the "
+        f"in-flight scan equals v{v1}'s direct scan, the next one v{v2}'s; pins {pinned} "
+        "mid-scan, none after the drain")
+    return ops.kernel_launches()
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the LM serving path at full width, and flash_attention
 # ---------------------------------------------------------------------------
 
@@ -1816,6 +2140,7 @@ def main(argv=None) -> int:
         batched_launches = {}
         offload_launches = {}
         service_launches = {}
+        fabric_launches = {}
         for order, readers in passes.items():
             # phase 5: the main path on the card
             gpu = DatapathEngine(device="cuda")
@@ -1863,6 +2188,12 @@ def main(argv=None) -> int:
                                                     fig2_avg, calibrated)
             log(f"      launches {service_launches[order]}")
 
+            # phase F: the scan fabric
+            log(f"[F] {order}: the scan fabric on the card:")
+            other = passes["sorted" if order == "unsorted" else "unsorted"]
+            fabric_launches[order] = fabric_phase(readers, order, other)
+            log(f"      launches {fabric_launches[order]}")
+
     # phase 8
     for order, (first_ms, warm_ms, cpu_ms, peaks, busy, per_query) in report.items():
         log(f"[8] {order}: per query on the card (wall ms after synchronize; first run,"
@@ -1898,6 +2229,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
             "launches": sum(launches[o][name] + batched_launches[o][name]
                             + offload_launches[o][name] + service_launches[o][name]
+                            + fabric_launches[o][name]
                             for o in launches) + lm_launches[name],
             "max_abs_err": records[name]["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
@@ -1909,6 +2241,7 @@ def main(argv=None) -> int:
                                                    for o in batched_launches},
             "launches_offload_by_order": {o: offload_launches[o][name] for o in offload_launches},
             "launches_service_by_order": {o: service_launches[o][name] for o in service_launches},
+            "launches_fabric_by_order": {o: fabric_launches[o][name] for o in fabric_launches},
             "launches_lm": lm_launches[name],
         })
         if name == "flash_attention":
@@ -1943,8 +2276,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the query, batched, offload, service "
-                             f"or LM paths: {idle}")
+        raise AssertionError(f"kernels never launched on the query, batched, offload, service, "
+                             f"fabric or LM paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """datapath — the SmartNIC as a shared, scheduled, multi-tenant service,
-port of `repro.datapath` (ROADMAP.md A.4a and A.4b).
+port of `repro.datapath` (ROADMAP.md A.4a, A.4b and A.4c).
 
 service.py    Pod (née DatapathService): bounded queue, admission control,
               quotas, per-tenant WFQ virtual time + actual-cost
@@ -29,9 +29,12 @@ costmodel.py  per-encoding decode rates keyed by the device timed ("cuda",
 netsim.py     storage->NIC bandwidth/latency model and prefetch overlap
 trace.py      flight recorder: per-request span trees, bounded ring,
               Chrome-trace export, decode/filter/rest stage attribution
-
-The fabric (`fabric.py`, `catalog.py`) is not ported yet: its four names
-raise NotImplementedError naming ROADMAP.md A.4c.
+fabric.py     ScanFabric: N pods on one device behind a consistent-hash
+              ring over row groups, merged bit-identically in global
+              row-group order (one global compaction), pod drain and
+              replay, peer block-store fetch, fleet-wide WFQ re-level
+catalog.py    the fabric's shared table registry: copy-on-write versions,
+              snapshot pins per scan
 """
 
 from repro_torch.datapath.blockstore import (  # noqa: F401
@@ -42,6 +45,7 @@ from repro_torch.datapath.blockstore import (  # noqa: F401
     PeerFetcher,
     StoreView,
 )
+from repro_torch.datapath.catalog import Catalog, Snapshot  # noqa: F401
 from repro_torch.datapath.costmodel import (  # noqa: F401
     NOMINAL_RATES_GBPS,
     CostModel,
@@ -66,6 +70,7 @@ from repro_torch.datapath.faults import (  # noqa: F401
     StorageFault,
     TransientFetchError,
 )
+from repro_torch.datapath.fabric import FabricTicket, ScanFabric  # noqa: F401
 from repro_torch.datapath.policy import (  # noqa: F401
     AdaptiveOffloadPolicy,
     StaticPolicy,
@@ -90,18 +95,3 @@ from repro_torch.datapath.trace import (  # noqa: F401
     RequestTrace,
     Tracer,
 )
-
-FABRIC_ITEM = "A.4c the scan fabric"
-
-# every other public name of `repro.datapath`, by the ROADMAP.md item that
-# ports it
-LATER = dict.fromkeys(("ScanFabric", "FabricTicket",  # fabric.py
-                       "Catalog", "Snapshot"), FABRIC_ITEM)  # catalog.py
-
-
-def __getattr__(name: str):
-    item = LATER.get(name)
-    if item is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    raise NotImplementedError(f"repro_torch.datapath.{name} is not ported yet "
-                              f"(ROADMAP.md {item})")

@@ -577,10 +577,13 @@ class PeerFetcher:
 
     Installed on a pod's BlockCache (`cache.peer`); consulted only when a
     COUNTING get misses the local store.  A sibling pod that already holds
-    the page/decoded column serves a copy over the inter-pod link — wider
+    the page/decoded column serves it over the inter-pod link — wider
     and shallower than the storage hop, and a decoded-tier hit also skips
-    the decode — and the copy is installed into the local store at the
-    same tier so subsequent lookups are plain local hits.
+    the decode — and it is installed into the local store at the same
+    tier so subsequent lookups are plain local hits.  The fabric's pods
+    share one device, so the local entry aliases the sibling's tensor (or
+    page buffer): nothing is copied, both ledgers bill its bytes as the
+    reference's do, and dropping either entry leaves the other intact.
 
     Scope rules keeping the fabric bit-identical and honestly priced:
       * only 'page' (encoded) and 'rg' (decoded) keys cross pods — whole

@@ -1,4 +1,19 @@
-"""Distributed runtime: the one-device sharding context (the rest of
-`repro.distributed` waits for ROADMAP.md item A.6)."""
+"""Distributed runtime: the one-device sharding context and the scan
+fabric's ring and fault-tolerance policies (the rest of `repro.distributed`
+waits for ROADMAP.md item A.6)."""
 
-from repro_torch.distributed.sharding import ShardingCtx, constrain, local_ctx  # noqa: F401
+from repro_torch.distributed.fault_tolerance import (  # noqa: F401
+    HeartbeatMonitor,
+    PodDrainPlan,
+    RestartPlan,
+    StragglerDetector,
+    plan_elastic_mesh,
+    plan_pod_drain,
+)
+from repro_torch.distributed.sharding import (  # noqa: F401
+    HashRing,
+    ShardingCtx,
+    constrain,
+    local_ctx,
+    rg_key,
+)

@@ -1,6 +1,6 @@
 """chip_smoke.py's profiler lines (phases 7 and 8) can name every port kernel,
-and its offload phase (phase O) and service phase (phase S) run on the CPU at
-a small scale.
+and its offload phase (phase O), service phase (phase S) and fabric phase
+(phase F) run on the CPU at a small scale.
 
 The script imports without a card: it runs nothing at import but reading the
 kernel sources.  A kernel whose name the profiler lines cannot find is
@@ -9,7 +9,12 @@ Phase O is rehearsed on seed-4 TPC-H files at sf=0.05 with device="cpu"
 engines (synchronize, the profiler and the card's memory counter faked): it
 passes every check, and it stops at the first mode whose answers differ from
 raw's.  Phase S is rehearsed on the same files: it passes every check, and it
-stops at the first pod whose results differ from the direct scans'.
+stops at the first pod whose results differ from the direct scans'.  Phase F
+is rehearsed on seed-4 files of 2,048-row row groups in both orders, with
+every kernel wrapper swapped for its plain version counted as a launch (so
+the merge's filter_compact count is checked as on the card): it passes every
+check, and it stops at the first fleet whose result differs from the direct
+scan's.
 """
 
 from __future__ import annotations
@@ -196,3 +201,88 @@ def test_service_phase_stops_when_a_pod_result_differs(small_tables, on_cpu, mon
         chip_smoke.service_phase(readers, "unsorted", *rest, device="cpu")
     out = capsys.readouterr().out
     assert "(a) unsorted" in out and "(b)" not in out and "(c)" not in out and "(f)" not in out
+
+
+# ---------------------------------------------------------------------------
+# phase F, rehearsed on the CPU with plain kernels counted as launches
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fleet_tables(tmp_path_factory):
+    """Both file orders, in row groups small enough that 4 pods share them."""
+    return {order: tpch.write_tables(str(tmp_path_factory.mktemp(f"chip_smoke_fleet_{order}")),
+                                     sf=0.05, seed=4, row_group_size=2048,
+                                     sorted_data=order == "sorted")
+            for order in ("unsorted", "sorted")}
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """Every CUDA wrapper swapped for its plain version, which adds one to
+    its kernel's launches as the wrapper does; ops routes every tensor to
+    the wrappers."""
+    from repro_torch.kernels import (agg_push, bitunpack, bloom_probe, delta_decode, dict_decode,
+                                     filter_compact, fused_scan, ops, ref, rle_decode)
+
+    for mod, name, plain, kernel in (
+            (bitunpack, "bitunpack", ref.bitunpack, bitunpack.KERNEL),
+            (dict_decode, "dict_decode", ref.dict_decode, dict_decode.KERNEL),
+            (dict_decode, "dict_decode_batch", ref.dict_decode_batch, dict_decode.BATCH),
+            (delta_decode, "delta_decode", ref.delta_decode, delta_decode.KERNEL),
+            (rle_decode, "rle_decode", ref.rle_decode, rle_decode.KERNEL),
+            (filter_compact, "filter_compact", ref.filter_compact, filter_compact.KERNEL),
+            (bloom_probe, "bloom_probe", ref.bloom_probe, bloom_probe.KERNEL),
+            (fused_scan, "fused_scan", ref.fused_scan, fused_scan.KERNEL),
+            (fused_scan, "fused_scan_batch", ref.fused_scan_batch, fused_scan.BATCH),
+            (agg_push, "grouped_agg", ref.grouped_agg, agg_push.GROUPED),
+            (agg_push, "fused_agg", ref.fused_agg_scan, agg_push.FUSED)):
+        def counted(*a, plain=plain, kernel=kernel, **kw):
+            kernel.launches += 1
+            return plain(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    monkeypatch.setattr(ops, "_on_card", lambda *tensors: True)
+
+
+def _fleet_readers(fleet_tables):
+    return [{k: LakeReader(p) for k, p in fleet_tables[o].items()} for o in ("unsorted", "sorted")]
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+def test_fabric_phase_rehearsal(fleet_tables, on_cpu, plain_launches, capsys, order):
+    unsorted, sorted_ = _fleet_readers(fleet_tables)
+    readers, other = (unsorted, sorted_) if order == "unsorted" else (sorted_, unsorted)
+    launches = chip_smoke.fabric_phase(readers, order, other, device="cpu")
+    out = capsys.readouterr().out
+    for part in (f"(a) {order} 1 pods", f"(a) {order} 2 pods", f"(a) {order} 4 pods",
+                 f"(b) {order} silent=False", f"(b) {order} silent=True: ",
+                 f"(c) {order}: pod2 joined", f"(d) {order} relevel=True",
+                 f"(d) {order} relevel=False", f"(e) {order}: fail_forever",
+                 f"(f) {order}: lineitem re-registered"):
+        assert part in out, part
+    assert "drained by its heartbeat" in out and "makespan_s=" in out
+    assert set(launches) == set(chip_smoke.ops.KERNELS)
+    # the merge's compaction: once for the compact plan alone and once in the
+    # drain, at each of the three fleet sizes
+    assert launches["filter_compact"] >= 6
+    assert launches["dict_decode_batch"] > 0 and launches["fused_agg"] + launches["grouped_agg"] > 0
+
+
+def test_fabric_phase_stops_when_a_fleet_result_differs(fleet_tables, on_cpu, plain_launches,
+                                                        monkeypatch, capsys):
+    """A fleet whose merged row results come back one off: the phase raises
+    at (a)'s first check and runs nothing after it."""
+    class OffByOne(chip_smoke.ScanFabric):
+        def _try_merge(self, t):
+            done = super()._try_merge(t)
+            if done and t.result is not None and t.result.aggregates is None:
+                t.result = dataclasses.replace(
+                    t.result, columns={k: v + 1 for k, v in t.result.columns.items()})
+            return done
+
+    monkeypatch.setattr(chip_smoke, "ScanFabric", OffByOne)
+    readers, other = _fleet_readers(fleet_tables)
+    with pytest.raises(AssertionError, match=r"\(a\) 1 pods q1"):
+        chip_smoke.fabric_phase(readers, "unsorted", other, device="cpu")
+    out = capsys.readouterr().out
+    assert "(a)" not in out and "(b)" not in out and "(f)" not in out

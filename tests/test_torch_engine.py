@@ -272,7 +272,13 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
         tengine.DatapathEngine(device="cuda:0")
 
 
-LATER_NAMES = sorted(tdatapath.LATER)
+# the fabric's names (ROADMAP.md A.4c), each with the port module it comes
+# from and its package
+FABRIC_NAMES = {
+    "ScanFabric": "datapath.fabric", "FabricTicket": "datapath.fabric",
+    "Catalog": "datapath.catalog", "Snapshot": "datapath.catalog",
+    "HashRing": "distributed.sharding", "rg_key": "distributed.sharding",
+}
 # the service's names (ROADMAP.md A.4b), each with the port module it comes from
 SERVICE_NAMES = {
     **dict.fromkeys(("DatapathService", "Pod", "QueueFull", "QuotaExceeded", "ScanRequest",
@@ -286,15 +292,20 @@ SERVICE_NAMES = {
 }
 
 
-@pytest.mark.parametrize("name", LATER_NAMES)
-def test_later_slices_raise_not_implemented(name):
-    """Every name of `repro.datapath` that the port has not brought over
-    raises NotImplementedError naming its ROADMAP.md item: A.4c, the fabric
-    (catalog included)."""
-    assert name in ("ScanFabric", "FabricTicket", "Catalog", "Snapshot")
-    assert tdatapath.LATER[name].startswith("A.4c")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4c"):
-        getattr(tdatapath, name)
+@pytest.mark.parametrize("name", sorted(FABRIC_NAMES))
+def test_fabric_names_are_ported(name):
+    """The fabric's names (A.4c) are exported by the port's package of the
+    reference's name, raise nothing, and come from the port's own module of
+    the reference's name."""
+    import importlib
+
+    package, module = FABRIC_NAMES[name].split(".")
+    tpkg = importlib.import_module(f"repro_torch.{package}")
+    jpkg = importlib.import_module(f"repro.{package}")
+    obj = getattr(tpkg, name)
+    assert obj.__module__ == f"repro_torch.{FABRIC_NAMES[name]}"
+    assert getattr(jpkg, name).__module__ == f"repro.{FABRIC_NAMES[name]}"
+    assert obj is not getattr(jpkg, name)
 
 
 @pytest.mark.parametrize("name", sorted(SERVICE_NAMES))
@@ -303,22 +314,22 @@ def test_service_names_are_ported(name):
     the port's own module of the reference's name."""
     import repro.datapath as jdatapath
 
-    assert name not in tdatapath.LATER
     obj = getattr(tdatapath, name)
     assert obj.__module__ == f"repro_torch.datapath.{SERVICE_NAMES[name]}"
     assert getattr(jdatapath, name).__module__ == f"repro.datapath.{SERVICE_NAMES[name]}"
 
 
 def test_later_names_cover_the_rest_of_the_reference_package():
-    """The ported names and the raising names together are exactly the
-    reference's `repro.datapath` names; an unknown name is an AttributeError."""
+    """No name is left for a later slice: the port's `repro_torch.datapath`
+    exports every public name of `repro.datapath`, and an unknown name is an
+    AttributeError."""
     import repro.datapath as jdatapath
 
     ref_names = {n for n in dir(jdatapath) if not n.startswith("_")
                  and not isinstance(getattr(jdatapath, n), type(sys))}
     ported = {n for n in dir(tdatapath) if not n.startswith("_")}
-    assert ported.isdisjoint(tdatapath.LATER)
-    assert ref_names == (ported & ref_names) | set(tdatapath.LATER)
+    assert ref_names <= ported, sorted(ref_names - ported)
+    assert not hasattr(tdatapath, "LATER")
     with pytest.raises(AttributeError):
         getattr(tdatapath, "NoSuchName")
 
@@ -336,7 +347,9 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.datapath.costmodel, repro_torch.datapath.blockstore, "
         "repro_torch.datapath.telemetry, repro_torch.datapath.faults, "
         "repro_torch.datapath.policy, repro_torch.datapath.scheduler, "
-        "repro_torch.datapath.service\n"
+        "repro_torch.datapath.service, repro_torch.datapath.fabric, "
+        "repro_torch.datapath.catalog, repro_torch.distributed.sharding, "
+        "repro_torch.distributed.fault_tolerance\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

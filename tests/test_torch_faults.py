@@ -1,6 +1,7 @@
 """The port's storage fault plane (`repro_torch.datapath.faults`) on the CPU
-against the JAX one: tests/test_faults.py and tests/test_chaos_props.py (the
-single-pod cases; the fabric's wait for ROADMAP.md A.4c).
+against the JAX one: tests/test_faults.py and tests/test_chaos_props.py,
+the fabric's cases included (fleets of 1, 2 and 4 pods under the
+recoverable mix, one poisoned pod, the hypothesis sweep's two-pod arm).
 
 - The schedule: both packages' FaultPlans make the same decision at every
   (table, row group, column, attempt) of a grid, for every fault kind, and
@@ -10,7 +11,8 @@ single-pod cases; the fabric's wait for ROADMAP.md A.4c).
   faults recover bit-identically, terminal ones end typed, the breaker
   degrades, probes and sheds, fault seconds are reconciled into WFQ), and
   the two pods agree on results, tickets, counters, the fault ledger,
-  virtual time and span trees (test_torch_service.py's harness).
+  virtual time and span trees (test_torch_service.py's harness); two fleets
+  agree as test_torch_fabric.py's `same_fabrics` holds them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro.datapath import faults as jfaults
 from repro.lakeformat import integrity as jintegrity
 from repro_torch.datapath import faults as tfaults
 from repro_torch.lakeformat import integrity as tintegrity
+from tests.test_torch_fabric import fabric, same_fabrics
 from tests.test_torch_service import (  # noqa: F401 (trace_hooks: autouse)
     J, T, fake_tracer, same_pods, same_rows, service, trace_hooks, twin)
 
@@ -505,10 +508,10 @@ def policy(F):
 
 
 def bounded_drain(svc):
-    """Tick until idle, with a hang guard."""
+    """Tick a pod or a fleet until idle, with a hang guard."""
     for _ in range(MAX_TICKS):
         svc.tick()
-        if not svc.queue:
+        if not (svc.active if hasattr(svc, "active") else svc.queue):
             return
     pytest.fail(f"no progress after {MAX_TICKS} ticks — hang")
 
@@ -619,6 +622,59 @@ def test_one_failing_table_fails_typed_and_the_others_complete(tables):
     same_pods(tsvc, jsvc, tt, jt, traces=True)
 
 
+# ---------------------------------------------------------------------------
+# the fabric: the pod-count grid under the recoverable mix, a straggler pod,
+# and one poisoned pod
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_pods", [1, 2, 4])
+@pytest.mark.parametrize("scheduler,batch", [("wfq", True), ("fifo", False)])
+def test_fabric_chaos_bit_identical(tables, n_pods, scheduler, batch):
+    def run(S):
+        F = S.faults
+        plan = recoverable(F)
+        if n_pods > 1:  # one whole-pod straggler exercises the hedge path
+            plan = dataclasses.replace(plan, straggler_pods={"pod1": 2e-3})
+        R = {k: S.Reader(p) for k, p in tables.items()}
+        fab = fabric(S, n_pods=n_pods, scheduler=scheduler, batch_decode=batch,
+                     tick_bytes=TICK_BYTES, fault_plan=plan, retry_policy=policy(F))
+        tickets = [fab.submit(f"t{i}", R[p.table], p) for i, p in enumerate(plans(S.P))]
+        bounded_drain(fab)
+        eng = S.engine()
+        for t, p in zip(tickets, plans(S.P)):
+            assert t.status == "done", (p, t.status, t.error)
+            same_rows(t.result, eng.scan(R[p.table], p))
+        for pid in fab.live_pods:
+            assert fab.pods[pid].telemetry.snapshot()["faults"]["retries_exhausted"] == 0
+            check_honesty(fab.pods[pid].telemetry)
+        return fab, tickets
+
+    (jfab, jt), (tfab, tt) = twin(run)
+    same_fabrics(tfab, jfab, tt, jt, tables)
+
+
+def test_fabric_one_poisoned_pod_survivors_complete(tables):
+    """Fault schedules confined to one pod: the breaker-drain path removes
+    it and every scan still completes bit-identically."""
+    def run(S):
+        R = {k: S.Reader(p) for k, p in tables.items()}
+        fab = fabric(S, n_pods=3, tick_bytes=TICK_BYTES)
+        tickets = [fab.submit(f"t{i}", R[p.table], p) for i, p in enumerate(plans(S.P))]
+        fab.inject_faults("pod2", S.dp.FaultPlan(transient_rate=1.0, fail_forever=True),
+                          S.dp.RetryPolicy(max_attempts=5))
+        bounded_drain(fab)
+        eng = S.engine()
+        for t, p in zip(tickets, plans(S.P)):
+            assert t.status == "done", (p, t.error)
+            same_rows(t.result, eng.scan(R[p.table], p))
+        assert "pod2" not in fab.live_pods
+        assert fab.report()["breaker_drains"] >= 1
+        return fab, tickets
+
+    (jfab, jt), (tfab, tt) = twin(run)
+    same_fabrics(tfab, jfab, tt, jt, tables)
+
+
 def FailOneTable(F, table):
     """A fail_forever transient plan confined to one table (by basename)."""
     class Plan(F.FaultPlan):
@@ -629,7 +685,7 @@ def FailOneTable(F, table):
 
 
 # ---------------------------------------------------------------------------
-# hypothesis sweep: random seeds and rates on one pod (the fabric arm: A.4c)
+# hypothesis sweep: random seeds and rates on one pod or a fleet of two
 # ---------------------------------------------------------------------------
 
 try:
@@ -644,26 +700,33 @@ if HAVE_HYPOTHESIS:
     @settings(deadline=None, max_examples=15)
     @given(seed=st.integers(0, 2 ** 16), transient=st.floats(0.0, 0.2),
            corrupt=st.floats(0.0, 0.1), spike=st.floats(0.0, 0.5),
-           scheduler=st.sampled_from(["wfq", "fifo"]), batch=st.booleans(),
-           idx=st.integers(0, 3))
-    def _hyp_chaos(tables, seed, transient, corrupt, spike, scheduler, batch, idx):
+           n_pods=st.sampled_from([1, 2]), scheduler=st.sampled_from(["wfq", "fifo"]),
+           batch=st.booleans(), idx=st.integers(0, 3))
+    def _hyp_chaos(tables, seed, transient, corrupt, spike, n_pods, scheduler, batch, idx):
         def run(S):
             p = plans(S.P)[idx]
             r = S.Reader(tables[p.table])
-            svc = _service(S, scheduler=scheduler, batch_decode=batch,
-                           fault_plan=S.dp.FaultPlan(seed=seed, transient_rate=transient,
-                                                     corrupt_rate=corrupt, spike_rate=spike,
-                                                     spike_s=1e-3),
-                           retry_policy=S.dp.RetryPolicy(max_attempts=12, hedge_after_s=1e-3))
+            kw = dict(scheduler=scheduler, batch_decode=batch,
+                      fault_plan=S.dp.FaultPlan(seed=seed, transient_rate=transient,
+                                                corrupt_rate=corrupt, spike_rate=spike,
+                                                spike_s=1e-3),
+                      retry_policy=S.dp.RetryPolicy(max_attempts=12, hedge_after_s=1e-3))
+            # one pod is the reference's one-pod fleet; two pods a fleet
+            svc = _service(S, **kw) if n_pods == 1 else fabric(
+                S, n_pods=n_pods, tick_bytes=TICK_BYTES, **kw)
             t = svc.submit("t0", r, p)
             bounded_drain(svc)
             assert t.status == "done", t.error
             same_rows(t.result, S.engine().scan(r, p))
-            check_honesty(svc.telemetry)
+            for pod in (svc.pods[pid] for pid in svc.live_pods) if n_pods > 1 else (svc,):
+                check_honesty(pod.telemetry)
             return svc, [t]
 
         (jsvc, jt), (tsvc, tt) = twin(run)
-        same_pods(tsvc, jsvc, tt, jt, traces=True)
+        if n_pods == 1:
+            same_pods(tsvc, jsvc, tt, jt, traces=True)
+        else:
+            same_fabrics(tsvc, jsvc, tt, jt, tables)
 
     def test_chaos_hypothesis_sweep(tables):
         _hyp_chaos(tables)

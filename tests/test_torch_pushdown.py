@@ -1,5 +1,6 @@
 """The port's aggregate pushdown on the CPU, mirroring tests/test_pushdown.py
-where it needs no service or cache.
+where it needs no service or cache, and its fabric cases (the partial
+aggregates of N pods merged in global row-group order).
 
 Within the port, pushed-down aggregation must equal scan-then-aggregate
 (`agg.aggregate_rows_host` over the same engine's row scan) bit for bit,
@@ -7,7 +8,9 @@ float sums included, whether the scan runs sequentially, batched or in
 slices.  Against the JAX engine (backend "ref") on the same files: counts,
 int sums, min and max exactly, float sums within rtol 1e-4 (the port's
 float32 block sums add in another fixed order than XLA's), and every
-ScanStats field equal but `batch_pad_blocks` (the port pads no stack)."""
+ScanStats field equal but `batch_pad_blocks` (the port pads no stack; a
+fleet's merged stats also differ in `kernel_launches`, which follow the
+port's own dispatch)."""
 
 import dataclasses
 
@@ -16,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.datapath as jdp
+import repro_torch.datapath as tdp
 from repro.core import engine as jengine
 from repro.core import plan as jplan
 from repro.core import tpch as jtpch
@@ -281,3 +286,62 @@ def test_bloom_semijoin_batched_and_into_pushdown(tables):
                                                        batched=batched)
         _agrees_with_jax(res.aggregates, j.aggregates)
         assert _stats(res.stats) == _stats(j.stats)
+
+
+# ---------------------------------------------------------------------------
+# the fabric: deterministic partial-aggregate merge across pods
+# ---------------------------------------------------------------------------
+
+def _fleet_scans(path, name, n_pods):
+    """Plan `name` through a port fleet and a JAX fleet of n_pods."""
+    tp, jp = _plans(tplan)[name], _plans(jplan)[name]
+    got = tdp.ScanFabric(n_pods=n_pods, device="cpu").scan(TReader(path), tp)
+    ref = jdp.ScanFabric(n_pods=n_pods, backend="ref").scan(JReader(path), jp)
+    return tp, got, ref
+
+
+def _fleet_stats(stats):
+    return {k: v for k, v in _stats(stats).items() if k != "kernel_launches"}
+
+
+@pytest.mark.parametrize("n_pods", [1, 2, 4])
+def test_fabric_agg_merge_bit_identical(tables, n_pods):
+    """N pods' partials re-fold to the single engine's aggregates bit for
+    bit, and to scan-then-aggregate; the JAX fleet agrees."""
+    path = tables["unsorted"]["lineitem"]
+    tp, got, ref = _fleet_scans(path, "grouped", n_pods)
+    want = _expected(TReader(path), tp)
+    _identical(got.aggregates, want)
+    direct = tengine.DatapathEngine(device="cpu").scan(TReader(path), tp)
+    _identical(got.aggregates, direct.aggregates)
+    assert int(got.count) == int(np.asarray(want["count(*)"]).sum()) == int(ref.count)
+    assert got.count.dtype == torch.int32 and got.mask.shape == (0,)
+    _agrees_with_jax(got.aggregates, ref.aggregates)
+    assert _fleet_stats(got.stats) == _fleet_stats(ref.stats)
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+def test_fabric_float_sum_order_pinned(tables, order):
+    """The pod partition must not change a float sum's bits: the merge adds
+    in global row-group order whichever pod owned which groups."""
+    path = tables[order]["lineitem"]
+    key = "sum(l_extendedprice)"
+    base = _fleet_scans(path, "throughput_grouped_sum", 1)[1].aggregates[key]
+    for n in (2, 4):
+        _, got, ref = _fleet_scans(path, "throughput_grouped_sum", n)
+        assert np.array_equal(got.aggregates[key].view(np.int64), base.view(np.int64)), n
+        _agrees_with_jax(got.aggregates, ref.aggregates)
+
+
+def test_fabric_all_pruned_agg(tables):
+    path = tables["unsorted"]["lineitem"]
+    got, ref = (
+        F.ScanFabric(n_pods=2, **kw).scan(R(path), P.ScanPlan(
+            "lineitem", [], P.Cmp("l_shipdate", "gt", 10 ** 9),
+            aggregates=(P.AggSpec("sum", "l_quantity"), P.AggSpec("count"))))
+        for F, P, R, kw in ((tdp, tplan, TReader, {"device": "cpu"}),
+                            (jdp, jplan, JReader, {"backend": "ref"})))
+    assert int(got.count) == 0 and got.count.dtype == torch.int32
+    assert np.array_equal(got.aggregates["count(*)"], np.zeros(1, np.int64))
+    _identical(got.aggregates, {k: np.asarray(v) for k, v in ref.aggregates.items()})
+    assert _fleet_stats(got.stats) == _fleet_stats(ref.stats)
