@@ -169,9 +169,29 @@ F. the scan fabric on each file order, after phase S, every launch count
    route, beside its bound (and the share of it), `ref.mha` and, as a
    yardstick the port never calls, torch's scaled_dot_product_attention (and
    the kernel's time over it);
+T. training at the full width of qwen3-1.7b (bf16, remat, AdamW with
+   tests/test_system.py's OptConfig), every launch count set to 0 at its
+   start and read at its end, on a corpus that the port's write_corpus
+   writes at vocab 151,936 (token k = 18; 2 shards of 8 row groups of
+   65,536 rows): (a) `train` on a TokenPipeline(mode="fused") of 1 x 4,096:
+   the losses finite and falling, bitunpack launched once a step (the step
+   unpacks the packed blocks as its first op); then steps timed one by one:
+   step ms (median), tokens/s, peak device memory, one step's device busy
+   ms, idle share and top operations (torch.profiler), and the model-FLOP
+   share of 989 TFLOP/s; (b) host and engine (quality >= 30) and fused
+   batches each feeding the same step (step ms per mode), host and engine
+   batches equal token for token, and each pipeline alone over 8 batches of
+   4 x 4,096 (benchmarks/pipeline_bench.py's tokens/s, host bytes/token and
+   DMA bytes/token) beside the step: engine mode launches bitunpack,
+   rle_decode and filter_compact; (c) unfiltered fused batches unpack to
+   the host mode's tokens bit for bit; (d) at 2 layers of full width, a
+   4-step run checkpointed every 2 steps, then a run to 6 that resumes at 4
+   with the pipeline's cursor, its losses within 1e-3 relative of an
+   uninterrupted 6-step run's; (e) 2 layers at float32 (TF32 off), one
+   step on the card against the CPU: loss, gradients and parameters;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
-   phase 9, must be > 0);
+   phases 9 and T, must be > 0);
 11. print the device line last.
 """
 
@@ -201,6 +221,8 @@ from repro_torch.core import BlockCache, DatapathEngine, agreement, tpch  # noqa
 from repro_torch.core import queries as Q  # noqa: E402
 from repro_torch.core.plan import AggSpec, Cmp, ScanPlan, bind_expr  # noqa: E402
 from repro_torch.core.zonemap import prune_row_groups  # noqa: E402
+from repro_torch.data.corpus import write_corpus  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.datapath import (  # noqa: E402
     PAPER_FIG2_PCT,
     CostModel,
@@ -224,6 +246,13 @@ from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
 from repro_torch.models import layers, model  # noqa: E402
 from repro_torch.models.transformer import _proj_qkv  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train.loop import make_train_step, train  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptConfig,
+    init_opt_state,
+    tree_leaves,
+    tree_map,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # The data sheet's 67e12 float32 FLOP/s is 128 FMA lanes per SM at 2
@@ -2007,7 +2036,7 @@ def lm_serving(seed: int, device: str = "cuda"):
     # (c) the card against the CPU: 2 layers at float32
     cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS, dtype="float32")
     cpu_params = model.init_params(cfg2, seed, device="cpu")
-    card_params = to_device(cpu_params, device)
+    card_params = tree_map(lambda p: p.to(device, copy=True), cpu_params)
     seq = rng.integers(0, cfg.vocab, (1, CHECK_LEN)).astype(np.int32)
     l_cpu, c_cpu = model.prefill(cpu_params, {"tokens": torch.from_numpy(seq)}, cfg2)
     l_card, c_card = model.prefill(card_params, {"tokens": torch.from_numpy(seq).to(device)},
@@ -2085,6 +2114,317 @@ def flash_cases(path, stack, wide, cfg) -> dict:
                              "over_library": ms / library_ms, "stage_ms": None})
     del flush
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase T: training at full width, fed by the datapath's token pipeline
+# ---------------------------------------------------------------------------
+
+# tests/test_system.py's S, the launcher's --seq; B 2, since at B 1 the step
+# peaked at 33.4 GB of the H100's 80
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+# (a): train()'s steps, then TIMED_STEPS more timed one by one.  At full width
+# the loss rises over AdamW's first 3-5 steps before it falls (at lr 1e-3 and
+# at 3e-4, B 1 and 2), so 8 of the schedule's 10 steps: B 2 gave 12.39,
+# 12.64, 12.43, 14.03, 14.52, 10.35, 9.71, 9.29 on one H100
+TRAIN_STEPS = 8
+TIMED_STEPS = 3
+MODE_STEPS = 2  # (b): steps fed by each ingestion mode
+TRAIN_QUALITY = 30  # (b): host and engine filter quality >= 30, fused reads all
+CORPUS_SHARDS, CORPUS_RG = 2, 65536
+CORPUS_TOKENS = CORPUS_SHARDS * 8 * CORPUS_RG  # 2 shards of 8 row groups: 1,048,576
+PIPE_B, PIPE_BATCHES = 4, 8  # benchmarks/pipeline_bench.py: 8 batches of 4 x 4,096
+RESUME_LAYERS = CHECK_LAYERS  # (d): full width, 2 layers (a checkpoint of 28 is 17 GB)
+RESUME_STEPS, RESUME_TO = 4, 6
+OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.01)  # test_system.py's
+# (d) the resumed run's losses against an uninterrupted run's: the same
+# parameters, moments and batches restored bit for bit, but the card's
+# embedding backward may add in another order, which moves a bf16 parameter
+# by an ulp (2^-8); one step on top moves the loss by far less than 1e-3.
+RESUME_REL = 1e-3
+# (e) the card against the CPU at float32, TF32 off: the loss within 1e-5
+# relative; gradients and parameters after the step by relative L2 per
+# leaf: sums in other orders over up to 6,144 terms differ by ~1e-6
+# relative; 1e-4 leaves room for that carried through 2 layers and the
+# backward.  After the AdamW step an element whose gradient lies within
+# rounding of 0 may step by 2 lr the other way: 1e-3 for the parameters.
+STEP_LOSS_REL, STEP_GRAD_REL, STEP_PARAM_REL = 1e-5, 1e-4, 1e-3
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).norm() / max(float(w.norm()), 1e-30))
+
+
+def train_flops(cfg, n_params: int, tokens: int, B: int, S: int) -> float:
+    """Model FLOPs of one training step: 6 n_params tokens (every
+    parameter's product forward and backward, the tied head's through the
+    embedding) plus the plain attention's full-square products, q k^T and
+    p v at 2 B H S^2 hd each, which run forward, again in the recompute
+    (remat), and twice in the backward: 4 x 4 B H S^2 hd a layer.  The
+    recomputed projections are hardware work, not model FLOPs."""
+    attn = 4 * 4 * B * cfg.n_heads * S * S * cfg.head_dim
+    return 6 * n_params * tokens + cfg.n_layers * attn
+
+
+def timed_steps(step, params, opt_state, pipe, n: int):
+    """n steps on the pipeline's batches: (params, opt_state, per-step
+    (ms, loss, bitunpack launches))."""
+    out = []
+    for _ in range(n):
+        batch = pipe.next_batch()
+        before = bitunpack.KERNEL.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t) * 1e3, loss, bitunpack.KERNEL.launches - before))
+    return params, opt_state, out
+
+
+def pipeline_numbers(paths, mode: str, device: str) -> dict:
+    """benchmarks/pipeline_bench.py's three numbers for one mode, the
+    pipeline alone: PIPE_BATCHES batches of PIPE_B x TRAIN_SEQ."""
+    pipe = TokenPipeline(paths, PIPE_B, TRAIN_SEQ, mode=mode,
+                         quality_min=TRAIN_QUALITY if mode != "fused" else None, device=device)
+    before = ops.kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_BATCHES):
+        pipe.next_batch()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = PIPE_B * TRAIN_SEQ * PIPE_BATCHES
+    after = ops.kernel_launches()
+    return {"tokens_per_s": toks / dt,
+            "host_bytes_per_token": pipe.stats["host_bytes_decoded"] / toks,
+            "dma_bytes_per_token": pipe.stats["dma_bytes"] / toks,
+            "ms_per_batch": dt / PIPE_BATCHES * 1e3,
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+
+
+def training_phase(seed: int, tmpdir: str, device: str = "cuda") -> dict:
+    """Phase T.  Returns the kernel launches of its window (the whole phase)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat=True)
+    optcfg = OptConfig(**OPT)
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    paths = write_corpus(os.path.join(tmpdir, "corpus"), n_tokens=CORPUS_TOKENS,
+                         vocab=cfg.vocab, n_shards=CORPUS_SHARDS, seed=seed,
+                         row_group_size=CORPUS_RG)
+    readers = [LakeReader(p) for p in paths]
+    k = readers[0].footer["row_groups"][0]["columns"]["token"]["k"]
+    log(f"      corpus: {CORPUS_TOKENS} tokens in {len(paths)} shards of "
+        f"{readers[0].n_row_groups} row groups of {CORPUS_RG} (token k={k}, quality "
+        f"{readers[0].row_group_meta(0)['columns']['quality']['encoding']}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) fused: train() on the packed blocks, then steps timed one by one
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="fused", device=device)
+    before = bitunpack.KERNEL.launches
+    t0 = time.perf_counter()
+    out = train(cfg, optcfg, fused, steps=TRAIN_STEPS, seed=seed, log_every=1,
+                log_fn=lambda s: log(f"      {s}"), device=device)
+    train_s = time.perf_counter() - t0
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) the loss did not fall or is not finite: {losses}")
+    blocks = TRAIN_BATCH * -(-TRAIN_SEQ // 4096)
+    if bitunpack.KERNEL.launches - before != TRAIN_STEPS:
+        raise AssertionError(f"(a) bitunpack launched {bitunpack.KERNEL.launches - before} "
+                             f"times in {TRAIN_STEPS} steps, not once a step")
+    params, opt_state = out["params"], out["opt_state"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    step = make_train_step(cfg, optcfg)
+    params, opt_state, timed = timed_steps(step, params, opt_state, fused, TIMED_STEPS)
+    if any(n != 1 for _, _, n in timed) or not all(np.isfinite([l for _, l, _ in timed])):
+        raise AssertionError(f"(a) timed steps: {timed}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(ms for ms, _, _ in timed)[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = fused.next_batch()
+    busy_ms, top, _ = profiled(lambda: step(params, opt_state, batch))
+    flops = train_flops(cfg, n_params, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"      (a) fused, B {TRAIN_BATCH} x S {TRAIN_SEQ}, {cfg.n_layers} layers, remat "
+        f"{cfg.remat_policy}, {n_params} parameters: losses {[round(x, 4) for x in losses]} "
+        f"(train() {train_s:.1f} s), then {[round(l, 4) for _, l, _ in timed]}; bitunpack "
+        f"once a step ({blocks} block(s) of k={k})")
+    log(f"      (a) step_ms (median of {TIMED_STEPS} after train()'s {TRAIN_STEPS}) "
+        f"{step_ms:.2f} {[round(ms, 2) for ms, _, _ in timed]}; tokens/s "
+        f"{tokens / step_ms * 1e3:.1f}; peak device bytes {peak}; one step: "
+        f"busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / step_ms:.3f} top={top}; model "
+        f"FLOPs {flops:.4e} a step, {flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.4f} of "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; (a) took {time.perf_counter() - t0:.1f} s")
+
+    # (b) the three ingestion modes feeding the same step, and each pipeline alone
+    t0 = time.perf_counter()
+    filt = dict(quality_min=TRAIN_QUALITY, device=device)
+    host = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="host", **filt)
+    eng = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="engine", **filt)
+    fed = {}
+    for mode, pipe in (("host", host), ("engine", eng), ("fused", fused)):
+        params, opt_state, fed[mode] = timed_steps(step, params, opt_state, pipe, MODE_STEPS)
+    again = [TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode=m, **filt)
+             for m in ("host", "engine")]
+    for i in range(MODE_STEPS + 2):
+        a, b = (p.next_batch()["tokens"] for p in again)
+        if not torch.equal(a, b):
+            raise AssertionError(f"(b) host and engine batch {i} differ")
+    bench = {m: pipeline_numbers(paths, m, device) for m in ("host", "engine", "fused")}
+    if not {"bitunpack", "rle_decode", "filter_compact"} <= set(bench["engine"]["launches"]):
+        raise AssertionError(f"(b) engine mode launched {bench['engine']['launches']}")
+    if any(n != 1 for _, _, n in fed["fused"]) or any(n for m in ("host", "engine")
+                                                     for _, _, n in fed[m]):
+        raise AssertionError(f"(b) bitunpack launches per step: {fed}")
+    log(f"      (b) host and engine (quality >= {TRAIN_QUALITY}) equal token for token over "
+        f"{MODE_STEPS + 2} batches; engine mode launched {bench['engine']['launches']}; "
+        f"(b) took {time.perf_counter() - t0:.1f} s")
+    for mode, nums in bench.items():
+        ms = sorted(x for x, _, _ in fed[mode])[MODE_STEPS // 2]
+        per_step = nums["ms_per_batch"] * tokens / (PIPE_B * TRAIN_SEQ)
+        log(f"      (b) {mode}: pipeline tokens/s {nums['tokens_per_s']:.0f} host B/token "
+            f"{nums['host_bytes_per_token']:.3f} dma B/token {nums['dma_bytes_per_token']:.3f} "
+            f"ms/batch of {PIPE_B}x{TRAIN_SEQ} {nums['ms_per_batch']:.2f} (a step's "
+            f"{tokens} tokens: {per_step:.2f} ms) beside step_ms "
+            f"{[round(x, 2) for x, _, _ in fed[mode]]} (pipeline/step {per_step / ms:.4f}); "
+            f"pipeline launches {nums['launches']}")
+    del params, opt_state, out, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) fused == host without a filter: the step's unpacked tokens
+    f2 = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="fused", device=device)
+    h2 = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="host", device=device)
+    for i in range(3):
+        got = model.unpack_tokens(f2.next_batch()["packed"], TRAIN_SEQ, cfg)
+        if not torch.equal(got, h2.next_batch()["tokens"]):
+            raise AssertionError(f"(c) fused batch {i} unpacks to other tokens than host's")
+    log("      (c) fused unpacks to the host mode's tokens bit for bit over 3 batches")
+
+    # (d) resume: 4 steps with a checkpoint every 2, then on to 6, against 6 at once
+    cfg_r = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    ckpt = os.path.join(tmpdir, "ckpt")
+    quiet = dict(seed=seed, log_every=10**9, log_fn=lambda s: None, device=device)
+    t0 = time.perf_counter()
+    first = train(cfg_r, optcfg, TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="fused",
+                                               device=device),
+                  steps=RESUME_STEPS, ckpt_dir=ckpt, ckpt_every=2, **quiet)["losses"]
+    logs = []
+    resumed_pipe = TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="fused", device=device)
+    resumed = train(cfg_r, optcfg, resumed_pipe, steps=RESUME_TO, ckpt_dir=ckpt,
+                    ckpt_every=10**9, **{**quiet, "log_fn": logs.append})["losses"]
+    whole = train(cfg_r, optcfg, TokenPipeline(paths, TRAIN_BATCH, TRAIN_SEQ, mode="fused",
+                                               device=device),
+                  steps=RESUME_TO, **quiet)["losses"]
+    if (f"[train] resumed from step {RESUME_STEPS}" not in logs
+            or len(resumed) != RESUME_TO - RESUME_STEPS):
+        raise AssertionError(f"(d) did not resume at step {RESUME_STEPS}: {logs}, {resumed}")
+    if resumed_pipe.state.as_dict() == {"shard": 0, "row_group": 0, "epoch": 0, "pool_off": 0}:
+        raise AssertionError("(d) the pipeline cursor was not restored")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[RESUME_STEPS:]))
+    gap_first = max(abs(a - b) / abs(b) for a, b in zip(first, whole))
+    if not (gap <= RESUME_REL and gap_first <= RESUME_REL):
+        raise AssertionError(f"(d) resumed {resumed} against {whole[RESUME_STEPS:]} (relative "
+                             f"{gap}), the first run {first} against {whole} ({gap_first}); "
+                             f"tolerance {RESUME_REL}")
+    log(f"      (d) {RESUME_LAYERS} layers at full width: checkpoints at 2 and "
+        f"{RESUME_STEPS}, resumed at {RESUME_STEPS} (cursor {resumed_pipe.checkpoint_state()}), "
+        f"losses {resumed} against the uninterrupted {whole[RESUME_STEPS:]}: relative gap "
+        f"{gap:.3e} (tolerance {RESUME_REL}); the first {RESUME_STEPS} steps {first}, "
+        f"relative gap {gap_first:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (e) the card against the CPU: one step at 2 layers, float32
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS, dtype="float32")
+    cpu_params = model.init_params(cfg2, seed, device="cpu")
+    card_params = tree_map(lambda p: p.to(device, copy=True), cpu_params)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (1, CHECK_LEN)).astype(np.int32)
+    sides = {}
+    for side, params in (("card", card_params), ("cpu", cpu_params)):
+        batch = {"tokens": torch.from_numpy(toks).to(params["embed"].device)}
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, _ = model.forward_train(params, batch, cfg2)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        state = init_opt_state(params, optcfg)
+        _, _, m = make_train_step(cfg2, optcfg)(params, state, batch)
+        sides[side] = (float(loss.detach()), grads, float(m["loss"]), tree_leaves(params))
+    (lc, gc_, mc, pc), (lh, gh, mh, ph) = sides["card"], sides["cpu"]
+    loss_rel = max(abs(lc - lh) / abs(lh), abs(mc - mh) / abs(mh))
+    grad_rel = max(rel_l2(a, b) for a, b in zip(gc_, gh))
+    param_rel = max(rel_l2(a, b) for a, b in zip(pc, ph))
+    if not (loss_rel <= STEP_LOSS_REL and grad_rel <= STEP_GRAD_REL
+            and param_rel <= STEP_PARAM_REL):
+        raise AssertionError(f"(e) card against CPU: loss {loss_rel}, grads {grad_rel}, "
+                             f"params {param_rel}")
+    log(f"      (e) {CHECK_LAYERS} layers, float32, {CHECK_LEN} tokens, one step: card against "
+        f"CPU loss relative {loss_rel:.3e} (tolerance {STEP_LOSS_REL}), grads relative L2 "
+        f"{grad_rel:.3e} ({STEP_GRAD_REL}), parameters after the step {param_rel:.3e} "
+        f"({STEP_PARAM_REL}); {time.perf_counter() - t0:.1f} s")
+    del cpu_params, card_params, sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ops.kernel_launches()
+
+
+def kernels_line(records: dict, by_order: dict, once: dict) -> list:
+    """Phase 10's record of each kernel: phase 3's numbers and its launches,
+    summed over every counted window.  `by_order` maps a window's key (its
+    name in the record) to its launches by file order, {order: {kernel: n}};
+    `once` a window run once (phases 9 and T) to {kernel: n}."""
+    kernels = []
+    for name, kern in ops.KERNELS.items():
+        path, stack = records[name]["cases"][0], records[name]["cases"][1]
+        size = ({"shape": path["shape"], "stack_shape": stack["shape"]} if "shape" in path
+                else {"blocks": path["blocks"], "stack_blocks": stack["blocks"]})
+        kernels.append({
+            "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
+            "launches": sum(n[name] for w in by_order.values() for n in w.values())
+            + sum(w[name] for w in once.values()),
+            "max_abs_err": records[name]["max_abs_err"],
+            "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"], "library_ms": path["library_ms"], **size,
+            "stack_ms": stack["ms"], "stack_plain_ms": stack["plain_ms"],
+            "stack_bound_ms": stack["bound_ms"], "stack_library_ms": stack["library_ms"],
+            **{key: {o: n[name] for o, n in w.items()} for key, w in by_order.items()},
+            **{key: w[name] for key, w in once.items()},
+        })
+        if name == "flash_attention":
+            kernels[-1].update(
+                library="torch.nn.functional.scaled_dot_product_attention "
+                "(is_causal, enable_gqa; a yardstick, never called by the port)",
+                sources=flash_attention.SOURCES,
+                launches_by_route=records[name]["launches_by_route"],
+                cases=[{k: c[k] for k in ("label", "shape", "route", "ms", "bound_ms", "share",
+                                          "library_ms", "over_library")}
+                       for c in records[name]["cases"]])
+        elif path["stage_ms"] is not None:
+            kernels[-1].update(library="torch.masked_select (yardstick of the _compact stage)",
+                               stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
+        elif name == "grouped_agg":
+            kernels[-1].update(library="Tensor.scatter_add of the s0 plane alone")
+        elif name == "dict_decode":
+            kernels[-1].update(
+                library="torch.take of the unpacked, clipped codes (the lookup half alone)",
+                variant="__ldg lookups in place, no fill; 512 threads a block, 8 rows a thread")
+        elif name == "dict_decode_batch":
+            kernels[-1].update(
+                library="torch.take of the flattened (P, Dmax) dictionaries at page * Dmax + "
+                "the clipped code (the lookup half alone; a yardstick, never called by the port)",
+                variant="dict_decode's walk, each CTA taking a run of consecutive blocks, "
+                "each block's page and size loaded ahead, __ldg lookups; 128 threads a block "
+                "(a thread a lane) where Dmax <= 32, 512 (8 rows a thread) above")
+        elif name in ("fused_scan", "fused_scan_batch"):
+            kernels[-1].update(
+                variant="grid-stride walk: 512 threads a block, 8 rows a thread, the mask "
+                "staged in shared memory and written 8 contiguous bytes a thread")
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -2219,65 +2559,24 @@ def main(argv=None) -> int:
     log(f"[9] the LM serving path on the card: {LM_ARCH} at full width")
     lm_launches, records["flash_attention"] = lm_serving(args.seed)
 
+    # phase T
+    log(f"[T] training on the card: {LM_ARCH} at full width, fed by the token pipeline")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        train_launches = training_phase(args.seed, d)
+    log(f"      launches {train_launches}")
+
     # phase 10
-    kernels = []
-    for name, kern in ops.KERNELS.items():
-        path, stack = records[name]["cases"][0], records[name]["cases"][1]
-        size = ({"shape": path["shape"], "stack_shape": stack["shape"]} if "shape" in path
-                else {"blocks": path["blocks"], "stack_blocks": stack["blocks"]})
-        kernels.append({
-            "name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
-            "launches": sum(launches[o][name] + batched_launches[o][name]
-                            + offload_launches[o][name] + service_launches[o][name]
-                            + fabric_launches[o][name]
-                            for o in launches) + lm_launches[name],
-            "max_abs_err": records[name]["max_abs_err"],
-            "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
-            "bound_by": path["bound_by"], "library_ms": path["library_ms"], **size,
-            "stack_ms": stack["ms"], "stack_plain_ms": stack["plain_ms"],
-            "stack_bound_ms": stack["bound_ms"], "stack_library_ms": stack["library_ms"],
-            "launches_by_order": {o: launches[o][name] for o in launches},
-            "launches_batched_pushdown_by_order": {o: batched_launches[o][name]
-                                                   for o in batched_launches},
-            "launches_offload_by_order": {o: offload_launches[o][name] for o in offload_launches},
-            "launches_service_by_order": {o: service_launches[o][name] for o in service_launches},
-            "launches_fabric_by_order": {o: fabric_launches[o][name] for o in fabric_launches},
-            "launches_lm": lm_launches[name],
-        })
-        if name == "flash_attention":
-            kernels[-1].update(
-                library="torch.nn.functional.scaled_dot_product_attention "
-                "(is_causal, enable_gqa; a yardstick, never called by the port)",
-                sources=flash_attention.SOURCES,
-                launches_by_route=records[name]["launches_by_route"],
-                cases=[{k: c[k] for k in ("label", "shape", "route", "ms", "bound_ms", "share",
-                                          "library_ms", "over_library")}
-                       for c in records[name]["cases"]])
-        elif path["stage_ms"] is not None:
-            kernels[-1].update(library="torch.masked_select (yardstick of the _compact stage)",
-                               stage_ms=path["stage_ms"], stack_stage_ms=stack["stage_ms"])
-        elif name == "grouped_agg":
-            kernels[-1].update(library="Tensor.scatter_add of the s0 plane alone")
-        elif name == "dict_decode":
-            kernels[-1].update(
-                library="torch.take of the unpacked, clipped codes (the lookup half alone)",
-                variant="__ldg lookups in place, no fill; 512 threads a block, 8 rows a thread")
-        elif name == "dict_decode_batch":
-            kernels[-1].update(
-                library="torch.take of the flattened (P, Dmax) dictionaries at page * Dmax + "
-                "the clipped code (the lookup half alone; a yardstick, never called by the port)",
-                variant="dict_decode's walk, each CTA taking a run of consecutive blocks, "
-                "each block's page and size loaded ahead, __ldg lookups; 128 threads a block "
-                "(a thread a lane) where Dmax <= 32, 512 (8 rows a thread) above")
-        elif name in ("fused_scan", "fused_scan_batch"):
-            kernels[-1].update(
-                variant="grid-stride walk: 512 threads a block, 8 rows a thread, the mask "
-                "staged in shared memory and written 8 contiguous bytes a thread")
+    kernels = kernels_line(records, {
+        "launches_by_order": launches, "launches_batched_pushdown_by_order": batched_launches,
+        "launches_offload_by_order": offload_launches,
+        "launches_service_by_order": service_launches,
+        "launches_fabric_by_order": fabric_launches,
+    }, {"launches_lm": lm_launches, "launches_train": train_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the query, batched, offload, service, "
-                             f"fabric or LM paths: {idle}")
+                             f"fabric, LM or training paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """repro_torch: the PyTorch/CUDA port of the datapath offload engine and of
-its LM consumer's serving path.
+its LM consumer's serving and training paths.
 
 Laid out module for module like `repro` (the JAX/Pallas reference), whose
 counterpart each module names.  It imports torch and numpy, never jax and

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 VOCAB_PAD = 2048  # embedding tables padded so 'vocab' always TP-shards
 
 # the ROADMAP.md section A item that the NotImplementedError messages name
-LM_REST = "A.5 LM consumer: training and the MoE, SSM, hybrid, enc-dec and VLM families"
+LM_REST = "A.5b LM consumer: the MoE, SSM, hybrid, enc-dec and VLM families"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

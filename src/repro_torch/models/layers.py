@@ -1,13 +1,15 @@
 """Shared model layers: norms, rotary, GQA attention, GLU MLPs, embeddings.
 
 Port of `repro/models/layers.py` (its `rmsnorm`, `rotary`, `attention`,
-`glu_mlp`, `embed_lookup` and `lm_head_logits`) in plain PyTorch, with the
-reference's (B, S, H, hd) layout.  Attention keeps the reference's q-chunked
-form, which caps the live score tensor at (B, H, chunk, Skv), and its rule
-for a length that the chunk does not divide; the chunks run in a Python loop
-where the reference scans.  Only the one-device case ("none" parallelism)
-is ported: under a mesh `constrain` raises.  `softmax_xent` waits for
-training (ROADMAP.md item A.5).
+`glu_mlp`, `embed_lookup`, `lm_head_logits` and `softmax_xent`) in plain
+PyTorch, with the reference's (B, S, H, hd) layout.  Attention keeps the
+reference's q-chunked form, which caps the live score tensor at
+(B, H, chunk, Skv), and its rule for a length that the chunk does not
+divide; the chunks run in a Python loop where the reference scans.  Only
+the one-device case ("none" parallelism) is ported: under a mesh
+`constrain` raises.  Training differentiates these plain operations with
+autograd, as the reference differentiates its `jnp` code with
+`jax.value_and_grad`.
 """
 
 from __future__ import annotations
@@ -136,9 +138,11 @@ def glu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tenso
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,
                  scale: bool = False) -> torch.Tensor:
     """Rows of `embed` for `tokens`, ids clipped into [0, Vp) as the
-    reference's `mode="clip"` does."""
+    reference's `mode="clip"` does.  Gathered with `F.embedding`, whose
+    CPU backward adds each row's gradients in a fixed order (plain
+    indexing's backward accumulates from threads in any order)."""
     idx = tokens.long().clamp(0, embed.shape[0] - 1)
-    out = embed[idx]
+    out = F.embedding(idx, embed)
     if scale:  # the factor rounded to the table's dtype first, as JAX's weak float is
         out = out * torch.tensor(math.sqrt(embed.shape[1]), dtype=out.dtype, device=out.device)
     return constrain(out, ("batch", None, None), ctx)
@@ -147,3 +151,22 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,
 def lm_head_logits(h: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
     """h (B,S,D) @ w (D,Vp) -> logits (B,S,Vp)."""
     return constrain(h @ w, ("batch", None, "vocab"), ctx)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int,
+                 label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in float32; the padded vocab rows (ids >=
+    vocab_real) take part in the partition at -1e30, as the reference adds
+    its bias, so their gradient is the reference's exp(-1e30 - lse) = 0."""
+    Vp = logits.shape[-1]
+    lf = logits.float()
+    if Vp > vocab_real:
+        pad = torch.arange(Vp, device=lf.device) >= vocab_real
+        lf = lf + torch.where(pad, -1e30, 0.0)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if label_mask is not None:
+        nll = nll * label_mask
+        return torch.sum(nll) / torch.clamp(torch.sum(label_mask), min=1.0)
+    return torch.mean(nll)

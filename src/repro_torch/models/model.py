@@ -1,5 +1,6 @@
-"""Model API: parameter shapes and init, the datapath token unpack, and the
-serving entry points (`prefill`, `decode_step`).
+"""Model API: parameter shapes, dims and init, the datapath token unpack,
+the training entry point (`forward_train`, `loss_fn`) and the serving entry
+points (`prefill`, `decode_step`).
 
 Port of the dense parts of `repro/models/model.py`.  Parameters are plain
 dictionaries with the reference's keys, each layer leaf stacked on a leading
@@ -9,11 +10,12 @@ reference's distributions but torch's generator, so its numbers are not the
 reference's; `params_from_reference` carries the reference's own arrays
 across, which is how the tests compare the two packages leaf for leaf.
 
-Prompts may arrive bit-packed (`{"packed": (B, nb, k, 128)}` words at
-k = ceil(log2 vocab) bits): prefill unpacks them with the `bitunpack` kernel
-(`kernels.ops.bitunpack`) before the embedding, the serving-side datapath
-offload.  Training (`forward_train`, `softmax_xent`) and the other families
-raise `NotImplementedError` naming ROADMAP.md item A.5.
+Batches and prompts may arrive bit-packed (`{"packed": (B, nb, k, 128)}`
+words at k = ceil(log2 vocab) bits): `forward_train` and `prefill` unpack
+them with the `bitunpack` kernel (`kernels.ops.bitunpack`) as their first
+op, the datapath offload as stage 0 of the step.  The backward is autograd
+over the same plain operations (the reference has no custom gradient).  The
+other families raise `NotImplementedError` naming ROADMAP.md item A.5b.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ from repro_torch.distributed.sharding import ShardingCtx, local_ctx
 from repro_torch.kernels import ops
 from repro_torch.lakeformat.encodings import LANES, PACK_BLOCK, bits_needed
 from repro_torch.models.config import LM_REST, ModelConfig, not_ported
-from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm
+from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm, softmax_xent
 from repro_torch.models.transformer import (
     Segment,
     build_segments,
     run_segments_decode,
     run_segments_prefill,
+    run_segments_train,
 )
 
 # ---------------------------------------------------------------------------
@@ -107,6 +110,10 @@ def param_shapes(cfg: ModelConfig):
     shapes["segments"] = seg_shapes
     dims["segments"] = seg_dims
     return shapes, dims
+
+
+def param_dims(cfg: ModelConfig):
+    return param_shapes(cfg)[1]
 
 
 _NORM_KEYS = ("ln1", "ln2", "final_ln", "qn", "kn")
@@ -204,12 +211,40 @@ def _tokens_from_batch(batch, cfg):
 
 
 # ---------------------------------------------------------------------------
-# serving
+# forward / loss
 # ---------------------------------------------------------------------------
 
 
 def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  ctx: Optional[ShardingCtx] = None):
+    """Returns (loss + aux, {"loss", "aux_loss", "tokens"}): the mean
+    next-token cross-entropy of {"tokens": (B, S) int32} or {"packed":
+    (B, nb, k, 128) int32}, labels tokens[:, 1:]."""
+    ctx = ctx or local_ctx()
+    segs = model_segments(cfg)
+    tokens = _tokens_from_batch(batch, cfg)
+    B, S = tokens.shape
+    h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
+    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    h, aux = run_segments_train(params["segments"], segs, h, cfg, ctx, positions)
+    h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = lm_head_logits(h[:, :-1], _head(params, cfg), ctx)
+    loss = softmax_xent(logits, tokens[:, 1:], cfg.vocab)
+    tokens_seen = torch.tensor(B * S, dtype=torch.int32, device=h.device)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": tokens_seen}
+
+
+def loss_fn(params, batch, cfg, ctx=None):
+    return forward_train(params, batch, cfg, ctx)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -245,5 +280,13 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ModelConfig,
     return logits, caches
 
 
-def forward_train(*args, **kwargs):
-    raise not_ported("training (forward_train, softmax_xent)", LM_REST)
+def build_model(cfg: ModelConfig):
+    """Convenience bundle; "init" takes a seed and a device."""
+    return {
+        "init": lambda seed, device="cuda": init_params(cfg, seed, device),
+        "train": lambda p, b, ctx=None: forward_train(p, b, cfg, ctx),
+        "prefill": lambda p, b, ctx=None, cache_len=None: prefill(p, b, cfg, ctx, cache_len),
+        "decode": lambda p, t, c, pos, ctx=None: decode_step(p, t, c, pos, cfg, ctx),
+        "segments": model_segments(cfg),
+        "config": cfg,
+    }

@@ -2,9 +2,13 @@
 
 Port of `repro/models/transformer.py` for the dense family (qwen3, gemma,
 mistral, granite): `Segment`, `build_segments`, the attention and MLP
-sub-blocks and the dense layer's prefill and decode step.  Parameters stay
-stacked on a leading layer axis as in the reference, and a Python loop over
-the layer index takes the place of `lax.scan`.  Caches are per-segment
+sub-blocks and the dense layer's training, prefill and decode step.
+Parameters stay stacked on a leading layer axis as in the reference, and a
+Python loop over the layer index takes the place of `lax.scan`; each layer
+reads views `w[i]` of the stacked leaves, through which autograd carries its
+gradients into the stacked `(L, ...)` parameter.  With `cfg.remat` each
+training layer runs under `torch.utils.checkpoint` (the reference's
+`jax.checkpoint`).  Caches are per-segment
 dictionaries of (L, B, Smax, KV, hd) tensors; the decode step writes its new
 key and value into them in place (the reference returns updated copies),
 which saves a copy of the whole cache per token.  The other layer kinds
@@ -17,6 +21,11 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import LM_REST, ModelConfig, not_ported
@@ -138,6 +147,41 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache):
 def _layer(sp: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     """Layer i's parameters: a view of each stacked leaf."""
     return {k: w[i] for k, w in sp.items()}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`remat_policy="dots"`: keep the outputs of the non-batched matmuls
+    (`aten.mm`: the projections and the MLP, the counterpart of
+    `dots_with_no_batch_dims_saveable`) and recompute the rest, the
+    attention's batched products included."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _train_layer(kind, h, lp, cfg, ctx, positions):
+    h, aux, _ = layer_train(kind, h, lp, cfg, ctx, positions)
+    return h, aux
+
+
+def run_segments_train(params_segs, segs, h, cfg, ctx, positions):
+    """Every layer's forward for training; returns (h, aux), aux the
+    float32 sum of the layers' auxiliary losses (0 for dense layers)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for seg, sp in zip(segs, params_segs):
+        for i in range(seg.count):
+            args = (seg.kind, h, _layer(sp, i), cfg, ctx, positions)
+            if cfg.remat:
+                kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+                h, aux = checkpoint(_train_layer, *args, use_reentrant=False, **kw)
+            else:
+                h, aux = _train_layer(*args)
+            aux_total = aux_total + aux
+    return h, aux_total
 
 
 def run_segments_prefill(params_segs, segs, h, cfg, ctx, positions, cache_len):

@@ -349,9 +349,12 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.datapath.policy, repro_torch.datapath.scheduler, "
         "repro_torch.datapath.service, repro_torch.datapath.fabric, "
         "repro_torch.datapath.catalog, repro_torch.distributed.sharding, "
-        "repro_torch.distributed.fault_tolerance\n"
+        "repro_torch.distributed.fault_tolerance, repro_torch.train.optimizer, "
+        "repro_torch.train.checkpoint, repro_torch.train.loop, repro_torch.data.corpus, "
+        "repro_torch.data.pipeline, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes'"
+        " or m.startswith('ml_dtypes.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
