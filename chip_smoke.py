@@ -189,9 +189,36 @@ T. training at the full width of qwen3-1.7b (bf16, remat, AdamW with
    with the pipeline's cursor, its losses within 1e-3 relative of an
    uninterrupted 6-step run's; (e) 2 layers at float32 (TF32 off), one
    step on the card against the CPU: loss, gradients and parameters;
+M. the decoder-only MoE, SSM and hybrid families at full width, one model at
+   a time, each freed before the next: mamba2-370m, hymba-1.5b and
+   deepseek-moe-16b uncut, llama4-maverick-400b cut from 48 to 2 layers (one
+   moe_pair with all 128 experts at d 5,120 and F 8,192), bf16 parameters
+   from `init_params` with --seed; per family every launch count set to 0
+   before its calls and read after (a) and (b)'s first engine: (a) a
+   4,096-token prompt through `prefill` bit-packed at `token_bits(cfg)` (16,
+   15, 17 and 18 bits) and as tokens, the logits and every cache leaf
+   bit-identical, bitunpack launched once and nothing else; (b) a 4-slot
+   ServeEngine drains prompts of 1,024, 2,048, 3,072 and 4,096 tokens with 16
+   new tokens each (hymba's longer three wrap its 1,024-slot rings), a
+   second engine gives the same tokens, decode at 1,024 agrees with the
+   1,025-token prefill within 2^-5 relative L2 (the decode's history that
+   prefill's own keys and values where the caches hold nothing else; MoE
+   families with every entry within capacity, moe_capacity E, the model's
+   own capacity and the last token's dropped entries printed beside it;
+   where the two paths' bf16 roundings route the last token to other
+   experts, the identity is held in float32 at full width within 1e-3
+   instead, the bf16 numbers printed); prefill ms per request,
+   decode ms per tick, tokens/s, peak device memory and, from
+   torch.profiler, one decode tick's idle share; (c) the config cut to 2
+   layers (hymba's first one global; llama4 with 16 of its 128 experts, since
+   2 layers of 128 at float32 are 74 GB a side) at float32, TF32 off: a
+   256-token prefill and 8 decode steps on the card against the CPU, the
+   logits within 1e-3 and every MoE call's expert ids equal, and on the
+   card decode at 256 against the 257-token prefill within 1e-3, routed
+   alike;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
-   phases 9 and T, must be > 0);
+   phases 9, T and M, must be > 0);
 11. print the device line last.
 """
 
@@ -243,7 +270,7 @@ from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.lakeformat.encodings import bitpack_encode, rle_encode  # noqa: E402
 from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
-from repro_torch.models import layers, model  # noqa: E402
+from repro_torch.models import layers, model, moe  # noqa: E402
 from repro_torch.models.transformer import _proj_qkv  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train.loop import make_train_step, train  # noqa: E402
@@ -2373,11 +2400,293 @@ def training_phase(seed: int, tmpdir: str, device: str = "cuda") -> dict:
     return ops.kernel_launches()
 
 
+# ---------------------------------------------------------------------------
+# phase M: the decoder-only MoE, SSM and hybrid families served at full width
+# ---------------------------------------------------------------------------
+
+# uncut but llama4-maverick-400b: 48 layers of ~800 GB in bf16 cut to 2, one
+# moe_pair (a dense layer, then an MoE layer of all 128 experts at d 5,120
+# and F 8,192), ~18.5 B parameters
+FAMILY_ARCHS = ("mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b")
+FAMILY_LAYERS = {"llama4-maverick-400b": 2}
+FAMILY_PROMPTS = (1024, 2048, 3072, 4096)  # hymba's three longer ones wrap its 1,024-slot rings
+FAMILY_NEW_TOKENS = 16
+FAMILY_SLOTS = 4
+FAMILY_MAX_LEN = 4160
+CHECK_STEPS = 8  # (c): decode steps after the 256-token prefill, card against CPU
+# (c) at float32 is 4 bytes a parameter on each side: llama4's 2 layers of 128
+# experts would be 74 GB, so its (c) keeps 16 of them (top-1 routing over 16)
+CHECK_EXPERTS = {"llama4-maverick-400b": 16}
+
+
+def family_config(arch: str, n_layers: int = None):
+    """The config of `arch` cut to `n_layers` (FAMILY_LAYERS' cut if None);
+    a cut hymba keeps its first layer global, the rest windowed."""
+    cfg = get_config(arch)
+    n = n_layers or FAMILY_LAYERS.get(arch, cfg.n_layers)
+    if n == cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n, global_layers=(0,) if cfg.global_layers else ())
+
+
+class Routing:
+    """Records the expert ids of every `moe.route` call while installed
+    (`with Routing() as ids:`)."""
+
+    def __enter__(self):
+        self.ids, self._route = [], moe.route
+
+        def route(*a, **kw):
+            probs, gates, ids = self._route(*a, **kw)
+            self.ids.append(ids.cpu())
+            return probs, gates, ids
+
+        moe.route = route
+        return self.ids
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+
+def no_drop(cfg):
+    """`cfg` with every (token, expert) entry within capacity: moe_capacity E
+    gives C = N k (`moe._capacity`)."""
+    return dataclasses.replace(cfg, moe_capacity=float(cfg.moe_experts)) if cfg.moe_experts \
+        else cfg
+
+
+def decode_against_prefill(params, cfg, seq: torch.Tensor) -> dict:
+    """Decode at S = len - 1 against the last logits of a prefill of all of
+    `seq`: relative L2 `rel` and max |err| `err`.  The decode's history is
+    that prefill's own caches where they hold only keys and values (dense
+    and MoE layers: position S's slot, the one decode rewrites, is the only
+    one that saw token S), so both sides share every earlier token's
+    numbers; an S-token prefill's where they hold SSM states.  MoE layers
+    make two discrete choices for the last token.  A prefill keeps each
+    expert's first C (token, expert) entries in token order
+    (`moe._capacity`), so its last token is the first an expert over
+    capacity drops, where a one-token decode drops nothing: `dropped` of its
+    `entries`.  And the two paths' roundings can tip a near-tie in the
+    router's top k: `flipped` of the `layers` MoE layers route the token to
+    another set of experts."""
+    S = seq.shape[1] - 1
+    with Routing() as full_ids:
+        l_full, caches = model.prefill(params, {"tokens": seq}, cfg, cache_len=S + 8)
+    if cfg.ssm_heads:
+        _, caches = model.prefill(params, {"tokens": seq[:, :S]}, cfg, cache_len=S + 8)
+    with Routing() as dec_ids:
+        l_dec, _ = model.decode_step(params, seq[:, S:], caches, S, cfg)
+    d = l_dec.float() - l_full.float()
+    out = dict(rel=float(d.norm() / l_full.float().norm()), err=float(d.abs().max()),
+               dropped=0, entries=0, layers=len(full_ids))
+    for layer in full_ids:
+        flat = layer.reshape(-1)
+        C = min(moe._capacity(S + 1, cfg.moe_top_k, cfg.moe_experts, cfg.moe_capacity),
+                flat.numel())
+        for e in layer[0, -1].tolist():
+            out["dropped"] += int((flat == e).sum()) > C
+            out["entries"] += 1
+    out["flipped"] = sum(set(a[0, -1].tolist()) != set(b[0, -1].tolist())
+                         for a, b in zip(full_ids, dec_ids))
+    return out
+
+
+def routing_note(got: dict, capacity: str) -> str:
+    return (f"{capacity}: relative L2 {got['rel']:.3e} (the prefill dropped the last token "
+            f"from {got['dropped']} of its {got['entries']} expert entries; the decode routed it "
+            f"to other experts in {got['flipped']} of {got['layers']} layers)")
+
+
+def family_serving(arch: str, seed: int, device: str = "cuda") -> dict:
+    """Phase M for one family: (a) packed ≡ tokens, (b) a 4-slot engine,
+    decode ≡ prefill and the numbers, (c) card ≡ CPU at float32.  Returns
+    the kernel launches of its window ((a) and (b))."""
+    t_start = time.perf_counter()
+    cfg = family_config(arch)
+    full = get_config(arch)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    cut = ("uncut" if cfg.n_layers == full.n_layers else
+           f"cut from {full.n_layers} to {cfg.n_layers} layers (the uncut model: "
+           f"{full.n_params() / 1e9:.1f} B parameters)")
+    log(f"      {arch} [{cfg.family}], {cut}: segments "
+        f"{[(g.kind, g.count, g.window) for g in model.model_segments(cfg)]}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}; {n_params} parameters in {cfg.dtype} drawn from "
+        f"seed {seed} in {time.perf_counter() - t0:.1f} s")
+
+    # (a) and (b)'s first engine: the counted window
+    k_bits = model.token_bits(cfg)
+    toks = rng.integers(0, cfg.vocab, (1, PACKED_LEN)).astype(np.int64)
+    packed = torch.from_numpy(np.stack([bitpack_encode(toks[0], k_bits)]).view(np.int32))
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)),
+                    max_new_tokens=FAMILY_NEW_TOKENS) for i, n in enumerate(FAMILY_PROMPTS)]
+    ops.reset_kernel_launches()
+    l_packed, c_packed = model.prefill(params, {"packed": packed.to(device)}, cfg)
+    l_tokens, c_tokens = model.prefill(
+        params, {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, n_slots=FAMILY_SLOTS, max_len=FAMILY_MAX_LEN, device=device)
+    for r in reqs:
+        eng.submit(r)
+    ticks = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = eng.step()
+        torch.cuda.synchronize()
+        ticks.append((n, (time.perf_counter() - t) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.kernel_launches()
+    if launches["bitunpack"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"{arch}: launches {launches}, not one bitunpack for the one "
+                             "packed prefill")
+    if not torch.equal(l_packed, l_tokens) or any(
+            not torch.equal(a[k], b[k]) for a, b in zip(c_packed, c_tokens) for k in b):
+        raise AssertionError(f"{arch}: the packed-prompt prefill differs from the tokens prefill")
+    log(f"      (a) {PACKED_LEN}-token prompt packed at k={k_bits} ({packed.numel() * 4} B "
+        f"against {toks.size * 4} B of int32 tokens): logits and every cache leaf "
+        f"({sorted(c_tokens[-1])}) bit-identical to the tokens prefill; launches {launches}")
+    del c_packed, c_tokens
+
+    # (b) every request drained, a second engine gives the same tokens
+    got = {r.rid: r.out for r in reqs}
+    if any(len(o) != FAMILY_NEW_TOKENS for o in got.values()) or len(got) != len(reqs):
+        raise AssertionError(f"{arch}: not every request got {FAMILY_NEW_TOKENS} tokens: "
+                             f"{ {k: len(o) for k, o in got.items()} }")
+    del eng
+    again = ServeEngine(params, cfg, n_slots=FAMILY_SLOTS, max_len=FAMILY_MAX_LEN,
+                        device=device)
+    reqs2 = [Request(rid=r.rid, tokens=r.tokens, max_new_tokens=FAMILY_NEW_TOKENS)
+             for r in reqs]
+    for r in reqs2:
+        again.submit(r)
+    again.step()  # admits all four
+    busy_ms, top, _ = profiled(again.step)
+    again.run_until_drained()
+    if {r.rid: r.out for r in reqs2} != got:
+        raise AssertionError(f"{arch}: a second engine gave other tokens")
+    del again
+    decode_ms = [ms for _, ms in ticks[1:]]
+    tick_ms = sorted(decode_ms)[len(decode_ms) // 2]
+    tokens_per_s = sum(n for n, _ in ticks[1:]) / (sum(decode_ms) / 1e3)
+    S = FAMILY_PROMPTS[0]
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1)).astype(np.int32)).to(device)
+    check = decode_against_prefill(params, no_drop(cfg), seq)
+    compared = f"{cfg.dtype} relative L2 {check['rel']:.3e} (max |err| {check['err']:.4f})"
+    if cfg.moe_experts:
+        compared = (routing_note(decode_against_prefill(params, cfg, seq),
+                                 f"at the model's capacity {cfg.moe_capacity}") + "; "
+                    + routing_note(check, "with every entry within capacity (moe_capacity E)"))
+    if not check["flipped"] and not check["rel"] <= DECODE_REL_TOL:
+        raise AssertionError(f"{arch}: decode at {S} differs from the {S + 1}-token prefill: "
+                             f"{compared} > {DECODE_REL_TOL}")
+    prefill_ms = {}
+    for r in reqs:  # each length ran in the engines already
+        batch = {"tokens": torch.from_numpy(np.asarray(r.tokens, np.int32)[None]).to(device)}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill(params, batch, cfg, cache_len=FAMILY_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms[len(r.tokens)] = round((time.perf_counter() - t) * 1e3, 2)
+    log(f"      (b) {len(reqs)} requests of {list(FAMILY_PROMPTS)} tokens drained on "
+        f"{FAMILY_SLOTS} slots in {len(ticks)} ticks, {FAMILY_NEW_TOKENS} tokens each, a "
+        f"second engine gives the same tokens; decode at {S} against the {S + 1}-token "
+        f"prefill: {compared}, tolerance {DECODE_REL_TOL}"
+        + (" where the decode routes as the prefill" if check["flipped"] else ""))
+    log(f"      (b) prefill_ms per request (cache_len {FAMILY_MAX_LEN}): {prefill_ms}; first "
+        f"tick ({FAMILY_SLOTS} admissions + 1 decode) {ticks[0][1]:.1f} ms; decode_ms per tick "
+        f"(median) {tick_ms:.2f}, tokens/s {tokens_per_s:.1f}; peak device bytes {peak}; one "
+        f"decode tick: busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / tick_ms:.3f} top={top}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if check["flipped"]:
+        # the paths' bf16 roundings tipped the router for the last token, and
+        # each tip moves that token's later layers: hold the identity in
+        # float32 at full width, where roundings are 2^16 times finer
+        t0 = time.perf_counter()
+        cfg32 = dataclasses.replace(no_drop(cfg), dtype="float32")
+        params = model.init_params(cfg32, seed, device=device)
+        f32 = decode_against_prefill(params, cfg32, seq)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if f32["flipped"] or not f32["err"] <= F32_ATOL:
+            raise AssertionError(f"{arch}: float32 decode at {S} differs from the "
+                                 f"{S + 1}-token prefill: {routing_note(f32, 'float32')}")
+        log(f"      (b) float32 at full width, every entry within capacity: decode at {S} "
+            f"against the {S + 1}-token prefill: {routing_note(f32, 'float32')}, max |err| "
+            f"{f32['err']:.3e} (tolerance {F32_ATOL}); {time.perf_counter() - t0:.1f} s")
+
+    # (c) the card against the CPU: 2 layers at float32, prefill and decode steps
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(family_config(arch, CHECK_LAYERS), dtype="float32")
+    if arch in CHECK_EXPERTS:
+        cfg2 = dataclasses.replace(cfg2, moe_experts=min(cfg2.moe_experts, CHECK_EXPERTS[arch]))
+    card = model.init_params(cfg2, seed, device=device)
+    host = tree_map(lambda p: p.to("cpu", copy=True), card)
+    seq = rng.integers(0, cfg.vocab, (1, CHECK_LEN + CHECK_STEPS)).astype(np.int32)
+    sides = {}
+    for side, params in (("card", card), ("cpu", host)):
+        dev = params["embed"].device
+        with Routing() as ids:
+            logits, caches = model.prefill(
+                params, {"tokens": torch.from_numpy(seq[:, :CHECK_LEN]).to(dev)}, cfg2,
+                cache_len=CHECK_LEN + CHECK_STEPS)
+            out = [logits.cpu()]
+            for i in range(CHECK_STEPS):
+                pos = CHECK_LEN + i
+                logits, caches = model.decode_step(
+                    params, torch.from_numpy(seq[:, pos:pos + 1]).to(dev), caches, pos, cfg2)
+                out.append(logits.cpu())
+        sides[side] = (out, ids)
+    (lc, ic), (lh, ih) = sides["card"], sides["cpu"]
+    errs = [float((a - b).abs().max()) for a, b in zip(lc, lh)]
+    if not max(errs) <= F32_ATOL:
+        raise AssertionError(f"{arch}: card differs from the CPU at float32: {errs}")
+    if len(ic) != len(ih) or any(not torch.equal(a, b) for a, b in zip(ic, ih)):
+        raise AssertionError(f"{arch}: the card routes tokens to other experts than the CPU")
+    f32 = decode_against_prefill(card, no_drop(cfg2), torch.from_numpy(
+        seq[:, :CHECK_LEN + 1]).to(device))
+    if f32["flipped"] or not f32["err"] <= F32_ATOL:
+        raise AssertionError(f"{arch}: float32 decode at {CHECK_LEN} differs from the "
+                             f"{CHECK_LEN + 1}-token prefill: {routing_note(f32, 'float32')}")
+    experts = f", {cfg2.moe_experts} experts" if arch in CHECK_EXPERTS else ""
+    log(f"      (c) {CHECK_LAYERS} layers{experts}, float32, a {CHECK_LEN}-token prefill and "
+        f"{CHECK_STEPS} decode steps: card against CPU max |err| of the logits {max(errs):.3e} "
+        f"(tolerance {F32_ATOL}); routing ids equal in {len(ic)} MoE calls; on the card, "
+        f"decode at {CHECK_LEN} against the {CHECK_LEN + 1}-token prefill (every entry within "
+        f"capacity): max |err| {f32['err']:.3e} (tolerance {F32_ATOL}), routed alike in "
+        f"{f32['layers'] - f32['flipped']} of {f32['layers']} MoE layers; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del card, host, sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"      {arch}: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def families_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase M: each family in turn, each model freed before the next.
+    Returns the kernel launches of the families' windows, summed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for arch in FAMILY_ARCHS:
+        for k, n in family_serving(arch, seed, device).items():
+            total[k] += n
+    return total
+
+
 def kernels_line(records: dict, by_order: dict, once: dict) -> list:
     """Phase 10's record of each kernel: phase 3's numbers and its launches,
     summed over every counted window.  `by_order` maps a window's key (its
     name in the record) to its launches by file order, {order: {kernel: n}};
-    `once` a window run once (phases 9 and T) to {kernel: n}."""
+    `once` a window run once (phases 9, T and M) to {kernel: n}."""
     kernels = []
     for name, kern in ops.KERNELS.items():
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
@@ -2565,18 +2874,25 @@ def main(argv=None) -> int:
         train_launches = training_phase(args.seed, d)
     log(f"      launches {train_launches}")
 
+    # phase M
+    t0 = time.perf_counter()
+    log("[M] the decoder-only MoE, SSM and hybrid families served on the card at full width")
+    family_launches = families_phase(args.seed)
+    log(f"      launches {family_launches}; phase M took {time.perf_counter() - t0:.1f} s")
+
     # phase 10
     kernels = kernels_line(records, {
         "launches_by_order": launches, "launches_batched_pushdown_by_order": batched_launches,
         "launches_offload_by_order": offload_launches,
         "launches_service_by_order": service_launches,
         "launches_fabric_by_order": fabric_launches,
-    }, {"launches_lm": lm_launches, "launches_train": train_launches})
+    }, {"launches_lm": lm_launches, "launches_train": train_launches,
+        "launches_families": family_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the query, batched, offload, service, "
-                             f"fabric, LM or training paths: {idle}")
+                             f"fabric, LM, training or families' paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

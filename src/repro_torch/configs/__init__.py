@@ -1,10 +1,10 @@
 """Per-architecture configs (exact assigned numbers) + reduced smoke configs.
 
-A copy of `repro/configs` for the families the port runs: the four dense
-architectures (`PORTED`).  `get_config` / `get_smoke_config` resolve the
-same ids and aliases as the reference and raise `NotImplementedError`,
-naming the ROADMAP.md item, for the families not yet ported (moe, ssm,
-hybrid, audio, vlm).
+A copy of `repro/configs` for the families the port runs (`PORTED`): the
+four dense architectures and the decoder-only MoE, SSM and hybrid ones.
+`get_config` / `get_smoke_config` resolve the same ids and aliases as the
+reference and raise `NotImplementedError`, naming the ROADMAP.md item, for
+the families not yet ported (audio, vlm).
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ ARCH_IDS = [
     "hymba_1_5b",
 ]
 
-# the dense architectures, the only ones with a module here
-PORTED = ("qwen3_1_7b", "gemma_7b", "mistral_large_123b", "granite_3_8b")
+# the architectures with a module here, in ARCH_IDS' order
+PORTED = ("llama4_maverick_400b", "deepseek_moe_16b", "qwen3_1_7b", "gemma_7b",
+          "mistral_large_123b", "granite_3_8b", "mamba2_370m", "hymba_1_5b")
 
 # external ids (as assigned) -> module names
 ALIASES = {

@@ -1,4 +1,4 @@
-"""The LM consumer's models, dense family (port of `repro.models`)."""
+"""The LM consumer's models, the decoder-only families (port of `repro.models`)."""
 
 from repro_torch.models.config import ModelConfig  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401

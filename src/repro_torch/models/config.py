@@ -1,8 +1,9 @@
 """ModelConfig — one dataclass describing every assigned architecture.
 
 A copy of `repro/models/config.py`.  Families: dense | moe | ssm | hybrid |
-audio (enc-dec) | vlm; the port runs the dense family (the others raise
-`NotImplementedError` naming the ROADMAP.md item that brings them).  The
+audio (enc-dec) | vlm; the port runs the decoder-only ones (dense, moe, ssm,
+hybrid); enc-dec and vlm raise `NotImplementedError` naming the ROADMAP.md
+item that brings them.  The
 exact per-arch instantiations live in `repro_torch/configs/<id>.py`.
 """
 
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 VOCAB_PAD = 2048  # embedding tables padded so 'vocab' always TP-shards
 
 # the ROADMAP.md section A item that the NotImplementedError messages name
-LM_REST = "A.5b LM consumer: the MoE, SSM, hybrid, enc-dec and VLM families"
+LM_REST = "A.5b-ii LM consumer: the enc-dec and VLM families"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -2,20 +2,24 @@
 the training entry point (`forward_train`, `loss_fn`) and the serving entry
 points (`prefill`, `decode_step`).
 
-Port of the dense parts of `repro/models/model.py`.  Parameters are plain
+Port of `repro/models/model.py` for the decoder-only families (dense, moe,
+ssm, hybrid).  Parameters are plain
 dictionaries with the reference's keys, each layer leaf stacked on a leading
 layer axis: {"embed", "final_ln", ["lm_head"], "segments": [{leaf: (L, ...)}]}.
 `init_params` draws them on the card (or the CPU) from a seed with the
 reference's distributions but torch's generator, so its numbers are not the
 reference's; `params_from_reference` carries the reference's own arrays
-across, which is how the tests compare the two packages leaf for leaf.
+across, each leaf in its own dtype (the SSM's `A_log` and `dt_bias` are
+float32 in a bfloat16 model), which is how the tests compare the two
+packages leaf for leaf.
 
 Batches and prompts may arrive bit-packed (`{"packed": (B, nb, k, 128)}`
 words at k = ceil(log2 vocab) bits): `forward_train` and `prefill` unpack
 them with the `bitunpack` kernel (`kernels.ops.bitunpack`) as their first
 op, the datapath offload as stage 0 of the step.  The backward is autograd
-over the same plain operations (the reference has no custom gradient).  The
-other families raise `NotImplementedError` naming ROADMAP.md item A.5b.
+over the same plain operations (the reference has no custom gradient); the
+MoE layers' Switch losses join the loss as in the reference.  The enc-dec
+and VLM families raise `NotImplementedError` naming ROADMAP.md item A.5b-ii.
 """
 
 from __future__ import annotations
@@ -44,37 +48,93 @@ from repro_torch.models.transformer import (
 # ---------------------------------------------------------------------------
 
 
-def _attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     s = {
-        "ln1": ((D,), (None,)),
-        "wq": ((D, H * hd), ("d", "heads")),
-        "wk": ((D, KV * hd), ("d", "heads")),
-        "wv": ((D, KV * hd), ("d", "heads")),
-        "wo": ((H * hd, D), ("heads", "d")),
+        prefix + "ln1": ((D,), (None,)),
+        prefix + "wq": ((D, H * hd), ("d", "heads")),
+        prefix + "wk": ((D, KV * hd), ("d", "heads")),
+        prefix + "wv": ((D, KV * hd), ("d", "heads")),
+        prefix + "wo": ((H * hd, D), ("heads", "d")),
     }
     if cfg.qk_norm:
-        s["qn"] = ((hd,), (None,))
-        s["kn"] = ((hd,), (None,))
+        s[prefix + "qn"] = ((hd,), (None,))
+        s[prefix + "kn"] = ((hd,), (None,))
     return s
 
 
-def _mlp_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+def _mlp_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
     D, F = cfg.d_model, cfg.d_ff
     if cfg.act == "gelu":
         raise not_ported("the non-gated 'gelu' MLP", LM_REST)
     return {
-        "ln2": ((D,), (None,)),
-        "wg": ((D, F), ("d", "ff")),
-        "wu": ((D, F), ("d", "ff")),
-        "wo2": ((F, D), ("ff", "d")),
+        prefix + "ln2": ((D,), (None,)),
+        prefix + "wg": ((D, F), ("d", "ff")),
+        prefix + "wu": ((D, F), ("d", "ff")),
+        prefix + "wo2": ((F, D), ("ff", "d")),
     }
 
 
+def _moe_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
+    D, E, F = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    s = {
+        prefix + "ln2": ((D,), (None,)),
+        prefix + "router": ((D, E), ("d", None)),
+        prefix + "e_wg": ((E, D, F), ("experts", None, "fsdp")),
+        prefix + "e_wu": ((E, D, F), ("experts", None, "fsdp")),
+        prefix + "e_wo": ((E, F, D), ("experts", "fsdp", None)),
+    }
+    if cfg.moe_shared:
+        Fs = cfg.moe_shared * F
+        s[prefix + "shared_wg"] = ((D, Fs), ("d", "ff"))
+        s[prefix + "shared_wu"] = ((D, Fs), ("d", "ff"))
+        s[prefix + "shared_wo"] = ((Fs, D), ("ff", "d"))
+    return s
+
+
+def _ssm_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
+    D, di, N, H, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_width
+    cc = di + 2 * N
+    s = {
+        prefix + "in_proj": ((D, 2 * di + 2 * N + H), ("d", "inner")),
+        prefix + "conv_w": ((W, cc), (None, None)),
+        prefix + "conv_b": ((cc,), (None,)),
+        prefix + "A_log": ((H,), (None,)),
+        prefix + "D_skip": ((H,), (None,)),
+        prefix + "dt_bias": ((H,), (None,)),
+        prefix + "norm_y": ((di,), (None,)),
+        prefix + "out_proj": ((di, D), ("inner", "d")),
+    }
+    if prefix == "":
+        s["ln1"] = ((D,), (None,))
+    return s
+
+
 def _layer_shapes(kind: str, cfg: ModelConfig) -> Dict[str, Tuple]:
-    if kind != "dense":
-        raise not_ported(f"the {kind!r} layer", LM_REST)
-    return {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+    D = cfg.d_model
+    if kind == "dense":
+        return {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+    if kind == "moe":
+        return {**_attn_shapes(cfg), **_moe_shapes(cfg)}
+    if kind == "moe_pair":
+        a = {**_attn_shapes(cfg, "a_"), **_mlp_shapes(cfg, "a_")}
+        b = {**_attn_shapes(cfg, "b_"), **_moe_shapes(cfg, "b_")}
+        return {**a, **b}
+    if kind == "ssm":
+        s = _ssm_shapes(cfg)
+        if cfg.d_ff:
+            s.update(_mlp_shapes(cfg))
+        return s
+    if kind == "hybrid":
+        s = {**_attn_shapes(cfg), **_ssm_shapes(cfg, "s_"), **_mlp_shapes(cfg)}
+        s.update({
+            "na": ((D,), (None,)),
+            "ns": ((D,), (None,)),
+            "beta_a": ((D,), (None,)),
+            "beta_s": ((D,), (None,)),
+        })
+        return s
+    raise not_ported(f"the {kind!r} layer", LM_REST)
 
 
 def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
@@ -116,7 +176,8 @@ def param_dims(cfg: ModelConfig):
     return param_shapes(cfg)[1]
 
 
-_NORM_KEYS = ("ln1", "ln2", "final_ln", "qn", "kn")
+_NORM_KEYS = ("ln1", "ln2", "final_ln", "enc_final_ln", "norm_y", "na", "ns",
+              "qn", "kn", "D_skip", "beta_a", "beta_s", "conv_b")
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -126,21 +187,34 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _TORCH_DTYPES[cfg.dtype]
 
 
+def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return u * (hi - lo) + lo
+
+
 def _init_leaf(gen: torch.Generator, name: str, shape, cfg: ModelConfig, device):
-    """The distributions of the reference's `_init_leaf` (`model.py:186-202`):
-    norm weights 1 (0 for gemma's (1 + w) norms), every other leaf normal
-    with std 0.02, or 0.02 / sqrt(2 L) for the output projections, drawn in
-    float32 and rounded to the model's dtype."""
+    """The distributions of the reference's `_init_leaf` (`model.py:186-202`),
+    keyed by the leaf's name less its `a_`/`b_`/`s_`/`x_` prefix: norm
+    weights, `D_skip`, `beta_*` and `conv_b` 1 (0 for gemma's (1 + w)
+    norms); `A_log` log U(1, 16) and `dt_bias` log(expm1(U(1e-3, 0.1))), both
+    float32 whatever the model's dtype; every other leaf normal with std
+    0.02, or 0.02 / sqrt(2 L) for the output projections, drawn in float32
+    and rounded to the model's dtype."""
+    base = name.split("_", 1)[-1] if name[:2] in ("a_", "b_", "s_", "x_") else name
     dt = _dtype(cfg)
-    if name in _NORM_KEYS:
-        if name in ("ln1", "ln2", "final_ln") and cfg.norm_plus_one:
+    if base in _NORM_KEYS or name in _NORM_KEYS:
+        if name.endswith(("ln1", "ln2", "final_ln")) and cfg.norm_plus_one:
             return torch.zeros(shape, dtype=dt, device=device)
         return torch.ones(shape, dtype=dt, device=device)
+    if base == "A_log":
+        return torch.log(_uniform(gen, shape, 1.0, 16.0, device))
+    if base == "dt_bias":
+        return torch.log(torch.expm1(_uniform(gen, shape, 1e-3, 0.1, device)))
     std = 0.02
-    if name in ("wo", "wo2"):
+    if base in ("wo", "wo2", "w2", "out_proj", "shared_wo"):
         std = 0.02 / math.sqrt(2 * cfg.n_layers)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * std).to(dt)
+    return w.mul_(std).to(dt)  # in place: an expert stack's float32 draw is 21 GB
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda"):

@@ -1,18 +1,28 @@
-"""Architecture assembly: segments of stacked layers (the dense kind).
+"""Architecture assembly: segments of stacked layers.
 
-Port of `repro/models/transformer.py` for the dense family (qwen3, gemma,
-mistral, granite): `Segment`, `build_segments`, the attention and MLP
-sub-blocks and the dense layer's training, prefill and decode step.
+Port of `repro/models/transformer.py` for the decoder-only families:
+`Segment`, `build_segments`, the attention, MLP and MoE sub-blocks, and the
+training, prefill and decode step of the layer kinds
+
+  dense     attn + GLU-MLP                      (qwen3/gemma/mistral/granite)
+  moe       attn + routed-expert FFN            (deepseek-moe tail)
+  moe_pair  dense layer then MoE layer          (llama4 interleaved stack)
+  ssm       Mamba2 SSD block                    (mamba2)
+  hybrid    parallel attn + SSM heads, then MLP (hymba; window/global per segment)
+
 Parameters stay stacked on a leading layer axis as in the reference, and a
 Python loop over the layer index takes the place of `lax.scan`; each layer
 reads views `w[i]` of the stacked leaves, through which autograd carries its
 gradients into the stacked `(L, ...)` parameter.  With `cfg.remat` each
 training layer runs under `torch.utils.checkpoint` (the reference's
-`jax.checkpoint`).  Caches are per-segment
-dictionaries of (L, B, Smax, KV, hd) tensors; the decode step writes its new
-key and value into them in place (the reference returns updated copies),
-which saves a copy of the whole cache per token.  The other layer kinds
-raise `NotImplementedError` naming the ROADMAP.md item that brings them.
+`jax.checkpoint`).  Caches are per-segment dictionaries of (L, B, ...)
+tensors: keys and values (L, B, Smax, KV, hd), the SSM's conv history
+(L, B, W-1, di+2N) and float32 state (L, B, H, P, N).  Sliding-window
+segments keep ring buffers of `window` slots (token t at slot t % window).
+The decode step writes its caches in place (the reference returns updated
+copies), which saves a copy of every cache per token.  The enc-dec kinds
+(`enc`, `decx`) and the non-gated MLP raise `NotImplementedError` naming
+the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from torch.utils.checkpoint import (
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import LM_REST, ModelConfig, not_ported
 from repro_torch.models.layers import attention, glu_mlp, rmsnorm, rotary
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import ssm_decode_step, ssm_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +52,29 @@ class Segment:
 
 
 def build_segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.family != "dense" or cfg.moe_experts:
+    if cfg.family == "ssm":
+        return [Segment("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        segs: List[Segment] = []
+        prev = 0
+        for g in sorted(set(cfg.global_layers)):
+            if g > prev:
+                segs.append(Segment("hybrid", g - prev, window=cfg.window))
+            segs.append(Segment("hybrid", 1, window=None))
+            prev = g + 1
+        if prev < cfg.n_layers:
+            segs.append(Segment("hybrid", cfg.n_layers - prev, window=cfg.window))
+        return segs
+    if cfg.moe_experts:
+        segs = []
+        if cfg.moe_first_dense:
+            segs.append(Segment("dense", cfg.moe_first_dense))
+        if cfg.moe_period == 2:
+            segs.append(Segment("moe_pair", (cfg.n_layers - cfg.moe_first_dense) // 2))
+        else:
+            segs.append(Segment("moe", cfg.n_layers - cfg.moe_first_dense))
+        return segs
+    if cfg.family != "dense":
         raise not_ported(f"the {cfg.family!r} family", LM_REST)
     return [Segment("dense", cfg.n_layers)]
 
@@ -50,93 +84,195 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
-def _proj_qkv(x, p, cfg: ModelConfig, positions, ctx):
+def _proj_qkv(x, p, cfg: ModelConfig, positions, ctx, prefix=""):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = (x @ p[prefix + "wq"]).reshape(B, S, H, hd)
+    k = (x @ p[prefix + "wk"]).reshape(B, S, KV, hd)
+    v = (x @ p[prefix + "wv"]).reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["qn"], cfg.norm_eps)
-        k = rmsnorm(k, p["kn"], cfg.norm_eps)
+        q = rmsnorm(q, p[prefix + "qn"], cfg.norm_eps)
+        k = rmsnorm(k, p[prefix + "kn"], cfg.norm_eps)
     if positions is not None:
         q = rotary(q, positions, cfg.rope_theta)
         k = rotary(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attn_train(h, p, cfg, ctx, positions):
+def attn_train(h, p, cfg, ctx, positions, *, window=None, prefix=""):
     """Causal self-attention over the whole sequence; returns (h, (k, v))."""
-    x = rmsnorm(h, p["ln1"], cfg.norm_eps, cfg.norm_plus_one)
-    q, k, v = _proj_qkv(x, p, cfg, positions, ctx)
-    o = attention(q, k, v, ctx, causal=True, scale=cfg.attn_scale, chunk=cfg.attn_block)
+    x = rmsnorm(h, p[prefix + "ln1"], cfg.norm_eps, cfg.norm_plus_one)
+    q, k, v = _proj_qkv(x, p, cfg, positions, ctx, prefix)
+    o = attention(q, k, v, ctx, causal=True, window=window, scale=cfg.attn_scale,
+                  chunk=cfg.attn_block)
     B, S = h.shape[:2]
-    out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p[prefix + "wo"]
     return h + constrain(out, ("batch", None, None), ctx), (k, v)
 
 
-def attn_decode(h, p, cfg, ctx, pos: int, kcache, vcache):
-    """h (B,1,D); kcache/vcache (B,Smax,KV,hd), written in place at `pos`
-    (clamped into the cache as `dynamic_update_slice` clamps it)."""
-    B = h.shape[0]
-    x = rmsnorm(h, p["ln1"], cfg.norm_eps, cfg.norm_plus_one)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
-    q, k, v = _proj_qkv(x, p, cfg, positions, ctx)
+def _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos: int, ring: bool):
+    """Write one step's k, v (B,1,KV,hd) into the caches in place and attend
+    over them: at `pos % Smax` with min(pos + 1, Smax) valid slots for a
+    ring, else at `pos` (clamped into the cache as `dynamic_update_slice`
+    clamps it) with pos + 1."""
     Smax = kcache.shape[1]
-    write_at = min(max(pos, 0), Smax - 1)
+    write_at = pos % Smax if ring else min(max(pos, 0), Smax - 1)
     kcache[:, write_at] = k[:, 0].to(kcache.dtype)
     vcache[:, write_at] = v[:, 0].to(vcache.dtype)
-    o = attention(q, kcache, vcache, ctx, causal=False, scale=cfg.attn_scale,
-                  kv_valid_len=pos + 1)
-    out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    valid = min(pos + 1, Smax) if ring else pos + 1
+    return attention(q, kcache, vcache, ctx, causal=False, scale=cfg.attn_scale,
+                     kv_valid_len=valid)
+
+
+def attn_decode(h, p, cfg, ctx, pos: int, kcache, vcache, *, prefix=""):
+    """h (B,1,D); kcache/vcache (B,Smax,KV,hd), written in place."""
+    B = h.shape[0]
+    x = rmsnorm(h, p[prefix + "ln1"], cfg.norm_eps, cfg.norm_plus_one)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    q, k, v = _proj_qkv(x, p, cfg, positions, ctx, prefix)
+    o = _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos, ring=False)
+    out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p[prefix + "wo"]
     return h + out, kcache, vcache
 
 
-def mlp_block(h, p, cfg, ctx):
-    x = rmsnorm(h, p["ln2"], cfg.norm_eps, cfg.norm_plus_one)
+def mlp_block(h, p, cfg, ctx, prefix=""):
+    x = rmsnorm(h, p[prefix + "ln2"], cfg.norm_eps, cfg.norm_plus_one)
     if cfg.act not in ("swiglu", "geglu"):
         raise not_ported(f"the {cfg.act!r} MLP", LM_REST)
-    y = glu_mlp(x, p["wg"], p["wu"], p["wo2"], cfg.act, ctx)
+    y = glu_mlp(x, p[prefix + "wg"], p[prefix + "wu"], p[prefix + "wo2"], cfg.act, ctx)
     return h + y
 
 
+def moe_block(h, p, cfg, ctx):
+    x = rmsnorm(h, p["ln2"], cfg.norm_eps, cfg.norm_plus_one)
+    y, aux = moe_ffn(x, p, cfg, ctx)
+    return h + y, aux
+
+
+def _hybrid_mix(h, attn_out, y, lp, cfg, ctx):
+    mix = 0.5 * (rmsnorm(attn_out, lp["na"], cfg.norm_eps) * lp["beta_a"]
+                 + rmsnorm(y, lp["ns"], cfg.norm_eps) * lp["beta_s"])
+    return h + constrain(mix.to(h.dtype), ("batch", None, None), ctx)
+
+
 # ---------------------------------------------------------------------------
-# per-kind layer application (prefill / decode)
+# per-kind layer application (train / prefill / decode)
 # ---------------------------------------------------------------------------
 
 
-def layer_train(kind: str, h, lp, cfg, ctx, positions, want_cache: bool = False,
+def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, want_cache: bool = False,
                 cache_len: Optional[int] = None):
-    """Returns (h, aux, cache_entry); aux is 0 for a dense layer."""
-    if kind != "dense":
-        raise not_ported(f"the {kind!r} layer", LM_REST)
+    """Returns (h, aux, cache_entry); aux is 0 but for MoE layers."""
+    aux = 0.0
     cache: Dict[str, Any] = {}
-    h, (k, v) = attn_train(h, lp, cfg, ctx, positions)
-    if want_cache:
-        cache = {"k": _to_cache(k, cache_len), "v": _to_cache(v, cache_len)}
-    h = mlp_block(h, lp, cfg, ctx)
-    return h, 0.0, cache
+    if kind in ("dense", "moe"):
+        h, (k, v) = attn_train(h, lp, cfg, ctx, positions)
+        if want_cache:
+            cache = {"k": _to_cache(k, cache_len), "v": _to_cache(v, cache_len)}
+        if kind == "dense":
+            h = mlp_block(h, lp, cfg, ctx)
+        else:
+            h, aux = moe_block(h, lp, cfg, ctx)
+    elif kind == "moe_pair":
+        h, (k1, v1) = attn_train(h, lp, cfg, ctx, positions, prefix="a_")
+        h = mlp_block(h, lp, cfg, ctx, prefix="a_")
+        h, (k2, v2) = attn_train(h, lp, cfg, ctx, positions, prefix="b_")
+        h, aux = moe_block(h, _sub(lp, "b_"), cfg, ctx)
+        if want_cache:
+            cache = {"k": _to_cache(k1, cache_len), "v": _to_cache(v1, cache_len),
+                     "k2": _to_cache(k2, cache_len), "v2": _to_cache(v2, cache_len)}
+    elif kind == "ssm":
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        if want_cache:
+            y, (cs, ss) = ssm_forward(x, lp, cfg, ctx, return_state=True)
+            cache = {"conv": cs, "state": ss}
+        else:
+            y = ssm_forward(x, lp, cfg, ctx)
+        h = h + y
+        h = mlp_block(h, lp, cfg, ctx) if cfg.d_ff else h
+    elif kind == "hybrid":
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = _proj_qkv(x, lp, cfg, positions, ctx)
+        o = attention(q, k, v, ctx, causal=True, window=window, scale=cfg.attn_scale,
+                      chunk=cfg.attn_block)
+        B, S = h.shape[:2]
+        attn_out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+        if want_cache:
+            y, (cs, ss) = ssm_forward(x, _sub(lp, "s_"), cfg, ctx, return_state=True)
+            clen = window if window is not None else cache_len
+            ring = window is not None
+            cache = {"k": _to_cache(k, clen, ring=ring), "v": _to_cache(v, clen, ring=ring),
+                     "conv": cs, "state": ss}
+        else:
+            y = ssm_forward(x, _sub(lp, "s_"), cfg, ctx)
+        h = _hybrid_mix(h, attn_out, y, lp, cfg, ctx)
+        h = mlp_block(h, lp, cfg, ctx)
+    else:
+        raise not_ported(f"the {kind!r} layer", LM_REST)
+    return h, aux, cache
 
 
-def _to_cache(k: torch.Tensor, cache_len: Optional[int]) -> torch.Tensor:
+def _to_cache(k: torch.Tensor, cache_len: Optional[int], ring: bool = False) -> torch.Tensor:
     """Pad with zeros, or keep the last `cache_len` positions of, a
-    (B,S,KV,hd) tensor.  (Ring caches of sliding-window layers come with the
-    hybrid family.)"""
+    (B,S,KV,hd) tensor.  Ring caches place token t at slot t % W, so a
+    trimmed window is rolled into ring phase before handoff to decode."""
     S = k.shape[1]
-    if cache_len is None or S == cache_len:
+    if cache_len is None or S == cache_len and not (ring and S > cache_len):
         return k
     if S < cache_len:
         return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cache_len - S))
-    return k[:, S - cache_len:]
+    trimmed = k[:, S - cache_len:]
+    if ring:
+        trimmed = torch.roll(trimmed, S % cache_len, dims=1)
+    return trimmed
 
 
-def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache):
+def _sub(lp: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in lp.items() if k.startswith(prefix)}
+
+
+def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
     """One-token step.  Returns (h, cache) with the cache updated in place."""
-    if kind != "dense":
-        raise not_ported(f"the {kind!r} layer", LM_REST)
-    h, kc, vc = attn_decode(h, lp, cfg, ctx, pos, cache["k"], cache["v"])
-    h = mlp_block(h, lp, cfg, ctx)
-    return h, {"k": kc, "v": vc}
+    if kind in ("dense", "moe"):
+        h, kc, vc = attn_decode(h, lp, cfg, ctx, pos, cache["k"], cache["v"])
+        if kind == "dense":
+            h = mlp_block(h, lp, cfg, ctx)
+        else:
+            h, _ = moe_block(h, lp, cfg, ctx)
+        return h, {"k": kc, "v": vc}
+    if kind == "moe_pair":
+        h, kc1, vc1 = attn_decode(h, lp, cfg, ctx, pos, cache["k"], cache["v"], prefix="a_")
+        h = mlp_block(h, lp, cfg, ctx, prefix="a_")
+        h, kc2, vc2 = attn_decode(h, lp, cfg, ctx, pos, cache["k2"], cache["v2"], prefix="b_")
+        h, _ = moe_block(h, _sub(lp, "b_"), cfg, ctx)
+        return h, {"k": kc1, "v": vc1, "k2": kc2, "v2": vc2}
+    if kind == "ssm":
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        y, states = ssm_decode_step(x, lp, cfg, ctx, cache["conv"], cache["state"])
+        _store(cache, states)
+        h = h + y
+        h = mlp_block(h, lp, cfg, ctx) if cfg.d_ff else h
+        return h, cache
+    if kind == "hybrid":
+        x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        B = h.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+        q, k, v = _proj_qkv(x, lp, cfg, positions, ctx)
+        o = _cached_attention(q, k, v, cache["k"], cache["v"], cfg, ctx, pos,
+                              ring=window is not None)
+        attn_out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+        y, states = ssm_decode_step(x, _sub(lp, "s_"), cfg, ctx, cache["conv"], cache["state"])
+        _store(cache, states)
+        h = _hybrid_mix(h, attn_out, y, lp, cfg, ctx)
+        h = mlp_block(h, lp, cfg, ctx)
+        return h, cache
+    raise not_ported(f"the {kind!r} layer", LM_REST)
+
+
+def _store(cache, states):
+    """Copy a decode step's new (conv, state) into the cache's own tensors."""
+    cache["conv"].copy_(states[0])
+    cache["state"].copy_(states[1])
 
 
 # ---------------------------------------------------------------------------
@@ -163,18 +299,19 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def _train_layer(kind, h, lp, cfg, ctx, positions):
-    h, aux, _ = layer_train(kind, h, lp, cfg, ctx, positions)
+def _train_layer(kind, h, lp, cfg, ctx, positions, window):
+    h, aux, _ = layer_train(kind, h, lp, cfg, ctx, positions, window=window)
     return h, aux
 
 
 def run_segments_train(params_segs, segs, h, cfg, ctx, positions):
     """Every layer's forward for training; returns (h, aux), aux the
-    float32 sum of the layers' auxiliary losses (0 for dense layers)."""
+    float32 sum of the layers' auxiliary losses (the MoE layers' Switch
+    losses; 0 for the other kinds)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for seg, sp in zip(segs, params_segs):
         for i in range(seg.count):
-            args = (seg.kind, h, _layer(sp, i), cfg, ctx, positions)
+            args = (seg.kind, h, _layer(sp, i), cfg, ctx, positions, seg.window)
             if cfg.remat:
                 kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
                 h, aux = checkpoint(_train_layer, *args, use_reentrant=False, **kw)
@@ -190,7 +327,8 @@ def run_segments_prefill(params_segs, segs, h, cfg, ctx, positions, cache_len):
         entries = []
         for i in range(seg.count):
             h, _, cache = layer_train(seg.kind, h, _layer(sp, i), cfg, ctx, positions,
-                                      want_cache=True, cache_len=cache_len)
+                                      window=seg.window, want_cache=True,
+                                      cache_len=cache_len)
             entries.append(cache)
         caches.append({k: torch.stack([e[k] for e in entries]) for k in entries[0]})
     return h, caches
@@ -200,5 +338,5 @@ def run_segments_decode(params_segs, segs, h, cfg, ctx, pos: int, caches):
     for seg, sp, sc in zip(segs, params_segs, caches):
         for i in range(seg.count):
             h, _ = layer_decode(seg.kind, h, _layer(sp, i), cfg, ctx, pos,
-                                {k: c[i] for k, c in sc.items()})
+                                {k: c[i] for k, c in sc.items()}, window=seg.window)
     return h, caches

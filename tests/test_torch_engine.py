@@ -351,7 +351,10 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.datapath.catalog, repro_torch.distributed.sharding, "
         "repro_torch.distributed.fault_tolerance, repro_torch.train.optimizer, "
         "repro_torch.train.checkpoint, repro_torch.train.loop, repro_torch.data.corpus, "
-        "repro_torch.data.pipeline, repro_torch.launch.train\n"
+        "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.models.moe, "
+        "repro_torch.models.ssm, repro_torch.configs.mamba2_370m, "
+        "repro_torch.configs.hymba_1_5b, repro_torch.configs.deepseek_moe_16b, "
+        "repro_torch.configs.llama4_maverick_400b\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes'"
         " or m.startswith('ml_dtypes.'))\n"

@@ -28,13 +28,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+import os
 
 import pytest
 import torch
 
 from repro.core import tpch as jtpch
 from repro_torch.datapath import costmodel as tcostmodel
-from repro_torch.distributed.sharding import rg_key
+from repro_torch.distributed.sharding import HashRing, rg_key
+from repro_torch.lakeformat.reader import LakeReader
 from repro_torch.kernels import build, ops
 from tests.test_torch_service import (  # noqa: F401 (trace_hooks: autouse)
     J, T, _diff, same_result, same_rows, same_telemetry, trace_hooks)
@@ -46,10 +49,34 @@ RG_ROWS = 2048
 TICK_BYTES = 1 << 14
 
 
+def scale_out_steals(path: str, n_rgs: int) -> bool:
+    """Whether the pod that `_scale_out` adds to a 2-pod fleet owns one of
+    the file's row groups.  The ring hashes `rg_key(path, rg)`, which holds
+    the file's absolute path, so where the tables lie decides it: for ~0.3%
+    of directories the added pod owns none of lineitem's 15 row groups and
+    has nothing to pull from its siblings."""
+    ring = HashRing(["pod0", "pod1"])
+    ring.add_node("pod2")
+    return any(ring.owner(rg_key(path, rg)) == "pod2" for rg in range(n_rgs))
+
+
+def write_lakes(base: str) -> dict:
+    """The seed-0 tables in the first `base/tpch<i>` whose lineitem gives
+    `_scale_out`'s new pod row groups (written once, then renamed)."""
+    first = os.path.join(base, "tpch0")
+    paths = jtpch.write_tables(first, sf=0.05, seed=0, row_group_size=RG_ROWS)
+    n_rgs = LakeReader(paths["lineitem"]).n_row_groups
+    for i in itertools.count():
+        d = os.path.join(base, f"tpch{i}")
+        if scale_out_steals(os.path.join(d, "lineitem.lake"), n_rgs):
+            if d != first:
+                os.rename(first, d)
+            return {k: os.path.join(d, os.path.basename(p)) for k, p in paths.items()}
+
+
 @pytest.fixture(scope="module")
 def lakes(tmp_path_factory):
-    d = tmp_path_factory.mktemp("tpch_fabric")
-    return jtpch.write_tables(str(d), sf=0.05, seed=0, row_group_size=RG_ROWS)
+    return write_lakes(str(tmp_path_factory.mktemp("tpch_fabric")))
 
 
 @functools.lru_cache(maxsize=None)
@@ -425,6 +452,21 @@ def test_peer_hit_aliases_the_siblings_tensor(lakes):
         if isinstance(v, torch.Tensor):
             assert torch.equal(v, kept[id(v)])
         assert (s.used, len(s._entries)) == before[id(s)]
+
+
+def test_scale_out_peer_fetches_wherever_the_tables_lie(tmp_path):
+    """Tables whose default directory routes none of lineitem's row groups
+    to the added pod: `write_lakes` places them where it owns some, and the
+    scale-out then takes peer hits (both tests above failed in a run whose
+    temporary directory was such a one)."""
+    base = next(str(tmp_path / f"b{i}") for i in itertools.count()
+                if not scale_out_steals(str(tmp_path / f"b{i}" / "tpch0" / "lineitem.lake"), 15))
+    lk = write_lakes(base)
+    assert LakeReader(lk["lineitem"]).n_row_groups == 15
+    assert os.path.dirname(lk["lineitem"]) != os.path.join(base, "tpch0")
+    fab, _, new_pid = _scale_out(T, lk)
+    store = fab.pods[new_pid].store
+    assert store.peer_hits > 0 and store.peer_hit_bytes > 0
 
 
 def test_fabric_peer_fetch_disabled_is_isolated(lakes):

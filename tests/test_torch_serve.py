@@ -2,7 +2,11 @@
 granite smoke config at float32 (converted parameters, the requests of
 tests/test_serve.py): the same tokens per request and the same number of
 ticks; then drain semantics and greedy determinism as tests/test_serve.py
-checks them, and the engine's device rules."""
+checks them, and the engine's device rules.  The same comparison on the
+mamba2, hymba, deepseek-moe and llama4 smoke configs (hymba's prompts and
+new tokens run its 32-slot rings past their wrap), and the batched cache
+that the first admission builds: the SSM's float32 state and the rings
+spliced slot by slot."""
 
 import dataclasses
 
@@ -16,6 +20,7 @@ from repro.models.model import init_params as jinit_params
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import get_smoke_config
+from repro_torch.models import model
 from repro_torch.models.model import params_from_reference
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -96,3 +101,56 @@ def test_engine_device_rules(served):
     meta = {**params, "embed": params["embed"].to("meta")}
     with pytest.raises(RuntimeError, match="parameters lie on meta"):
         ServeEngine(meta, cfg, device="cpu")
+
+
+FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b"]
+
+
+def _family(arch, dtype="float32"):
+    cfg_j = dataclasses.replace(jget_smoke(arch), dtype=dtype)
+    cfg_t = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    params_j = jinit_params(cfg_j, jax.random.PRNGKey(1))
+    return cfg_j, cfg_t, params_j, params_from_reference(jax.tree.map(np.asarray, params_j),
+                                                         device="cpu")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_same_tokens_and_ticks_as_reference(arch):
+    """Five requests of 20-44 tokens, 12 new tokens each, on 3 slots of 96:
+    token for token and tick for tick the JAX engine's."""
+    cfg_j, cfg_t, params_j, params_t = _family(arch)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg_j.vocab, (20 + 6 * i,)) for i in range(5)]
+    ref = JServeEngine(params_j, cfg_j, n_slots=3, max_len=96)
+    port = ServeEngine(params_t, cfg_t, n_slots=3, max_len=96, device="cpu")
+    for eng, req in ((ref, JRequest), (port, Request)):
+        for i, p in enumerate(prompts):
+            eng.submit(req(rid=i, tokens=p, max_new_tokens=12))
+    want = {r.rid: r.out for r in ref.run_until_drained()}
+    got = {r.rid: r.out for r in port.run_until_drained()}
+    assert got == want and len(got) == 5
+    assert port.steps == ref.steps
+
+
+def test_batched_cache_keeps_each_leafs_dtype_and_ring():
+    """hymba smoke in bfloat16: the first admission's cache defines the
+    batched one, whose SSM state stays float32 and whose windowed segments
+    hold `window`-slot rings; each admission writes its own slot with the
+    single prefill's cache and leaves the others."""
+    _, cfg, _, params = _family("hymba-1.5b", "bfloat16")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in (40, 9)]
+    eng = ServeEngine(params, cfg, n_slots=3, max_len=64, device="cpu")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=4))
+    eng._admit()
+    segs = model.model_segments(cfg)
+    for seg, c in zip(segs, eng.caches):
+        assert c["state"].dtype == torch.float32 and c["k"].dtype == torch.bfloat16
+        assert c["k"].shape[:3] == (seg.count, 3, seg.window or 64)
+    for slot, p in enumerate(prompts):
+        _, one = model.prefill(params, {"tokens": torch.from_numpy(p.astype(np.int32))[None]},
+                               cfg, cache_len=64)
+        for b, s in zip(eng.caches, one):
+            assert all(torch.equal(b[k][:, slot:slot + 1], s[k]) for k in s)
+    assert all(not c[k][:, 2].any() for c in eng.caches for k in c)  # slot 2 never admitted
