@@ -216,9 +216,43 @@ M. the decoder-only MoE, SSM and hybrid families at full width, one model at
    logits within 1e-3 and every MoE call's expert ids equal, and on the
    card decode at 256 against the 257-token prefill within 1e-3, routed
    alike;
+E. the enc-dec and VLM families at full width, one model at a time, each
+   freed before the next: whisper-base uncut (6 encoder and 6 decoder
+   layers, d 512, 8 heads of 64, gelu d_ff 2,048, vocab 51,865 padded to
+   53,248, 1,500 encoder frames) and llava-next-34b cut from 60 to 30 layers
+   at full width (d 7,168, 56 heads with 8 kv heads of 128, d_ff 20,480,
+   vocab 64,000 padded to 65,536, 576 vision tokens; 60 layers are 68.9 GB
+   of bf16 weights, and init_params draws each stacked leaf whole in
+   float32), bf16 parameters from `init_params` with --seed; per model every
+   launch count set to 0 before its calls and read after them: (a) a
+   4,096-token prompt through `prefill` bit-packed at `token_bits(cfg)` (16)
+   and as tokens (whisper over 1,500 random frames), the logits and every
+   cache leaf (ck/cv included) bit-identical, bitunpack launched once and
+   nothing else in the whole window; llava's prefill with random (1, 576,
+   7,168) vision embeddings gives the same logits bit for bit, as the
+   reference's does; (b) a 4-slot ServeEngine drains prompts of 64, 192,
+   320 and 448 tokens with 32 new tokens each on 512-slot caches (whisper)
+   or phase M's prompts with 16 (llava), a second engine gives the same
+   tokens, decode at S agrees with the (S+1)-token prefill within 2^-5
+   relative L2 (whisper at 448 over (a)'s frames; llava at 1,024, in
+   float32 at 16 layers of full width within 1e-3, since its bf16 gap
+   compounds past 2^-5 from 16 layers on, printed beside it); prefill
+   ms per request, whisper's encoder ms alone, decode ms per tick, tokens/s,
+   peak device memory and one decode tick's idle share from torch.profiler;
+   (c) at float32, TF32 off, whisper uncut and llava at 2 layers: a
+   256-token prefill (whisper over 1,500 random frames) and 8 decode steps
+   on the card against the CPU, the logits within 1e-3; (d) one training
+   step on the card against the CPU at (c)'s configs (whisper B 2 x 448
+   tokens with frames, llava B 1 x 128 tokens after 576 vision embeddings):
+   phase T (e)'s bounds, the loss, the grad norm and every leaf's gradient
+   (vis_proj and enc_final_ln included; read from the step's first moments,
+   (1 - b1) times the clipped gradients) and parameters; (e) whisper-base
+   trained in bf16 at full width: 4 AdamW steps (tests/test_system.py's
+   OptConfig) on one batch of 8 x 448 tokens with random frames, the losses
+   finite and falling, step ms, tokens/s and peak device memory;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
-   phases 9, T and M, must be > 0);
+   phases 9, T, M and E, must be > 0);
 11. print the device line last.
 """
 
@@ -2455,9 +2489,10 @@ def no_drop(cfg):
         else cfg
 
 
-def decode_against_prefill(params, cfg, seq: torch.Tensor) -> dict:
+def decode_against_prefill(params, cfg, seq: torch.Tensor, extra=None) -> dict:
     """Decode at S = len - 1 against the last logits of a prefill of all of
-    `seq`: relative L2 `rel` and max |err| `err`.  The decode's history is
+    `seq` (with `extra` batch keys, an enc-dec model's frames, in both
+    prefills): relative L2 `rel` and max |err| `err`.  The decode's history is
     that prefill's own caches where they hold only keys and values (dense
     and MoE layers: position S's slot, the one decode rewrites, is the only
     one that saw token S), so both sides share every earlier token's
@@ -2470,10 +2505,12 @@ def decode_against_prefill(params, cfg, seq: torch.Tensor) -> dict:
     router's top k: `flipped` of the `layers` MoE layers route the token to
     another set of experts."""
     S = seq.shape[1] - 1
+    extra = extra or {}
     with Routing() as full_ids:
-        l_full, caches = model.prefill(params, {"tokens": seq}, cfg, cache_len=S + 8)
+        l_full, caches = model.prefill(params, {"tokens": seq, **extra}, cfg, cache_len=S + 8)
     if cfg.ssm_heads:
-        _, caches = model.prefill(params, {"tokens": seq[:, :S]}, cfg, cache_len=S + 8)
+        _, caches = model.prefill(params, {"tokens": seq[:, :S], **extra}, cfg,
+                                  cache_len=S + 8)
     with Routing() as dec_ids:
         l_dec, _ = model.decode_step(params, seq[:, S:], caches, S, cfg)
     d = l_dec.float() - l_full.float()
@@ -2682,11 +2719,356 @@ def families_phase(seed: int, device: str = "cuda") -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase E: the enc-dec and VLM families, served and trained at full width
+# ---------------------------------------------------------------------------
+
+# whisper-base uncut; llava-next-34b cut from 60 to 30 layers at full width:
+# its 60 layers are 68.9 GB of bf16 weights, and init_params draws each
+# stacked leaf whole in float32 (wg alone is 35.2 GB at 60 layers); at 30 the
+# weights are ~35.5 GB and the draw peaks near 53 GB
+EV_ARCHS = ("whisper-base", "llava-next-34b")
+EV_LAYERS = {"llava-next-34b": 30}
+# (b): whisper's text context is 448 tokens; llava takes phase M's prompts
+EV_PROMPTS = {"whisper-base": (64, 192, 320, 448), "llava-next-34b": FAMILY_PROMPTS}
+EV_NEW_TOKENS = {"whisper-base": 32, "llava-next-34b": FAMILY_NEW_TOKENS}
+EV_MAX_LEN = {"whisper-base": 512, "llava-next-34b": FAMILY_MAX_LEN}
+EV_CHECK_AT = {"whisper-base": 448, "llava-next-34b": FAMILY_PROMPTS[0]}  # (b) decode at S
+# (b) decode ≡ prefill for llava is held in float32 at full width and 16
+# layers (30 in float32 would be 71 GB of weights), its bf16 gap printed
+# beside it and at the depths of EV_GAP_DEPTHS (the first n of its layers):
+# on the card the bf16 gap grows with depth and passes 2^-5 relative L2
+# from about 16 layers on, while float32 stays near 1e-5: bf16 roundings
+# that compound over depth at d 7,168, not a wrong position or mask, which
+# would move the logits by their own size in either dtype
+EV_DECODE_F32 = {"llava-next-34b": 16}
+EV_GAP_DEPTHS = (1, 2, 4, 8, 16, 24)
+# (c) and (d): whisper uncut, llava at CHECK_LAYERS; (d) B x S tokens
+EV_STEP_BATCH = {"whisper-base": (2, 448), "llava-next-34b": (1, 128)}
+# (e): whisper-base trained in bf16 on one fixed batch of B x S tokens
+EV_TRAIN_B, EV_TRAIN_S, EV_TRAIN_STEPS = 8, 448, 4
+
+
+def ev_config(arch: str, n_layers: int = None):
+    """The config of `arch` cut to `n_layers` (EV_LAYERS' cut if None)."""
+    cfg = get_config(arch)
+    n = n_layers or EV_LAYERS.get(arch, cfg.n_layers)
+    return cfg if n == cfg.n_layers else dataclasses.replace(cfg, n_layers=n)
+
+
+def ev_inputs(cfg, rng, B: int, device) -> dict:
+    """Random standard-normal bf16 inputs of the stub frontends, from `rng`:
+    an enc-dec model's frames (B, encoder_seq, D), a VLM's vision embeddings
+    (B, vision_tokens, D)."""
+    n = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+    x = torch.from_numpy(rng.standard_normal((B, n, cfg.d_model)).astype(np.float32))
+    return {"enc_embeds" if cfg.is_encdec else "embeds": x.to(torch.bfloat16).to(device)}
+
+
+def ev_serving(arch: str, cfg, params, rng, device) -> dict:
+    """(a) and (b) for one model: returns the kernel launches of (a)."""
+    frames = ev_inputs(cfg, rng, 1, device) if cfg.is_encdec else {}
+
+    # (a) packed ≡ tokens, through one bitunpack and nothing else
+    k_bits = model.token_bits(cfg)
+    toks = rng.integers(0, cfg.vocab, (1, PACKED_LEN)).astype(np.int64)
+    packed = torch.from_numpy(np.stack([bitpack_encode(toks[0], k_bits)]).view(np.int32))
+    tokens = torch.from_numpy(toks.astype(np.int32)).to(device)
+    before = ops.kernel_launches()
+    l_packed, c_packed = model.prefill(params, {"packed": packed.to(device), **frames}, cfg)
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    launches = {k: after[k] - before[k] for k in after}
+    l_tokens, c_tokens = model.prefill(params, {"tokens": tokens, **frames}, cfg)
+    if launches["bitunpack"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"{arch}: (a) launches {launches}, not one bitunpack for the "
+                             "packed prefill")
+    if not torch.equal(l_packed, l_tokens) or any(
+            not torch.equal(a[k], b[k]) for a, b in zip(c_packed, c_tokens) for k in b):
+        raise AssertionError(f"{arch}: the packed-prompt prefill differs from the tokens prefill")
+    leaves = sorted({k for c in c_tokens for k in c})
+    del c_packed, c_tokens
+    note = f"with {cfg.encoder_seq} random frames" if frames else ""
+    if cfg.family == "vlm":
+        l_vis, _ = model.prefill(params, {"tokens": tokens, **ev_inputs(cfg, rng, 1, device)},
+                                 cfg)
+        if not torch.equal(l_vis, l_tokens):
+            raise AssertionError(f"{arch}: prefill read the vision embeddings (the reference's "
+                                 "never does)")
+        note = (f"and with random (1, {cfg.vision_tokens}, {cfg.d_model}) vision embeddings "
+                "the same logits bit for bit (prefill does not read them, as in the reference)")
+    log(f"      (a) {PACKED_LEN}-token prompt packed at k={k_bits} ({packed.numel() * 4} B "
+        f"against {toks.size * 4} B of int32 tokens) {note}: logits and every cache leaf "
+        f"({leaves}) bit-identical to the tokens prefill; launches {launches}")
+    del l_packed, l_tokens
+
+    # (b) a 4-slot engine drains the requests; a second engine gives the same tokens
+    prompts, new, max_len = EV_PROMPTS[arch], EV_NEW_TOKENS[arch], EV_MAX_LEN[arch]
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)), max_new_tokens=new)
+            for i, n in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, n_slots=FAMILY_SLOTS, max_len=max_len, device=device)
+    for r in reqs:
+        eng.submit(r)
+    ticks = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = eng.step()
+        torch.cuda.synchronize()
+        ticks.append((n, (time.perf_counter() - t) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    got = {r.rid: r.out for r in reqs}
+    if len(got) != len(prompts) or any(len(o) != new for o in got.values()):
+        raise AssertionError(f"{arch}: not every request got {new} tokens: "
+                             f"{ {k: len(o) for k, o in got.items()} }")
+    del eng
+    again = ServeEngine(params, cfg, n_slots=FAMILY_SLOTS, max_len=max_len, device=device)
+    reqs2 = [Request(rid=r.rid, tokens=r.tokens, max_new_tokens=new) for r in reqs]
+    for r in reqs2:
+        again.submit(r)
+    again.step()  # admits all four
+    busy_ms, top, _ = profiled(again.step)
+    again.run_until_drained()
+    if {r.rid: r.out for r in reqs2} != got:
+        raise AssertionError(f"{arch}: a second engine gave other tokens")
+    del again
+    S = EV_CHECK_AT[arch]
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1)).astype(np.int32)).to(device)
+    check = decode_against_prefill(params, cfg, seq, frames)
+    if arch not in EV_DECODE_F32 and not check["rel"] <= DECODE_REL_TOL:
+        raise AssertionError(f"{arch}: decode at {S} differs from the {S + 1}-token prefill: "
+                             f"relative L2 {check['rel']} > {DECODE_REL_TOL}")
+    by_depth = ""
+    if arch in EV_DECODE_F32:  # the bf16 gap of the first n layers (views of the stack)
+        (seg,) = params["segments"]
+        gaps = {n: decode_against_prefill(
+            {**params, "segments": [{k: w[:n] for k, w in seg.items()}]},
+            dataclasses.replace(cfg, n_layers=n), seq, frames)["rel"]
+            for n in EV_GAP_DEPTHS if n < cfg.n_layers}
+        by_depth = f"; by depth {({n: float(f'{g:.3e}') for n, g in gaps.items()})}"
+    prefill_ms = {}
+    stub = {k: torch.zeros_like(v) for k, v in frames.items()}  # the engine's frames
+    for r in reqs:  # each length ran in the engines already
+        batch = {"tokens": torch.from_numpy(np.asarray(r.tokens, np.int32)[None]).to(device),
+                 **stub}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill(params, batch, cfg, cache_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms[len(r.tokens)] = round((time.perf_counter() - t) * 1e3, 2)
+    encoder = ""
+    if cfg.is_encdec:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.encode(params, frames["enc_embeds"], cfg)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) * 1e3)
+        encoder = (f"; the encoder alone over {cfg.encoder_seq} frames {sorted(runs)[1]:.2f} ms "
+                   "(median of 3)")
+    decode_ms = [ms for _, ms in ticks[1:]]
+    tick_ms = sorted(decode_ms)[len(decode_ms) // 2]
+    tokens_per_s = sum(n for n, _ in ticks[1:]) / (sum(decode_ms) / 1e3)
+    log(f"      (b) {len(reqs)} requests of {list(prompts)} tokens drained on {FAMILY_SLOTS} "
+        f"slots in {len(ticks)} ticks, {new} tokens each, a second engine gives the same "
+        f"tokens; decode at {S} against the {S + 1}-token prefill"
+        f"{' (random frames)' if frames else ''}: "
+        f"{cfg.dtype} relative L2 {check['rel']:.3e} (max |err| {check['err']:.4f}), "
+        + (f"tolerance {DECODE_REL_TOL}" if arch not in EV_DECODE_F32 else
+           f"beside {DECODE_REL_TOL}{by_depth}; held in float32 at {EV_DECODE_F32[arch]} "
+           "layers below"))
+    log(f"      (b) prefill_ms per request (cache_len {max_len}): {prefill_ms}{encoder}; first "
+        f"tick ({FAMILY_SLOTS} admissions + 1 decode) {ticks[0][1]:.1f} ms; decode_ms per tick "
+        f"(median) {tick_ms:.2f}, tokens/s {tokens_per_s:.1f}; peak device bytes {peak}; one "
+        f"decode tick: busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / tick_ms:.3f} top={top}")
+    return launches, seq
+
+
+def ev_decode_f32(arch: str, seed: int, seq: torch.Tensor, device) -> None:
+    """(b) decode at S against the (S+1)-token prefill in float32 at full
+    width and EV_DECODE_F32 layers, within F32_ATOL."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ev_config(arch, EV_DECODE_F32[arch]), dtype="float32")
+    params = model.init_params(cfg, seed, device=device)
+    f32 = decode_against_prefill(params, cfg, seq)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    S = seq.shape[1] - 1
+    if not f32["err"] <= F32_ATOL:
+        raise AssertionError(f"{arch}: float32 decode at {S} differs from the {S + 1}-token "
+                             f"prefill at {cfg.n_layers} layers: max |err| {f32['err']}")
+    log(f"      (b) float32 at full width, {cfg.n_layers} layers: decode at {S} against the "
+        f"{S + 1}-token prefill relative L2 {f32['rel']:.3e}, max |err| {f32['err']:.3e} "
+        f"(tolerance {F32_ATOL}); {time.perf_counter() - t0:.1f} s")
+
+
+def ev_against_cpu(arch: str, seed: int, rng, device):
+    """(c) a 256-token prefill and 8 decode steps, then (d) one training
+    step, on the card against the CPU at float32 (TF32 off): whisper uncut,
+    llava at CHECK_LAYERS layers."""
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(ev_config(arch, None if arch == "whisper-base" else CHECK_LAYERS),
+                               dtype="float32")
+    card = model.init_params(cfg2, seed, device=device)
+    host = tree_map(lambda p: p.to("cpu", copy=True), card)
+    seq = rng.integers(0, cfg2.vocab, (1, CHECK_LEN + CHECK_STEPS)).astype(np.int32)
+    frames = ev_inputs(cfg2, rng, 1, "cpu") if cfg2.is_encdec else {}
+    outs = {}
+    for side, params in (("card", card), ("cpu", host)):
+        dev = params["embed"].device
+        extra = {k: v.to(dev) for k, v in frames.items()}
+        logits, caches = model.prefill(
+            params, {"tokens": torch.from_numpy(seq[:, :CHECK_LEN]).to(dev), **extra}, cfg2,
+            cache_len=CHECK_LEN + CHECK_STEPS)
+        out = [logits.cpu()]
+        for i in range(CHECK_STEPS):
+            pos = CHECK_LEN + i
+            logits, caches = model.decode_step(
+                params, torch.from_numpy(seq[:, pos:pos + 1]).to(dev), caches, pos, cfg2)
+            out.append(logits.cpu())
+        outs[side] = out
+        del caches
+    errs = [float((a - b).abs().max()) for a, b in zip(outs["card"], outs["cpu"])]
+    if not max(errs) <= F32_ATOL:
+        raise AssertionError(f"{arch}: (c) card differs from the CPU at float32: {errs}")
+    log(f"      (c) {cfg2.n_layers} layers, float32, a {CHECK_LEN}-token prefill"
+        f"{f' over {cfg2.encoder_seq} random frames' if frames else ''} and {CHECK_STEPS} "
+        f"decode steps: card against CPU max |err| of the logits {max(errs):.3e} (tolerance "
+        f"{F32_ATOL}); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    B, S = EV_STEP_BATCH[arch]
+    toks = rng.integers(0, cfg2.vocab, (B, S)).astype(np.int32)
+    extra = ev_inputs(cfg2, rng, B, "cpu")
+    optcfg = OptConfig(**OPT)
+    sides = {}
+    for side, params in (("card", card), ("cpu", host)):
+        dev = params["embed"].device
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}}
+        params, state, m = make_train_step(cfg2, optcfg)(params, init_opt_state(params, optcfg),
+                                                         batch)
+        # the gradients as the step used them: its first moments after one
+        # step are (1 - b1) times the clipped gradients, in float32
+        sides[side] = (float(m["loss"]), float(m["grad_norm"]), tree_leaves(state["m"]),
+                       tree_leaves(params))
+    (lc, nc, gc_, pc), (lh, nh, gh, ph) = sides["card"], sides["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    # per top-level leaf (vis_proj and enc_final_ln among them), the layers'
+    # worst, and the global norm the step clipped by
+    names = [k for k in sorted(card) for _ in tree_leaves(card[k])]
+    grad_rel = {"norm": abs(nc - nh) / abs(nh)}
+    for name, a, b in zip(names, gc_, gh):
+        grad_rel[name] = max(grad_rel.get(name, 0.0), rel_l2(a, b))
+    param_rel = max(rel_l2(a, b) for a, b in zip(pc, ph))
+    if not (loss_rel <= STEP_LOSS_REL and max(grad_rel.values()) <= STEP_GRAD_REL
+            and param_rel <= STEP_PARAM_REL):
+        raise AssertionError(f"{arch}: (d) card against CPU: loss {loss_rel}, grads {grad_rel}, "
+                             f"params {param_rel}")
+    what = (f"{B} x {S} tokens with {cfg2.encoder_seq} random frames" if cfg2.is_encdec else
+            f"{B} x {S} tokens after {cfg2.vision_tokens} random vision embeddings")
+    log(f"      (d) {cfg2.n_layers} layers, float32, one step on {what}: card against CPU loss "
+        f"relative {loss_rel:.3e} (tolerance {STEP_LOSS_REL}), grads (the step's first "
+        f"moments) relative L2 "
+        f"{ {k: float(f'{v:.3e}') for k, v in grad_rel.items()} } ({STEP_GRAD_REL}), "
+        f"parameters after the step {param_rel:.3e} ({STEP_PARAM_REL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del card, host, sides, gc_, gh, pc, ph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ev_training(cfg, seed: int, rng, device) -> None:
+    """(e) EV_TRAIN_STEPS AdamW steps at full width in bf16 on one fixed
+    batch: the losses finite and falling; step ms, tokens/s, peak memory."""
+    params = model.init_params(cfg, seed, device=device)
+    optcfg = OptConfig(**OPT)
+    state = init_opt_state(params, optcfg)
+    step = make_train_step(cfg, optcfg)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (EV_TRAIN_B, EV_TRAIN_S))
+                                        .astype(np.int32)).to(device),
+             **ev_inputs(cfg, rng, EV_TRAIN_B, device)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(EV_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.arch_id}: (e) losses {losses} are not finite and falling")
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"      (e) {EV_TRAIN_STEPS} AdamW steps in {cfg.dtype} on one batch of {EV_TRAIN_B} x "
+        f"{EV_TRAIN_S} tokens with {cfg.encoder_seq} random frames each: losses "
+        f"{[round(x, 4) for x in losses]}; step_ms {[round(x, 2) for x in step_ms]} (median "
+        f"after the first {ms:.2f}), tokens/s {EV_TRAIN_B * EV_TRAIN_S / (ms / 1e3):.1f}; peak "
+        f"device bytes {peak}")
+    del params, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ev_model(arch: str, seed: int, device: str = "cuda") -> dict:
+    """Phase E for one model: (a)-(d), and (e) for whisper.  Returns the
+    kernel launches of its window (all of its calls)."""
+    t_start = time.perf_counter()
+    cfg = ev_config(arch)
+    full = get_config(arch)
+    rng = np.random.default_rng(seed)
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    cut = ("uncut" if cfg.n_layers == full.n_layers else
+           f"cut from {full.n_layers} to {cfg.n_layers} layers (the uncut model: "
+           f"{full.n_params() / 1e9:.1f} B parameters)")
+    log(f"      {arch} [{cfg.family}], {cut}: segments "
+        f"{[(g.kind, g.count) for g in model.model_segments(cfg)]}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv} kv) of {cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}), "
+        f"vocab {cfg.vocab} (padded {cfg.vocab_padded}); {n_params} parameters in {cfg.dtype} "
+        f"drawn from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    a_launches, seq = ev_serving(arch, cfg, params, rng, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch in EV_DECODE_F32:
+        ev_decode_f32(arch, seed, seq, device)
+    ev_against_cpu(arch, seed, rng, device)
+    if cfg.is_encdec:
+        ev_training(cfg, seed, rng, device)
+    launches = ops.kernel_launches()
+    if launches != a_launches:
+        raise AssertionError(f"{arch}: launches {launches} beyond (a)'s {a_launches}")
+    log(f"      {arch}: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def encdec_vlm_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase E: each model in turn, each freed before the next.  Returns the
+    kernel launches of the models' windows, summed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for arch in EV_ARCHS:
+        for k, n in ev_model(arch, seed, device).items():
+            total[k] += n
+    return total
+
+
 def kernels_line(records: dict, by_order: dict, once: dict) -> list:
     """Phase 10's record of each kernel: phase 3's numbers and its launches,
     summed over every counted window.  `by_order` maps a window's key (its
     name in the record) to its launches by file order, {order: {kernel: n}};
-    `once` a window run once (phases 9, T and M) to {kernel: n}."""
+    `once` a window run once (phases 9, T, M and E) to {kernel: n}."""
     kernels = []
     for name, kern in ops.KERNELS.items():
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
@@ -2880,6 +3262,12 @@ def main(argv=None) -> int:
     family_launches = families_phase(args.seed)
     log(f"      launches {family_launches}; phase M took {time.perf_counter() - t0:.1f} s")
 
+    # phase E
+    t0 = time.perf_counter()
+    log("[E] the enc-dec and VLM families served and trained on the card at full width")
+    ev_launches = encdec_vlm_phase(args.seed)
+    log(f"      launches {ev_launches}; phase E took {time.perf_counter() - t0:.1f} s")
+
     # phase 10
     kernels = kernels_line(records, {
         "launches_by_order": launches, "launches_batched_pushdown_by_order": batched_launches,
@@ -2887,12 +3275,12 @@ def main(argv=None) -> int:
         "launches_service_by_order": service_launches,
         "launches_fabric_by_order": fabric_launches,
     }, {"launches_lm": lm_launches, "launches_train": train_launches,
-        "launches_families": family_launches})
+        "launches_families": family_launches, "launches_encdec_vlm": ev_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the query, batched, offload, service, "
-                             f"fabric, LM, training or families' paths: {idle}")
+                             f"fabric, LM, training, families' or enc-dec/VLM paths: {idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,18 +1,14 @@
 """Per-architecture configs (exact assigned numbers) + reduced smoke configs.
 
-A copy of `repro/configs` for the families the port runs (`PORTED`): the
-four dense architectures and the decoder-only MoE, SSM and hybrid ones.
-`get_config` / `get_smoke_config` resolve the same ids and aliases as the
-reference and raise `NotImplementedError`, naming the ROADMAP.md item, for
-the families not yet ported (audio, vlm).
+A copy of `repro/configs`: `get_config` / `get_smoke_config` resolve the
+same ids and aliases as the reference, and `list_archs()` lists the same ten
+architectures.
 """
 
 from __future__ import annotations
 
 import importlib
 from typing import List
-
-from repro_torch.models.config import LM_REST, not_ported
 
 ARCH_IDS = [
     "llama4_maverick_400b",
@@ -26,10 +22,6 @@ ARCH_IDS = [
     "llava_next_34b",
     "hymba_1_5b",
 ]
-
-# the architectures with a module here, in ARCH_IDS' order
-PORTED = ("llama4_maverick_400b", "deepseek_moe_16b", "qwen3_1_7b", "gemma_7b",
-          "mistral_large_123b", "granite_3_8b", "mamba2_370m", "hymba_1_5b")
 
 # external ids (as assigned) -> module names
 ALIASES = {
@@ -48,9 +40,7 @@ ALIASES = {
 
 def _module(arch_id: str):
     name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
-    if name not in PORTED:
-        if name in ARCH_IDS:
-            raise not_ported(f"architecture {arch_id!r}", LM_REST)
+    if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
@@ -64,5 +54,4 @@ def get_smoke_config(arch_id: str):
 
 
 def list_archs() -> List[str]:
-    """The architectures the port runs."""
-    return list(PORTED)
+    return list(ARCH_IDS)

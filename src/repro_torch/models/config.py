@@ -1,10 +1,10 @@
 """ModelConfig — one dataclass describing every assigned architecture.
 
 A copy of `repro/models/config.py`.  Families: dense | moe | ssm | hybrid |
-audio (enc-dec) | vlm; the port runs the decoder-only ones (dense, moe, ssm,
-hybrid); enc-dec and vlm raise `NotImplementedError` naming the ROADMAP.md
-item that brings them.  The
-exact per-arch instantiations live in `repro_torch/configs/<id>.py`.
+audio (enc-dec) | vlm; the port runs all six.  The exact per-arch
+instantiations live in `repro_torch/configs/<id>.py`.  `not_ported` makes the
+error that a piece still to come (the mesh paths) raises, naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -13,9 +13,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 VOCAB_PAD = 2048  # embedding tables padded so 'vocab' always TP-shards
-
-# the ROADMAP.md section A item that the NotImplementedError messages name
-LM_REST = "A.5b-ii LM consumer: the enc-dec and VLM families"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -40,7 +37,7 @@ class ModelConfig:
     vocab: int = 0
 
     # attention details
-    act: str = "swiglu"  # swiglu | geglu
+    act: str = "swiglu"  # swiglu | geglu | gelu (non-gated: whisper)
     qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0

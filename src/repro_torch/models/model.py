@@ -2,10 +2,10 @@
 the training entry point (`forward_train`, `loss_fn`) and the serving entry
 points (`prefill`, `decode_step`).
 
-Port of `repro/models/model.py` for the decoder-only families (dense, moe,
-ssm, hybrid).  Parameters are plain
-dictionaries with the reference's keys, each layer leaf stacked on a leading
-layer axis: {"embed", "final_ln", ["lm_head"], "segments": [{leaf: (L, ...)}]}.
+Port of `repro/models/model.py` for every family (dense, moe, ssm, hybrid,
+audio enc-dec, vlm).  Parameters are plain dictionaries with the reference's
+keys, each layer leaf stacked on a leading layer axis: {"embed", "final_ln",
+["lm_head"], ["enc_final_ln"], ["vis_proj"], "segments": [{leaf: (L, ...)}]}.
 `init_params` draws them on the card (or the CPU) from a seed with the
 reference's distributions but torch's generator, so its numbers are not the
 reference's; `params_from_reference` carries the reference's own arrays
@@ -18,8 +18,14 @@ words at k = ceil(log2 vocab) bits): `forward_train` and `prefill` unpack
 them with the `bitunpack` kernel (`kernels.ops.bitunpack`) as their first
 op, the datapath offload as stage 0 of the step.  The backward is autograd
 over the same plain operations (the reference has no custom gradient); the
-MoE layers' Switch losses join the loss as in the reference.  The enc-dec
-and VLM families raise `NotImplementedError` naming ROADMAP.md item A.5b-ii.
+MoE layers' Switch losses join the loss as in the reference.
+
+The enc-dec family (whisper) runs its encoder segment over
+`batch["enc_embeds"]` (B, Se, D), the stub frontend's frames, at positions
+0..Se-1, and its `decx` layers attend to the normed encoder output; the
+encoder segment's cache is `{}`.  The VLM family (llava) prepends
+`batch["embeds"] @ vis_proj` to the token stream in `forward_train` only:
+`prefill`, like the reference's, never reads `embeds`.
 """
 
 from __future__ import annotations
@@ -30,10 +36,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import ShardingCtx, local_ctx
+from repro_torch.distributed.sharding import ShardingCtx, constrain, local_ctx
 from repro_torch.kernels import ops
 from repro_torch.lakeformat.encodings import LANES, PACK_BLOCK, bits_needed
-from repro_torch.models.config import LM_REST, ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm, softmax_xent
 from repro_torch.models.transformer import (
     Segment,
@@ -66,7 +72,11 @@ def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
 def _mlp_shapes(cfg: ModelConfig, prefix: str = "") -> Dict[str, Tuple]:
     D, F = cfg.d_model, cfg.d_ff
     if cfg.act == "gelu":
-        raise not_ported("the non-gated 'gelu' MLP", LM_REST)
+        return {
+            prefix + "ln2": ((D,), (None,)),
+            prefix + "w1": ((D, F), ("d", "ff")),
+            prefix + "w2": ((F, D), ("ff", "d")),
+        }
     return {
         prefix + "ln2": ((D,), (None,)),
         prefix + "wg": ((D, F), ("d", "ff")),
@@ -134,7 +144,11 @@ def _layer_shapes(kind: str, cfg: ModelConfig) -> Dict[str, Tuple]:
             "beta_s": ((D,), (None,)),
         })
         return s
-    raise not_ported(f"the {kind!r} layer", LM_REST)
+    if kind == "enc":
+        return {**_attn_shapes(cfg), **_mlp_shapes(cfg)}
+    if kind == "decx":
+        return {**_attn_shapes(cfg), **_attn_shapes(cfg, "x_"), **_mlp_shapes(cfg)}
+    raise ValueError(kind)
 
 
 def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
@@ -145,13 +159,21 @@ def _top_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ((D, Vp), ("d", "vocab"))
+    if cfg.is_encdec:
+        s["enc_final_ln"] = ((D,), (None,))
+    if cfg.family == "vlm":
+        s["vis_proj"] = ((D, D), ("d", None))
     return s
 
 
 def model_segments(cfg: ModelConfig) -> List[Segment]:
+    """`build_segments`; an enc-dec model's encoder segment first, then a
+    `decx` segment for each dense one."""
+    segs = build_segments(cfg)
     if cfg.is_encdec:
-        raise not_ported("the enc-dec family", LM_REST)
-    return build_segments(cfg)
+        segs = [Segment("enc", cfg.encoder_layers)] + [
+            Segment("decx", s.count, s.window) for s in segs if s.kind == "dense"]
+    return segs
 
 
 def param_shapes(cfg: ModelConfig):
@@ -293,21 +315,56 @@ def _head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def encode(params, enc_embeds: torch.Tensor, cfg: ModelConfig,
+           ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """The enc-dec encoder: its segment over the frames (B, Se, D), cast to
+    the embedding's dtype, at positions 0..Se-1, then `enc_final_ln`."""
+    ctx = ctx or local_ctx()
+    enc_h = enc_embeds.to(params["embed"].dtype)
+    B, Se = enc_h.shape[:2]
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=enc_h.device).expand(B, Se)
+    enc_h, _ = run_segments_train(params["segments"][:1], model_segments(cfg)[:1], enc_h, cfg,
+                                  ctx, enc_pos)
+    return rmsnorm(enc_h, params["enc_final_ln"], cfg.norm_eps, cfg.norm_plus_one)
+
+
+def _decoder(params, batch, cfg, ctx):
+    """(the decoder's segments, their parameters, the encoder output or None)."""
+    segs, seg_params = model_segments(cfg), params["segments"]
+    if not cfg.is_encdec:
+        return segs, seg_params, None
+    return segs[1:], seg_params[1:], encode(params, batch["enc_embeds"], cfg, ctx)
+
+
 def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                   ctx: Optional[ShardingCtx] = None):
     """Returns (loss + aux, {"loss", "aux_loss", "tokens"}): the mean
     next-token cross-entropy of {"tokens": (B, S) int32} or {"packed":
-    (B, nb, k, 128) int32}, labels tokens[:, 1:]."""
+    (B, nb, k, 128) int32}, labels tokens[:, 1:], with an enc-dec model's
+    "enc_embeds" (B, Se, D).  A VLM batch's "embeds" (B, n_vis, D) go
+    through `vis_proj` in front of the tokens, and every token is a label,
+    the first predicted from the last vision position."""
     ctx = ctx or local_ctx()
-    segs = model_segments(cfg)
     tokens = _tokens_from_batch(batch, cfg)
     B, S = tokens.shape
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
-    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-    h, aux = run_segments_train(params["segments"], segs, h, cfg, ctx, positions)
+    segs, seg_params, enc_out = _decoder(params, batch, cfg, ctx)
+    n_vis = 0
+    if cfg.family == "vlm" and "embeds" in batch:
+        vis = constrain(batch["embeds"].to(h.dtype) @ params["vis_proj"],
+                        ("batch", None, None), ctx)
+        h = torch.cat([vis, h], dim=1)
+        n_vis = vis.shape[1]
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device).expand(
+        B, h.shape[1])
+    h, aux = run_segments_train(seg_params, segs, h, cfg, ctx, positions, enc_kv=enc_out)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
-    logits = lm_head_logits(h[:, :-1], _head(params, cfg), ctx)
-    loss = softmax_xent(logits, tokens[:, 1:], cfg.vocab)
+    if n_vis:
+        pred_h, labels = h[:, n_vis - 1:n_vis + S - 1], tokens
+    else:
+        pred_h, labels = h[:, :-1], tokens[:, 1:]
+    logits = lm_head_logits(pred_h, _head(params, cfg), ctx)
+    loss = softmax_xent(logits, labels, cfg.vocab)
     tokens_seen = torch.tensor(B * S, dtype=torch.int32, device=h.device)
     return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": tokens_seen}
 
@@ -324,17 +381,23 @@ def loss_fn(params, batch, cfg, ctx=None):
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ctx: Optional[ShardingCtx] = None, cache_len: Optional[int] = None):
     """Process a prompt, build caches.  batch: {"tokens": (B, S) int32} or
-    {"packed": (B, nb, k, 128) int32}.  Returns (last-token logits (B, Vp),
-    caches: one {"k", "v"} of (L, B, cache_len, KV, hd) per segment)."""
+    {"packed": (B, nb, k, 128) int32}, with an enc-dec model's "enc_embeds"
+    (B, Se, D); a VLM's "embeds" are not read, as in the reference.  Returns
+    (last-token logits (B, Vp), caches: one dict of (L, B, ...) tensors per
+    segment, {"k", "v"} of (L, B, cache_len, KV, hd) for attention; `{}` for
+    the encoder segment and `ck`/`cv` of (L, B, Se, KV, hd) beside "k", "v"
+    for `decx`)."""
     ctx = ctx or local_ctx()
-    segs = model_segments(cfg)
     tokens = _tokens_from_batch(batch, cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
+    segs, seg_params, enc_out = _decoder(params, batch, cfg, ctx)
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
-    h, caches = run_segments_prefill(params["segments"], segs, h, cfg, ctx, positions,
-                                     cache_len)
+    h, caches = run_segments_prefill(seg_params, segs, h, cfg, ctx, positions, cache_len,
+                                     enc_kv=enc_out)
+    if cfg.is_encdec:
+        caches = [{}] + caches  # the encoder segment carries no decode cache
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     logits = lm_head_logits(h[:, -1:], _head(params, cfg), ctx)[:, 0]
     return logits, caches
@@ -346,9 +409,11 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ModelConfig,
     position it takes.  Writes its keys and values into `caches` in place
     and returns (logits (B, Vp), caches)."""
     ctx = ctx or local_ctx()
-    segs = model_segments(cfg)
+    segs, seg_params, dec_caches = model_segments(cfg), params["segments"], caches
+    if cfg.is_encdec:  # the encoder ran at prefill: its segment is skipped
+        segs, seg_params, dec_caches = segs[1:], seg_params[1:], caches[1:]
     h = embed_lookup(params["embed"], token, ctx, scale=cfg.embed_scale)
-    h, caches = run_segments_decode(params["segments"], segs, h, cfg, ctx, int(pos), caches)
+    h, _ = run_segments_decode(seg_params, segs, h, cfg, ctx, int(pos), dec_caches)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     logits = lm_head_logits(h, _head(params, cfg), ctx)[:, 0]
     return logits, caches

@@ -1,28 +1,31 @@
 """Architecture assembly: segments of stacked layers.
 
-Port of `repro/models/transformer.py` for the decoder-only families:
-`Segment`, `build_segments`, the attention, MLP and MoE sub-blocks, and the
-training, prefill and decode step of the layer kinds
+Port of `repro/models/transformer.py`: `Segment`, `build_segments`, the
+attention, MLP and MoE sub-blocks, and the training, prefill and decode step
+of the layer kinds
 
-  dense     attn + GLU-MLP                      (qwen3/gemma/mistral/granite)
+  dense     attn + GLU-MLP                      (qwen3/gemma/mistral/granite/llava)
   moe       attn + routed-expert FFN            (deepseek-moe tail)
   moe_pair  dense layer then MoE layer          (llama4 interleaved stack)
   ssm       Mamba2 SSD block                    (mamba2)
   hybrid    parallel attn + SSM heads, then MLP (hymba; window/global per segment)
+  enc       bidirectional attn + MLP            (whisper encoder)
+  decx      causal self-attn + cross-attn + MLP (whisper decoder)
 
 Parameters stay stacked on a leading layer axis as in the reference, and a
 Python loop over the layer index takes the place of `lax.scan`; each layer
 reads views `w[i]` of the stacked leaves, through which autograd carries its
 gradients into the stacked `(L, ...)` parameter.  With `cfg.remat` each
 training layer runs under `torch.utils.checkpoint` (the reference's
-`jax.checkpoint`).  Caches are per-segment dictionaries of (L, B, ...)
-tensors: keys and values (L, B, Smax, KV, hd), the SSM's conv history
-(L, B, W-1, di+2N) and float32 state (L, B, H, P, N).  Sliding-window
-segments keep ring buffers of `window` slots (token t at slot t % window).
-The decode step writes its caches in place (the reference returns updated
-copies), which saves a copy of every cache per token.  The enc-dec kinds
-(`enc`, `decx`) and the non-gated MLP raise `NotImplementedError` naming
-the ROADMAP.md item that brings them.
+`jax.checkpoint`), the encoder's output passed in as an argument so that its
+gradient flows back through every cross-attention.  Caches are per-segment
+dictionaries of (L, B, ...) tensors: keys and values (L, B, Smax, KV, hd),
+the cross-attention's `ck`/`cv` (L, B, Se, KV, hd) over the encoder's
+frames, the SSM's conv history (L, B, W-1, di+2N) and float32 state
+(L, B, H, P, N).  Sliding-window segments keep ring buffers of `window`
+slots (token t at slot t % window).  The decode step writes its caches in
+place (the reference returns updated copies), which saves a copy of every
+cache per token.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -38,7 +42,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.config import LM_REST, ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention, glu_mlp, rmsnorm, rotary
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import ssm_decode_step, ssm_forward
@@ -74,8 +78,6 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
         else:
             segs.append(Segment("moe", cfg.n_layers - cfg.moe_first_dense))
         return segs
-    if cfg.family != "dense":
-        raise not_ported(f"the {cfg.family!r} family", LM_REST)
     return [Segment("dense", cfg.n_layers)]
 
 
@@ -99,11 +101,21 @@ def _proj_qkv(x, p, cfg: ModelConfig, positions, ctx, prefix=""):
     return q, k, v
 
 
-def attn_train(h, p, cfg, ctx, positions, *, window=None, prefix=""):
-    """Causal self-attention over the whole sequence; returns (h, (k, v))."""
+def attn_train(h, p, cfg, ctx, positions, *, causal=True, window=None, prefix="",
+               src=None):
+    """Self-attention over the whole sequence, or cross-attention when `src`
+    (B,Se,D) is given: keys and values from `src`, without rotary.  Returns
+    (h, (k, v))."""
     x = rmsnorm(h, p[prefix + "ln1"], cfg.norm_eps, cfg.norm_plus_one)
-    q, k, v = _proj_qkv(x, p, cfg, positions, ctx, prefix)
-    o = attention(q, k, v, ctx, causal=True, window=window, scale=cfg.attn_scale,
+    if src is None:
+        q, k, v = _proj_qkv(x, p, cfg, positions, ctx, prefix)
+    else:
+        B, S = x.shape[:2]
+        H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+        q = (x @ p[prefix + "wq"]).reshape(B, S, H, hd)
+        k = (src @ p[prefix + "wk"]).reshape(B, src.shape[1], KV, hd)
+        v = (src @ p[prefix + "wv"]).reshape(B, src.shape[1], KV, hd)
+    o = attention(q, k, v, ctx, causal=causal, window=window, scale=cfg.attn_scale,
                   chunk=cfg.attn_block)
     B, S = h.shape[:2]
     out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p[prefix + "wo"]
@@ -137,9 +149,11 @@ def attn_decode(h, p, cfg, ctx, pos: int, kcache, vcache, *, prefix=""):
 
 def mlp_block(h, p, cfg, ctx, prefix=""):
     x = rmsnorm(h, p[prefix + "ln2"], cfg.norm_eps, cfg.norm_plus_one)
-    if cfg.act not in ("swiglu", "geglu"):
-        raise not_ported(f"the {cfg.act!r} MLP", LM_REST)
-    y = glu_mlp(x, p[prefix + "wg"], p[prefix + "wu"], p[prefix + "wo2"], cfg.act, ctx)
+    if cfg.act == "gelu":  # non-gated (whisper)
+        y = F.gelu(x @ p[prefix + "w1"], approximate="tanh") @ p[prefix + "w2"]
+        y = constrain(y, ("batch", None, None), ctx)
+    else:
+        y = glu_mlp(x, p[prefix + "wg"], p[prefix + "wu"], p[prefix + "wo2"], cfg.act, ctx)
     return h + y
 
 
@@ -160,8 +174,8 @@ def _hybrid_mix(h, attn_out, y, lp, cfg, ctx):
 # ---------------------------------------------------------------------------
 
 
-def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, want_cache: bool = False,
-                cache_len: Optional[int] = None):
+def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
+                want_cache: bool = False, cache_len: Optional[int] = None):
     """Returns (h, aux, cache_entry); aux is 0 but for MoE layers."""
     aux = 0.0
     cache: Dict[str, Any] = {}
@@ -207,8 +221,20 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, want_cache: 
             y = ssm_forward(x, _sub(lp, "s_"), cfg, ctx)
         h = _hybrid_mix(h, attn_out, y, lp, cfg, ctx)
         h = mlp_block(h, lp, cfg, ctx)
+    elif kind == "enc":
+        h, _ = attn_train(h, lp, cfg, ctx, positions, causal=False)
+        h = mlp_block(h, lp, cfg, ctx)
+    elif kind == "decx":
+        h, (k, v) = attn_train(h, lp, cfg, ctx, positions)
+        if want_cache:
+            cache = {"k": _to_cache(k, cache_len), "v": _to_cache(v, cache_len)}
+        h, (ck, cv) = attn_train(h, lp, cfg, ctx, None, causal=False, prefix="x_",
+                                 src=enc_kv)
+        if want_cache:
+            cache["ck"], cache["cv"] = ck, cv
+        h = mlp_block(h, lp, cfg, ctx)
     else:
-        raise not_ported(f"the {kind!r} layer", LM_REST)
+        raise ValueError(kind)
     return h, aux, cache
 
 
@@ -266,7 +292,18 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
         h = _hybrid_mix(h, attn_out, y, lp, cfg, ctx)
         h = mlp_block(h, lp, cfg, ctx)
         return h, cache
-    raise not_ported(f"the {kind!r} layer", LM_REST)
+    if kind == "decx":
+        h, _, _ = attn_decode(h, lp, cfg, ctx, pos, cache["k"], cache["v"])
+        # the reference's cross-attention norm here takes no (1 + w), unlike
+        # attn_train's; whisper's plain norms make the two the same
+        x = rmsnorm(h, lp["x_ln1"], cfg.norm_eps)
+        B = h.shape[0]
+        q = (x @ lp["x_wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        o = attention(q, cache["ck"], cache["cv"], ctx, causal=False, scale=cfg.attn_scale)
+        h = h + o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"]
+        h = mlp_block(h, lp, cfg, ctx)
+        return h, cache
+    raise ValueError(kind)
 
 
 def _store(cache, states):
@@ -299,19 +336,20 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def _train_layer(kind, h, lp, cfg, ctx, positions, window):
-    h, aux, _ = layer_train(kind, h, lp, cfg, ctx, positions, window=window)
+def _train_layer(kind, h, lp, cfg, ctx, positions, window, enc_kv):
+    h, aux, _ = layer_train(kind, h, lp, cfg, ctx, positions, window=window, enc_kv=enc_kv)
     return h, aux
 
 
-def run_segments_train(params_segs, segs, h, cfg, ctx, positions):
+def run_segments_train(params_segs, segs, h, cfg, ctx, positions, enc_kv=None):
     """Every layer's forward for training; returns (h, aux), aux the
     float32 sum of the layers' auxiliary losses (the MoE layers' Switch
-    losses; 0 for the other kinds)."""
+    losses; 0 for the other kinds).  `enc_kv` (B,Se,D) is the encoder's
+    output that the `decx` layers attend to."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for seg, sp in zip(segs, params_segs):
         for i in range(seg.count):
-            args = (seg.kind, h, _layer(sp, i), cfg, ctx, positions, seg.window)
+            args = (seg.kind, h, _layer(sp, i), cfg, ctx, positions, seg.window, enc_kv)
             if cfg.remat:
                 kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
                 h, aux = checkpoint(_train_layer, *args, use_reentrant=False, **kw)
@@ -321,13 +359,13 @@ def run_segments_train(params_segs, segs, h, cfg, ctx, positions):
     return h, aux_total
 
 
-def run_segments_prefill(params_segs, segs, h, cfg, ctx, positions, cache_len):
+def run_segments_prefill(params_segs, segs, h, cfg, ctx, positions, cache_len, enc_kv=None):
     caches = []
     for seg, sp in zip(segs, params_segs):
         entries = []
         for i in range(seg.count):
             h, _, cache = layer_train(seg.kind, h, _layer(sp, i), cfg, ctx, positions,
-                                      window=seg.window, want_cache=True,
+                                      window=seg.window, enc_kv=enc_kv, want_cache=True,
                                       cache_len=cache_len)
             entries.append(cache)
         caches.append({k: torch.stack([e[k] for e in entries]) for k in entries[0]})

@@ -12,7 +12,10 @@ Port of `repro/serve/engine.py` with its semantics, without `jit`:
 
 The engine runs on the card unless the caller passes `device="cpu"`; it
 raises `RuntimeError` when asked for a card there is none of, or when the
-parameters lie on another device.  Caches are updated in place.
+parameters lie on another device.  Caches are updated in place.  Each
+prefill gets the reference's stub inputs: a VLM's `embeds` (which prefill
+does not read) and an enc-dec model's `enc_embeds`, zeros in bfloat16, so
+whisper is served from 1,500 frames of zeros, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.distributed.sharding import ShardingCtx, local_ctx
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, model_segments, prefill
+from repro_torch.models.model import decode_step, prefill
 
 
 @dataclasses.dataclass
@@ -60,7 +63,6 @@ class ServeEngine:
             if leaf.device.type != self.device.type or (
                     self.device.index is not None and leaf.device != self.device):
                 raise RuntimeError(f"parameters lie on {leaf.device}, the engine on {self.device}")
-        model_segments(cfg)  # raises for a family the port does not run yet
         self.params = params
         self.cfg = cfg
         self.ctx = ctx or local_ctx()
@@ -84,8 +86,16 @@ class ServeEngine:
                 continue
             req = self.queue.pop(0)
             prompt = torch.from_numpy(np.asarray(req.tokens, np.int32)[None, :])
-            logits, cache1 = prefill(self.params, {"tokens": prompt.to(self.device)},
-                                     self.cfg, self.ctx, cache_len=self.max_len)
+            batch = {"tokens": prompt.to(self.device)}
+            # the reference's stub inputs, zeros: no image and no sound
+            if self.cfg.family == "vlm":
+                batch["embeds"] = torch.zeros((1, self.cfg.vision_tokens, self.cfg.d_model),
+                                              dtype=torch.bfloat16, device=self.device)
+            if self.cfg.is_encdec:
+                batch["enc_embeds"] = torch.zeros((1, self.cfg.encoder_seq, self.cfg.d_model),
+                                                  dtype=torch.bfloat16, device=self.device)
+            logits, cache1 = prefill(self.params, batch, self.cfg, self.ctx,
+                                     cache_len=self.max_len)
             tok = int(torch.argmax(logits[0]))
             req.out.append(tok)
             if self.caches is None:

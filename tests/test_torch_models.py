@@ -1,14 +1,17 @@
 """The port's LM serving slice (`repro_torch.models`, `.configs`,
 `.distributed`) against the JAX package: layers, parameter shapes and
 conversion, `prefill` and `decode_step` on converted parameters, and the
-bit-packed prompt path, for the dense family and the decoder-only MoE, SSM
-and hybrid ones (deepseek-moe, llama4-maverick, mamba2, hymba): also their
-`forward_train` loss and gradients, decode ≡ prefill, and hymba's ring
-caches past their wrap.
+bit-packed prompt path, for the dense family and the other five (the MoE,
+SSM and hybrid ones: deepseek-moe, llama4-maverick, mamba2, hymba; the
+enc-dec whisper and the VLM llava): also their `forward_train` loss and
+gradients, decode ≡ prefill, hymba's ring caches past their wrap, the
+non-gated gelu MLP, the encoder's non-causal attention over 1,500 frames,
+and a VLM prefill that reads no `embeds` in either package.
 
-Inputs are made with numpy from a seed and handed to both packages;
-parameters are the reference's own `init_params`, carried across leaf for
-leaf by `params_from_reference`.
+Inputs are made with numpy from a seed and handed to both packages (an
+enc-dec model's frames and a VLM's vision embeddings as bfloat16, as
+tests/test_models.py makes them); parameters are the reference's own
+`init_params`, carried across leaf for leaf by `params_from_reference`.
 """
 
 import dataclasses
@@ -21,17 +24,20 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
+from repro.configs import list_archs as jlist_archs
 from repro.distributed.sharding import local_ctx as jlocal_ctx
 from repro.lakeformat.encodings import bitpack_encode
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.models import transformer as jtransformer
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.distributed.sharding import ShardingCtx, constrain, local_ctx
 from repro_torch.kernels import ops
 from repro_torch.models import layers, model, moe, transformer
 
 DENSE = ["qwen3-1.7b", "granite-3-8b", "gemma-7b", "mistral-large-123b"]
-FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b"]
+FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
+            "whisper-base", "llava-next-34b"]
 
 # float32 layers: XLA and torch sum in other orders and their f32 sin, cos,
 # pow and rsqrt may differ by an ulp; on unit-scale inputs that stays within
@@ -73,6 +79,27 @@ def _params(cj, seed):
     return pj, model.params_from_reference(jax.tree.map(np.asarray, pj), device="cpu")
 
 
+def _extra(cfg, rng, B):
+    """A VLM's vision embeddings and an enc-dec model's frames, made as
+    tests/test_models.py's `_batch` makes them: standard normal, as float32
+    numpy arrays that each side casts to bfloat16."""
+    out = {}
+    if cfg.family == "vlm":
+        out["embeds"] = rng.standard_normal((B, cfg.vision_tokens, cfg.d_model))
+    if cfg.is_encdec:
+        out["enc_embeds"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def _jbatch(tokens, extra):
+    return {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v, jnp.bfloat16)
+                                              for k, v in extra.items()}}
+
+
+def _tbatch(tokens, extra):
+    return {"tokens": _t(tokens), **{k: _t(v).bfloat16() for k, v in extra.items()}}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -100,6 +127,7 @@ def test_rotary(theta):
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,chunk,causal,win,kvl", [
     (2, 300, 300, 4, 2, 16, 128, True, None, None),   # Sq > chunk, 300 % 128: chunks of 100
+    (1, 1500, 1500, 4, 4, 16, 1024, False, None, None),  # whisper's encoder: chunks of 750
     (1, 262, 262, 4, 2, 16, 128, True, None, None),   # divisor 2 <= 64: one chunk of 262
     (2, 256, 256, 4, 2, 16, 64, True, None, None),    # 4 whole chunks
     (2, 64, 64, 4, 4, 32, 1024, True, 16, None),      # sliding window
@@ -115,6 +143,33 @@ def test_attention(B, Sq, Skv, H, KV, hd, chunk, causal, win, kvl):
     got = layers.attention(_t(q), _t(k), _t(v), local_ctx(), **kw)
     assert got.shape == (B, Sq, H, hd)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LAYER_ATOL, rtol=LAYER_RTOL)
+
+
+def test_encoder_attention_takes_chunks_of_750():
+    assert layers._chunk_for(1500, 1024) == 750
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_mlp_block(dtype):
+    """whisper's non-gated MLP, gelu(x @ w1, tanh) @ w2 after the norm, with
+    the residual, on random weights of the smoke config's widths: float32 at
+    LAYER_ATOL; bfloat16 at BF16_ATOL, the two packages' bf16 products
+    rounding apart."""
+    cj, ct = _configs("whisper-base", dtype)
+    rng = np.random.default_rng(5)
+    D, F = cj.d_model, cj.d_ff
+    w = {"ln2": 1 + 0.1 * rng.standard_normal(D), "w1": 0.1 * rng.standard_normal((D, F)),
+         "w2": 0.1 * rng.standard_normal((F, D))}
+    h = rng.standard_normal((2, 37, D))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jtransformer.mlp_block(jnp.asarray(h, jdt),
+                                  {k: jnp.asarray(v, jdt) for k, v in w.items()}, cj, jlocal_ctx())
+    got = transformer.mlp_block(_t(h).to(tdt), {k: _t(v).to(tdt) for k, v in w.items()}, ct,
+                                local_ctx())
+    assert got.dtype == tdt and got.shape == (2, 37, D)
+    assert set(model._mlp_shapes(ct)) == {"ln2", "w1", "w2"}
+    atol, rtol = (LAYER_ATOL, LAYER_RTOL) if dtype == "float32" else (BF16_ATOL, 0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=rtol)
 
 
 def test_attention_matches_the_kernel_oracle():
@@ -217,8 +272,9 @@ def test_init_params_ssm_and_moe_leaves():
 def _prefill_decode(cj, ct, pj, pt, B=2, S=48):
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cj.vocab, (B, S + 1)).astype(np.int32)
-    lj, cache_j = jmodel.prefill(pj, {"tokens": jnp.asarray(toks[:, :S])}, cj, cache_len=S + 8)
-    lt, cache_t = model.prefill(pt, {"tokens": _t(toks[:, :S])}, ct, cache_len=S + 8)
+    extra = _extra(cj, rng, B)
+    lj, cache_j = jmodel.prefill(pj, _jbatch(toks[:, :S], extra), cj, cache_len=S + 8)
+    lt, cache_t = model.prefill(pt, _tbatch(toks[:, :S], extra), ct, cache_len=S + 8)
     pre = (lj, lt, cache_j, [{k: c.clone() for k, c in seg.items()} for seg in cache_t])
     dj, cache_j = jmodel.decode_step(pj, jnp.asarray(toks[:, S:]), cache_j, jnp.int32(S), cj)
     dt, cache_t = model.decode_step(pt, _t(toks[:, S:]), cache_t, S, ct)
@@ -256,9 +312,11 @@ def test_port_prefill_decode_matches_prefill(arch):
     params = model.init_params(cfg, 1, device="cpu")
     rng = np.random.default_rng(1)
     B, S = 2, 64
-    toks = _t(rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32))
-    _, caches = model.prefill(params, {"tokens": toks[:, :S]}, cfg, cache_len=S + 8)
-    l_full, _ = model.prefill(params, {"tokens": toks[:, :S + 1]}, cfg, cache_len=S + 8)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    extra = _extra(cfg, rng, B)
+    _, caches = model.prefill(params, _tbatch(toks[:, :S], extra), cfg, cache_len=S + 8)
+    l_full, _ = model.prefill(params, _tbatch(toks[:, :S + 1], extra), cfg, cache_len=S + 8)
+    toks = _t(toks)
     l_dec, _ = model.decode_step(params, toks[:, S:S + 1], caches, S, cfg)
     err = float((l_dec.float() - l_full.float()).abs().max())
     assert err < PREFILL_DECODE_TOL.get(arch, BF16_ATOL), (arch, err)
@@ -349,18 +407,24 @@ def test_packed_prompt_equals_tokens_bit_for_bit():
 def test_packed_prompt_at_each_familys_k(arch):
     """The smoke config with the full config's vocabulary, so that the
     prompt packs at the family's own k (mamba2 16, hymba 15, deepseek 17,
-    llama4 18 bits): packed ≡ tokens bit for bit, one bitunpack."""
+    llama4 18, whisper 16, llava 16 bits): packed ≡ tokens bit for bit, the
+    cross-attention's ck/cv included, one bitunpack."""
     cfg = dataclasses.replace(get_smoke_config(arch), vocab=get_config(arch).vocab)
     k = model.token_bits(cfg)
     assert k == {"mamba2-370m": 16, "hymba-1.5b": 15, "deepseek-moe-16b": 17,
-                 "llama4-maverick-400b-a17b": 18}[arch]
+                 "llama4-maverick-400b-a17b": 18, "whisper-base": 16,
+                 "llava-next-34b": 16}[arch]
     params = model.init_params(cfg, 2, device="cpu")
-    toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, 4096)).astype(np.int64)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (1, 4096)).astype(np.int64)
+    extra = {k: _t(v).bfloat16() for k, v in _extra(cfg, rng, 1).items()}
     packed = np.stack([bitpack_encode(toks[0], k)])
     ops.reset_dispatch_count()
-    l_packed, c_packed = model.prefill(params, {"packed": _t(packed.view(np.int32))}, cfg)
+    l_packed, c_packed = model.prefill(params, {"packed": _t(packed.view(np.int32)), **extra},
+                                       cfg)
     assert ops.dispatch_count() == 1
-    l_tokens, c_tokens = model.prefill(params, {"tokens": _t(toks.astype(np.int32))}, cfg)
+    l_tokens, c_tokens = model.prefill(params, {"tokens": _t(toks.astype(np.int32)), **extra},
+                                       cfg)
     assert torch.equal(l_packed, l_tokens)
     for a, b in zip(c_packed, c_tokens):
         assert all(torch.equal(a[key], b[key]) for key in b)
@@ -385,16 +449,19 @@ def test_forward_train_and_grads_against_reference(arch, dtype):
     (relative L2 per leaf)."""
     cj, ct = _configs(arch, dtype)
     pj, pt = _params(cj, 0)
-    toks = np.random.default_rng(1).integers(0, cj.vocab, (2, 64)).astype(np.int32)
-    def jloss(p):
-        return jmodel.forward_train(p, {"tokens": jnp.asarray(toks)}, cj)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cj.vocab, (2, 64)).astype(np.int32)
+    extra = _extra(cj, rng, 2)
 
-    (lj, mj), gj = (jax.value_and_grad(jloss, has_aux=True)(pj) if dtype == "float32"
-                    else (jloss(pj), None))
+    def jloss(p):
+        return jmodel.forward_train(p, _jbatch(toks, extra), cj)
+
+    (lj, mj), gj = (jax.jit(jax.value_and_grad(jloss, has_aux=True))(pj) if dtype == "float32"
+                    else (jax.jit(jloss)(pj), None))
     leaves = jax.tree_util.tree_leaves(pt)
     for leaf in leaves:
         leaf.requires_grad_(dtype == "float32")
-    lt, mt = model.forward_train(pt, {"tokens": _t(toks)}, ct)
+    lt, mt = model.forward_train(pt, _tbatch(toks, extra), ct)
     atol = F32_ATOL if dtype == "float32" else BF16_ATOL
     np.testing.assert_allclose(float(lt.detach()), float(lj), atol=atol, rtol=0)
     np.testing.assert_allclose(float(mt["aux_loss"].detach()), float(mj["aux_loss"]),
@@ -408,33 +475,106 @@ def test_forward_train_and_grads_against_reference(arch, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,top,layer", [
+    ("whisper-base", {"enc_final_ln"}, {"x_ln1", "x_wq", "x_wk", "x_wv", "x_wo", "w1", "w2"}),
+    ("llava-next-34b", {"vis_proj"}, {"wg", "wu", "wo2"}),
+])
+def test_new_leaves_carry_across_bit_for_bit(arch, top, layer):
+    """The leaves that the two families add: whisper's `enc_final_ln`, its
+    decoder's cross-attention (`x_`) and gelu MLP leaves (`w1`, `w2`, in the
+    encoder too), llava's `vis_proj`; bf16 bit for bit, and `init_params`
+    draws the same shapes (`enc_final_ln` and `x_ln1` ones)."""
+    cj, _ = _configs(arch)
+    pj, pt = _params(cj, 3)
+    assert top <= set(pt) and layer <= set(pt["segments"][-1])
+    for name in top:
+        np.testing.assert_array_equal(pt[name].view(torch.int16).numpy().view(np.uint16),
+                                      np.asarray(pj[name]).view(np.uint16))
+    for seg_t, seg_j in zip(pt["segments"], pj["segments"]):
+        for name in layer & set(seg_j):
+            np.testing.assert_array_equal(seg_t[name].view(torch.int16).numpy().view(np.uint16),
+                                          np.asarray(seg_j[name]).view(np.uint16), err_msg=name)
+    drawn = model.init_params(get_smoke_config(arch), 0, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), jax.tree.map(np.asarray, pj)) == \
+        jax.tree.map(lambda t: tuple(t.shape), drawn, is_leaf=torch.is_tensor)
+    if arch == "whisper-base":
+        assert [(g.kind, g.count) for g in model.model_segments(get_config(arch))] == \
+            [("enc", 6), ("decx", 6)]
+        for w in (drawn["enc_final_ln"], drawn["segments"][1]["x_ln1"]):
+            assert torch.equal(w, torch.ones_like(w))
+
+
+def test_vlm_prefill_ignores_embeds_as_the_reference_does():
+    """A trait of the reference that the port follows: `prefill` never reads
+    a VLM batch's `embeds`, so its logits and caches are the same bit for bit
+    with and without them, in both packages (float32); the port's
+    `forward_train` does prepend them, and its loss moves (its value against
+    the reference's is test_forward_train_and_grads_against_reference's)."""
+    cj, ct = _configs("llava-next-34b", "float32")
+    pj, pt = _params(cj, 6)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cj.vocab, (2, 40)).astype(np.int32)
+    extra = _extra(cj, rng, 2)
+    with_j, cache_wj = jmodel.prefill(pj, _jbatch(toks, extra), cj)
+    without_j, cache_j = jmodel.prefill(pj, _jbatch(toks, {}), cj)
+    with_t, cache_wt = model.prefill(pt, _tbatch(toks, extra), ct)
+    without_t, cache_t = model.prefill(pt, _tbatch(toks, {}), ct)
+    np.testing.assert_array_equal(np.asarray(with_j), np.asarray(without_j))
+    assert all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+               for a, b in zip(cache_wj, cache_j) for k in a)
+    assert torch.equal(with_t, without_t)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(cache_wt, cache_t) for k in a)
+    np.testing.assert_allclose(with_t.numpy(), np.asarray(with_j), atol=F32_ATOL, rtol=F32_RTOL)
+    lt, _ = model.forward_train(pt, _tbatch(toks, extra), ct)
+    lt0, _ = model.forward_train(pt, _tbatch(toks, {}), ct)
+    assert float(lt) != float(lt0)
+
+
+def test_encoder_frames_reach_the_decoder():
+    """whisper smoke at float32: other frames give other logits and
+    cross-attention caches, the self-attention caches of layer 0 stay (they
+    see only tokens); decode over the prefill's ck/cv equals the reference's
+    (F32_ATOL)."""
+    cj, ct = _configs("whisper-base", "float32")
+    pj, pt = _params(cj, 7)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cj.vocab, (1, 33)).astype(np.int32)
+    a, b = _extra(cj, rng, 1), _extra(cj, rng, 1)
+    la, ca = model.prefill(pt, _tbatch(toks[:, :32], a), ct, cache_len=40)
+    lb, cb = model.prefill(pt, _tbatch(toks[:, :32], b), ct, cache_len=40)
+    assert ca[0] == {} and cb[0] == {}
+    assert not torch.equal(la, lb) and not torch.equal(ca[1]["ck"], cb[1]["ck"])
+    assert torch.equal(ca[1]["k"][0], cb[1]["k"][0])
+    assert tuple(ca[1]["ck"].shape) == (ct.n_layers, 1, ct.encoder_seq, ct.n_kv, ct.head_dim)
+    _, cj1 = jmodel.prefill(pj, _jbatch(toks[:, :32], a), cj, cache_len=40)
+    dj, cj2 = jmodel.decode_step(pj, jnp.asarray(toks[:, 32:]), cj1, jnp.int32(32), cj)
+    dt, ct2 = model.decode_step(pt, _t(toks[:, 32:]), ca, 32, ct)
+    assert ct2[0] == {}
+    _assert_close(dt, dj, ct2, cj2, F32_ATOL, F32_RTOL)
+
+
+# ---------------------------------------------------------------------------
 # what the slice does not port yet
 # ---------------------------------------------------------------------------
 
 
 def test_later_pieces_raise_naming_the_roadmap_item():
-    """What still raises: the enc-dec and VLM families (A.5b-ii), the
-    non-gated gelu MLP, and anything under a mesh, the expert-parallel
-    moe_ffn included (A.6)."""
-    assert list_archs() == ["llama4_maverick_400b", "deepseek_moe_16b", "qwen3_1_7b",
-                            "gemma_7b", "mistral_large_123b", "granite_3_8b", "mamba2_370m",
-                            "hymba_1_5b"]
+    """Every architecture resolves, as in the reference; what still raises
+    is anything under a mesh, the expert-parallel moe_ffn included (A.6)."""
+    assert list_archs() == jlist_archs() and len(list_archs()) == 10
+    for arch in list_archs():
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(jget_smoke(arch))
     for arch in ("deepseek-moe-16b", "mamba2-370m", "hymba-1.5b", "llama4-maverick-400b",
-                 "llama4-maverick-400b-a17b"):
-        assert get_config(arch).family in ("moe", "ssm", "hybrid")
-    for arch in ("whisper-base", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5b-ii"):
-            get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5b-ii"):
-            get_config(arch)
-    qwen = get_smoke_config("qwen3-1.7b")
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5b-ii"):
-            model.param_shapes(dataclasses.replace(qwen, family=family))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5b-ii"):
-        model.param_shapes(dataclasses.replace(qwen, encoder_layers=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5b-ii"):
-        model.param_shapes(dataclasses.replace(qwen, act="gelu"))
+                 "llama4-maverick-400b-a17b", "whisper-base", "llava-next-34b"):
+        assert get_config(arch).family in ("moe", "ssm", "hybrid", "audio", "vlm")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("whisper-large")
     x = torch.zeros(2, 3)
     assert constrain(x, ("batch", None), local_ctx()) is x
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):

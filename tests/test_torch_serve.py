@@ -3,10 +3,12 @@ granite smoke config at float32 (converted parameters, the requests of
 tests/test_serve.py): the same tokens per request and the same number of
 ticks; then drain semantics and greedy determinism as tests/test_serve.py
 checks them, and the engine's device rules.  The same comparison on the
-mamba2, hymba, deepseek-moe and llama4 smoke configs (hymba's prompts and
-new tokens run its 32-slot rings past their wrap), and the batched cache
-that the first admission builds: the SSM's float32 state and the rings
-spliced slot by slot."""
+mamba2, hymba, deepseek-moe, llama4, whisper and llava smoke configs
+(hymba's prompts and new tokens run its 32-slot rings past their wrap; both
+engines serve whisper from frames of zeros and llava without reading an
+image), and the batched cache that the first admission builds: the SSM's
+float32 state and the rings spliced slot by slot, whisper's empty encoder
+segment and its unpadded ck/cv."""
 
 import dataclasses
 
@@ -22,6 +24,7 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import model
 from repro_torch.models.model import params_from_reference
+from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import Request, ServeEngine
 
 
@@ -103,7 +106,8 @@ def test_engine_device_rules(served):
         ServeEngine(meta, cfg, device="cpu")
 
 
-FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b"]
+FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
+            "whisper-base", "llava-next-34b"]
 
 
 def _family(arch, dtype="float32"):
@@ -154,3 +158,60 @@ def test_batched_cache_keeps_each_leafs_dtype_and_ring():
         for b, s in zip(eng.caches, one):
             assert all(torch.equal(b[k][:, slot:slot + 1], s[k]) for k in s)
     assert all(not c[k][:, 2].any() for c in eng.caches for k in c)  # slot 2 never admitted
+
+
+def test_encdec_batched_cache_and_the_zero_frames(monkeypatch):
+    """whisper smoke in bfloat16: the batched cache keeps the encoder
+    segment's `{}` and the decoder's ck/cv at the encoder's 48 frames (not
+    padded to max_len); every admission's prefill sees 48 frames of zeros in
+    bfloat16 on the engine's device, and llava's sees 16 vision embeddings
+    of zeros, as the reference's engine builds them."""
+    seen = []
+    prefill = engine_mod.prefill
+
+    def spy(p, batch, c, *a, **kw):
+        seen.append({k: (tuple(v.shape), v.dtype, v.device.type, bool(v.any()))
+                     for k, v in batch.items() if k != "tokens"})
+        return prefill(p, batch, c, *a, **kw)
+
+    monkeypatch.setattr(engine_mod, "prefill", spy)
+    rng = np.random.default_rng(13)
+    _, cfg, _, params = _family("whisper-base", "bfloat16")
+    eng = ServeEngine(params, cfg, n_slots=2, max_len=64, device="cpu")
+    for i, n in enumerate((12, 30)):
+        eng.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)), max_new_tokens=3))
+    eng._admit()
+    _, cfg_l, _, params_l = _family("llava-next-34b", "bfloat16")
+    vlm = ServeEngine(params_l, cfg_l, n_slots=1, max_len=32, device="cpu")
+    vlm.submit(Request(rid=0, tokens=rng.integers(0, cfg_l.vocab, (9,)), max_new_tokens=2))
+    vlm._admit()
+    frames = ((1, cfg.encoder_seq, cfg.d_model), torch.bfloat16, "cpu", False)
+    assert seen == [{"enc_embeds": frames}] * 2 + [
+        {"embeds": ((1, cfg_l.vision_tokens, cfg_l.d_model), torch.bfloat16, "cpu", False)}]
+    assert eng.caches[0] == {}
+    c = eng.caches[1]
+    assert c["k"].shape[:3] == (cfg.n_layers, 2, 64)
+    assert c["ck"].shape[:3] == (cfg.n_layers, 2, cfg.encoder_seq)
+    assert len(eng.run_until_drained()) == 2 and eng.caches[0] == {}
+
+
+def test_argmax_over_the_padded_vocabulary_as_the_reference():
+    """A trait of the reference that the port follows: the engine takes the
+    argmax over all vocab_padded logits: nothing keeps it off the padded
+    columns of the head, which init draws as it draws the real ones.  qwen3
+    smoke (512 ids padded to 2,048, the head tied to the embedding) with the
+    padded rows, which no token < vocab looks up, scaled by 100 on both
+    sides: both engines hand out the same ids >= vocab."""
+    cfg_j, cfg_t, params_j, params_t = _family("qwen3-1.7b")
+    assert cfg_t.tie_embeddings
+    params_j = {**params_j, "embed": params_j["embed"].at[cfg_j.vocab:].multiply(100.0)}
+    params_t["embed"][cfg_t.vocab:] *= 100.0
+    outs = []
+    for eng, req in ((JServeEngine(params_j, cfg_j, n_slots=3, max_len=96), JRequest),
+                     (ServeEngine(params_t, cfg_t, n_slots=3, max_len=96, device="cpu"), Request)):
+        for r in _requests(req, cfg_j.vocab):
+            eng.submit(r)
+        outs.append({r.rid: r.out for r in eng.run_until_drained()})
+    assert outs[0] == outs[1]
+    ids = [t for o in outs[1].values() for t in o]
+    assert max(ids) >= cfg_t.vocab and max(ids) < cfg_t.vocab_padded

@@ -2,7 +2,8 @@
 `layers.softmax_xent`, `repro_torch.train.loop`, `repro_torch.launch.train`)
 against the JAX package's, on parameters converted by
 `params_from_reference`: the loss, packed ≡ tokens, gradients, whole train
-steps (1 and 2 microbatches), remat, the smoke train step of the four dense
+steps (1 and 2 microbatches; whisper's and llava's on batches that carry
+frames or vision embeddings), remat, the smoke train step of the four dense
 architectures, `tests/test_system.py::test_train_e2e_with_datapath`, a
 resume of the JAX package's training run by the port, and the launcher.
 
@@ -216,6 +217,36 @@ def test_train_step_against_reference(microbatches):
         assert _rel(got, want) <= PARAM_REL
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
+def test_train_step_with_family_inputs_against_reference(arch):
+    """Two microbatches of 2 on batches that carry whisper's frames
+    (`enc_embeds`) or llava's vision embeddings (`embeds`), bfloat16 inputs
+    to a float32 model as tests/test_models.py makes them: `make_train_step`
+    splits every batch key by microbatch as the reference's does, and two
+    steps match `jax.jit(make_train_step)`'s loss (F32_ATOL), grad norm and
+    parameters (PARAM_REL)."""
+    cj, ct = _configs(arch, dtype="float32", microbatches=2)
+    pj, pt = _params(cj, 8)
+    optkw = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(8)
+    toks = _tokens(cj, 8, b=4)
+    key = "enc_embeds" if cj.is_encdec else "embeds"
+    n = cj.encoder_seq if cj.is_encdec else cj.vision_tokens
+    extra = rng.standard_normal((4, n, cj.d_model)).astype(np.float32)
+    jbatch = {"tokens": jnp.asarray(toks), key: jnp.asarray(extra, jnp.bfloat16)}
+    tbatch = {"tokens": torch.from_numpy(toks), key: torch.from_numpy(extra).bfloat16()}
+    jstep = jax.jit(jmake_train_step(cj, JOptConfig(**optkw), None))
+    tstep = make_train_step(ct, OptConfig(**optkw))
+    js, ts = jinit_opt_state(pj, JOptConfig(**optkw)), init_opt_state(pt, OptConfig(**optkw))
+    for _ in range(2):
+        pj, js, mj = jstep(pj, js, jbatch)
+        pt, ts, mt = tstep(pt, ts, tbatch)
+        np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]), atol=F32_ATOL, rtol=0)
+        np.testing.assert_allclose(float(mt["grad_norm"]), float(mj["grad_norm"]), rtol=1e-5)
+    for got, want in _pairs(pt, pj):
+        assert _rel(got, want) <= PARAM_REL
+
+
 def test_microbatches_accumulate_the_whole_batch():
     """2 microbatches of 2 against 1 batch of 4: the mean of the two halves'
     mean losses is the whole batch's, and so are the averaged grads."""
@@ -248,6 +279,31 @@ def test_remat_is_bit_identical(remat_policy):
         out.append((loss, torch.autograd.grad(loss, tree_leaves(params))))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.parametrize("remat_policy", ["full", "dots"])
+def test_remat_carries_gradients_to_the_encoder(remat_policy):
+    """whisper smoke at float32: the encoder's output enters every
+    checkpointed decoder layer as an argument, so with remat the loss and
+    every gradient, the encoder's leaves and `enc_final_ln` included, equal
+    the run without remat bit for bit, and the encoder's are not zero."""
+    _, ct = _configs("whisper-base", dtype="float32")
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.from_numpy(_tokens(ct, 7)),
+             "enc_embeds": torch.from_numpy(
+                 rng.standard_normal((B, ct.encoder_seq, ct.d_model)).astype(np.float32))}
+    out = []
+    for cfg in (ct, dataclasses.replace(ct, remat=True, remat_policy=remat_policy)):
+        params = model.init_params(cfg, 7, device="cpu")
+        tree_map(lambda p: p.requires_grad_(True), params)
+        loss, _ = model.forward_train(params, batch, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((loss, dict(zip(map(id, tree_leaves(params)), grads)), params))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1].values(), out[1][1].values()))
+    grads, params = out[1][1], out[1][2]
+    for leaf in (params["enc_final_ln"], *params["segments"][0].values()):  # the encoder's
+        assert grads[id(leaf)].abs().max() > 0
 
 
 def test_dots_policy_saves_only_the_unbatched_matmuls():
