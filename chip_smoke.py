@@ -250,9 +250,27 @@ E. the enc-dec and VLM families at full width, one model at a time, each
    trained in bf16 at full width: 4 AdamW steps (tests/test_system.py's
    OptConfig) on one batch of 8 x 448 tokens with random frames, the losses
    finite and falling, step ms, tokens/s and peak device memory;
+D. serving under a device mesh: NCCL initialized at world size 1 on a
+   HashStore and a (data=1, model=1) mesh from `distributed.compat.
+   make_mesh` on the card, every launch count set to 0 at the phase's start
+   and read at its end; qwen3-1.7b at full width from --seed's bf16
+   parameters, placed as DTensors by `sharding.shard_params`: (a) a 4-slot
+   ServeEngine drains phase 9's four prompts with 16 new tokens each under
+   the mesh (strategy tp) and without it, the same tokens; a 1,024-token
+   prefill's logits under the mesh against without it (largest difference
+   printed; bit for bit is expected on one rank, within 1e-3 relative L2
+   held); prefill ms, decode ms per tick, tokens/s and, from
+   torch.profiler, one decode tick's idle share, each under the mesh and
+   without it (what DTensor's dispatch costs the host); (b) a 4,096-token
+   prompt bit-packed through `prefill` under the mesh: bitunpack launched
+   once on the rank's own shard of the words, and nothing else in the
+   phase, the logits equal to the tokens prefill's under the mesh; (c) the
+   serve launcher, `launch.serve.main` on qwen3-1.7b at full width on the
+   card, 16 requests: requests, tokens, tokens/s and ticks; (d) the process
+   group destroyed;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
-   phases 9, T, M and E, must be > 0);
+   phases 9, T, M, E and D, must be > 0; phase D's as `launches_dist`);
 11. print the device line last.
 """
 
@@ -271,6 +289,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -297,13 +316,15 @@ from repro_torch.datapath import (  # noqa: E402
     StorageFault,
     jain_index,
 )
-from repro_torch.distributed.sharding import local_ctx  # noqa: E402
+from repro_torch.distributed.compat import BACKENDS, make_mesh  # noqa: E402
+from repro_torch.distributed.sharding import ShardingCtx, local_ctx, shard_params  # noqa: E402
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
 from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.lakeformat.encodings import bitpack_encode, rle_encode  # noqa: E402
 from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import layers, model, moe  # noqa: E402
 from repro_torch.models.transformer import _proj_qkv  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -3064,11 +3085,142 @@ def encdec_vlm_phase(seed: int, device: str = "cuda") -> dict:
     return total
 
 
+MESH_SHAPE = (1, 1)  # (data, model) on the one card
+MESH_NEW_TOKENS = 16
+MESH_REL_TOL = 1e-3  # (a) prefill logits under the mesh against without, relative L2
+SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "16"]  # (c), the launcher's other options its own
+
+
+def served_on(params, cfg, ctx, reqs, device) -> dict:
+    """Drain copies of `reqs` on a 4-slot engine: their tokens, the ticks,
+    the median decode tick's wall ms, tokens/s and, from torch.profiler, the
+    device busy ms of one more decode tick of all four slots (the third)."""
+    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, ctx=ctx, device=device)
+    mine = [Request(rid=r.rid, tokens=r.tokens, max_new_tokens=MESH_NEW_TOKENS) for r in reqs]
+    for r in mine:
+        eng.submit(r)
+    ticks = []
+    busy = None
+    while eng.queue or any(s is not None for s in eng.slots):
+        if len(ticks) == 2 and busy is None:
+            busy = profiled(eng.step)[:2]
+            continue
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = eng.step()
+        torch.cuda.synchronize()
+        ticks.append((n, (time.perf_counter() - t) * 1e3))
+    decode_ms = [ms for _, ms in ticks[1:]]
+    return {"tokens": {r.rid: r.out for r in mine}, "ticks": eng.steps,
+            "tick_ms": sorted(decode_ms)[len(decode_ms) // 2],
+            "tokens_per_s": sum(n for n, _ in ticks[1:]) / (sum(decode_ms) / 1e3),
+            "busy_ms": busy[0], "top": busy[1]}
+
+
+def prefill_ms(params, cfg, ctx, tokens: torch.Tensor) -> float:
+    """Warm wall ms of one prefill of `tokens` on the engine's caches."""
+    model.prefill(params, {"tokens": tokens}, cfg, ctx, cache_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.prefill(params, {"tokens": tokens}, cfg, ctx, cache_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def mesh_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase D.  Returns the kernel launches of its window, the whole phase."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_kernel_launches()
+    dist.init_process_group(BACKENDS[device], store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), device=device)
+        ctx = ShardingCtx(mesh=mesh, strategy="tp")
+        cfg = get_config(LM_ARCH)
+        rng = np.random.default_rng(seed)
+        params = model.init_params(cfg, seed, device=device)
+        sharded = shard_params(params, cfg, ctx)
+        log(f"      {cfg.arch_id} at full width in {cfg.dtype} from seed {seed}; mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} over {dist.get_backend()}, "
+            f"strategy {ctx.strategy}; embed placed {tuple(sharded['embed'].placements)}")
+
+        # (a) the engine under the mesh and without it
+        reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)))
+                for i, n in enumerate(LM_PROMPTS)]
+        runs = {label: served_on(p, cfg, c, reqs, device)
+                for label, p, c in (("mesh", sharded, ctx), ("none", params, None))}
+        got = {label: run["tokens"] for label, run in runs.items()}
+        if got["mesh"] != got["none"] or runs["mesh"]["ticks"] != runs["none"]["ticks"]:
+            raise AssertionError("(a) the engine under the mesh gave other tokens or ticks than "
+                                 "without it")
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_PROMPTS[0])).astype(np.int32)
+                               ).to(device)
+        l_mesh = model.prefill(sharded, {"tokens": seq}, cfg, ctx)[0].full_tensor().float()
+        l_none = model.prefill(params, {"tokens": seq}, cfg)[0].float()
+        err = float((l_mesh - l_none).abs().max())
+        rel = float((l_mesh - l_none).norm() / l_none.norm())
+        if not rel <= MESH_REL_TOL:
+            raise AssertionError(f"(a) prefill logits under the mesh differ from without it: "
+                                 f"relative L2 {rel} > {MESH_REL_TOL}")
+        n_tokens = sum(len(o) for o in got["mesh"].values())
+        log(f"      (a) {len(reqs)} requests of {list(LM_PROMPTS)} tokens, {MESH_NEW_TOKENS} new "
+            f"each ({n_tokens} tokens), on {LM_SLOTS} slots in {runs['mesh']['ticks']} ticks: "
+            f"the same tokens under the mesh and without it; {LM_PROMPTS[0]}-token prefill "
+            f"logits under the mesh against without: max |diff| {err:.3e}, relative L2 "
+            f"{rel:.3e} ({'bit for bit' if err == 0 else 'not bit for bit'}; tolerance "
+            f"{MESH_REL_TOL})")
+        for label, p, c in (("mesh", sharded, ctx), ("none", params, None)):
+            run = runs[label]
+            ms = prefill_ms(p, cfg, c, seq)
+            log(f"      (a) {label}: prefill_ms ({LM_PROMPTS[0]} tokens, warm) {ms:.2f}; "
+                f"decode_ms per tick (median) {run['tick_ms']:.2f}, tokens/s "
+                f"{run['tokens_per_s']:.1f}; one decode tick: busy_ms={run['busy_ms']:.3f} "
+                f"idle_share={1 - run['busy_ms'] / run['tick_ms']:.3f} top={run['top']}")
+        del runs
+
+        # (b) a packed prompt under the mesh: one bitunpack on the rank's own words
+        k_bits = model.token_bits(cfg)
+        toks = rng.integers(0, cfg.vocab, (1, PACKED_LEN)).astype(np.int64)
+        packed = torch.from_numpy(np.stack([bitpack_encode(toks[0], k_bits)]).view(np.int32))
+        before = ops.kernel_launches()
+        l_packed = model.prefill(sharded, {"packed": packed.to(device)}, cfg, ctx)[0]
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        one = {k: after[k] - before[k] for k in after}
+        l_tokens = model.prefill(sharded, {"tokens": torch.from_numpy(toks.astype(np.int32))
+                                           .to(device)}, cfg, ctx)[0]
+        if one != dict(dict.fromkeys(ops.KERNELS, 0), bitunpack=1):
+            raise AssertionError(f"(b) the packed prefill under the mesh launched {one}, not one "
+                                 "bitunpack")
+        if not torch.equal(l_packed.full_tensor(), l_tokens.full_tensor()):
+            raise AssertionError("(b) the packed prefill under the mesh differs from the tokens "
+                                 "prefill")
+        log(f"      (b) {PACKED_LEN}-token prompt packed at k={k_bits} under the mesh: one "
+            "bitunpack launch on the rank's shard, logits bit-identical to the tokens prefill")
+        del sharded, params
+
+        # (c) the serve launcher
+        stats = serve_launcher.main(SERVE_ARGS + ["--device", device])
+        if stats["requests"] != 16 or stats["tokens"] != 16 * 16:
+            raise AssertionError(f"(c) the serve launcher drained {stats}")
+        log(f"      (c) launch.serve {' '.join(SERVE_ARGS)}: {stats['requests']} requests, "
+            f"{stats['tokens']} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
+            f"{stats['ticks']} ticks in {stats['seconds']:.2f} s")
+    finally:
+        # (d)
+        dist.destroy_process_group()
+    launches = ops.kernel_launches()
+    if launches != dict(dict.fromkeys(ops.KERNELS, 0), bitunpack=1):
+        raise AssertionError(f"phase D launched {launches}, not one bitunpack")
+    log("      (d) process group destroyed")
+    return launches
+
+
 def kernels_line(records: dict, by_order: dict, once: dict) -> list:
     """Phase 10's record of each kernel: phase 3's numbers and its launches,
     summed over every counted window.  `by_order` maps a window's key (its
     name in the record) to its launches by file order, {order: {kernel: n}};
-    `once` a window run once (phases 9, T, M and E) to {kernel: n}."""
+    `once` a window run once (phases 9, T, M, E and D) to {kernel: n}."""
     kernels = []
     for name, kern in ops.KERNELS.items():
         path, stack = records[name]["cases"][0], records[name]["cases"][1]
@@ -3268,6 +3420,12 @@ def main(argv=None) -> int:
     ev_launches = encdec_vlm_phase(args.seed)
     log(f"      launches {ev_launches}; phase E took {time.perf_counter() - t0:.1f} s")
 
+    # phase D
+    t0 = time.perf_counter()
+    log(f"[D] serving under a device mesh on the card: {LM_ARCH} at full width")
+    dist_launches = mesh_phase(args.seed)
+    log(f"      launches {dist_launches}; phase D took {time.perf_counter() - t0:.1f} s")
+
     # phase 10
     kernels = kernels_line(records, {
         "launches_by_order": launches, "launches_batched_pushdown_by_order": batched_launches,
@@ -3275,12 +3433,14 @@ def main(argv=None) -> int:
         "launches_service_by_order": service_launches,
         "launches_fabric_by_order": fabric_launches,
     }, {"launches_lm": lm_launches, "launches_train": train_launches,
-        "launches_families": family_launches, "launches_encdec_vlm": ev_launches})
+        "launches_families": family_launches, "launches_encdec_vlm": ev_launches,
+        "launches_dist": dist_launches})
     print(json.dumps({"kernels": kernels}), flush=True)
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the query, batched, offload, service, "
-                             f"fabric, LM, training, families' or enc-dec/VLM paths: {idle}")
+                             f"fabric, LM, training, families', enc-dec/VLM or mesh paths: "
+                             f"{idle}")
 
     # phase 11
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
-"""Distributed runtime: the one-device sharding context and the scan
-fabric's ring and fault-tolerance policies (the rest of `repro.distributed`
-waits for ROADMAP.md item A.6)."""
+"""Distributed runtime: sharding rules and the device mesh, the scan
+fabric's ring and fault-tolerance policies (the gradient collectives of
+`repro.distributed.collectives` wait for ROADMAP.md item A.6b)."""
 
 from repro_torch.distributed.fault_tolerance import (  # noqa: F401
     HeartbeatMonitor,
@@ -16,4 +16,5 @@ from repro_torch.distributed.sharding import (  # noqa: F401
     constrain,
     local_ctx,
     rg_key,
+    spec_for,
 )

@@ -19,7 +19,7 @@ The *policies* are built and tested against simulated telemetry:
                       and say which row-group keys re-home where
 
 The mechanisms a RestartPlan triggers on a mesh (checkpoint restore and
-re-sharding) wait for ROADMAP.md item A.6; the fabric's drain is real
+re-sharding) wait for ROADMAP.md item A.6b; the fabric's drain is real
 (`datapath/fabric.py`).
 """
 

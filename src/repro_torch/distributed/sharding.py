@@ -1,10 +1,30 @@
-"""Sharding: the one-device part of `repro/distributed/sharding.py`, and the
-scan fabric's consistent-hash ring.
+"""Sharding rules: logical tensor dims -> mesh placements, plus the scan
+fabric's consistent-hash ring (`HashRing`) mapping row groups to pods.
 
-`ShardingCtx` as `local_ctx()` builds it (no mesh), and `constrain`, which
-is the identity without a mesh.  Meshes, `spec_for` and the sharding rules
-wait for ROADMAP.md item A.6; `constrain` under a mesh raises
-`NotImplementedError` naming it.
+Port of `repro/distributed/sharding.py`.  Every tensor is described by
+*logical* dims ('batch', 'seq', 'd', 'ff', 'heads', 'vocab', 'experts',
+...).  `spec_for` maps them onto the mesh's dims (pod, data, model) with the
+reference's rules, entry for entry as its `PartitionSpec`:
+
+  batch    -> (pod, data)   pure DP across pods + DP within a pod
+  vocab/ff/heads/experts -> model   (TP / EP)
+  d/hd_out -> data          (FSDP: parameters sharded over the data axis,
+                             gathered at use)
+  seq      -> model ONLY when requested ('seq_tp': sequence-parallel
+              attention / flash-decode KV sharding)
+
+The reference's GSPMD only annotates and keeps the math global; its torch
+counterpart is DTensor.  `placements_for` turns a spec into one DTensor
+placement per mesh dim (a tuple entry shards one tensor dim over several
+mesh dims, major to minor in mesh order, as `NamedSharding` does),
+`shard_params` places parameters by `param_dims`, and `constrain`
+redistributes an activation to the strategy-aware spec
+(`activation=True`).  A plain tensor given to `constrain` is taken as a
+replicated value.  The reference requires annotated dims to divide the
+axis size, so every rule is guarded: a non-divisible dim degrades to
+replicated, and `placements_for` refuses an uneven shard, which DTensor
+itself would allow.  A spec that names one mesh axis twice raises
+`DuplicateSpecError`, as `NamedSharding` does.
 
 `rg_key` and `HashRing` map row groups to the fabric's pods
 (`datapath/fabric.py`), key for key as the reference's do: both hash with
@@ -16,28 +36,72 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import hashlib
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 # the ROADMAP.md section A item that the NotImplementedError messages name
-DISTRIBUTED = "A.6 distributed and launch"
+TRAINING_MESH = "A.6b training, and the SSM, hybrid, enc-dec and VLM families, under a mesh"
+
+# logical dim -> mesh axis role
+_TP_DIMS = frozenset({"vocab", "ff", "heads", "kv", "experts", "moe_ff", "inner", "seq_tp",
+                      "state_tp"})
+_FSDP_DIMS = frozenset({"d", "fsdp"})
+_DP_DIMS = frozenset({"batch"})
+
+Spec = Tuple[Any, ...]  # one entry per tensor dim: None, an axis name or a tuple of names
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {DISTRIBUTED})")
+class DuplicateSpecError(ValueError):
+    """A spec maps one mesh axis to two tensor dims (JAX's error of the same
+    name)."""
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingCtx:
-    """The reference's context less its axis names and activation strategy,
-    which only a mesh reads."""
-
-    mesh: Optional[Any] = None
+    mesh: Optional[Any] = None  # a DeviceMesh (anything with a `.shape` mapping for the rules)
+    dp_axes: Tuple[str, ...] = ("data",)  # ('pod','data') on the multi-pod mesh
+    fsdp_axis: str = "data"
+    tp_axis: str = "model"
+    # Activation-sharding strategy (params always stay sharded):
+    #  'tp'      Megatron: activations TP-sharded on ff/heads, per-layer
+    #            all-reduces of (B_local, S, D)   [baseline]
+    #  'fsdp'    ZeRO-3: batch sharded over (dp x model), weights gathered
+    #            per layer, NO activation all-reduces
+    #  'fsdp_ep' as 'fsdp' but batch stays on dp only (MoE: the model axis
+    #            carries expert parallelism)
+    strategy: str = "tp"
 
     @property
     def enabled(self) -> bool:
         return self.mesh is not None
+
+    def axis_size(self, axes) -> int:
+        if self.mesh is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        sizes = _axis_sizes(self.mesh)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+
+    @property
+    def dp(self) -> int:
+        return self.axis_size(self.dp_axes)
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size(self.tp_axis)
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size}: a DeviceMesh's named dims, or the `.shape` mapping
+    of a JAX-style mesh."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return dict(zip(names, mesh.shape)) if names else mesh.shape
 
 
 def local_ctx() -> ShardingCtx:
@@ -45,12 +109,195 @@ def local_ctx() -> ShardingCtx:
     return ShardingCtx(mesh=None)
 
 
+def _axis_for(dim: Optional[str], ctx: ShardingCtx, activation: bool = False):
+    """Mesh axis (or candidate tuple list for batch) for a logical dim.
+
+    Params (activation=False) always keep storage sharding regardless of
+    strategy; activation constraints are strategy-dependent."""
+    if dim is None:
+        return None
+    if dim in _DP_DIMS:
+        if activation and ctx.strategy in ("fsdp", "fsdp_ep"):
+            # widest-first candidates; spec_for picks the first divisible
+            return [tuple(ctx.dp_axes) + (ctx.tp_axis,), tuple(ctx.dp_axes),
+                    (ctx.dp_axes[-1],)]
+        return [tuple(ctx.dp_axes), (ctx.dp_axes[-1],)]
+    if dim in _TP_DIMS:
+        if activation and ctx.strategy in ("fsdp", "fsdp_ep") and dim != "seq_tp":
+            return None  # ZeRO: no TP activation sharding (caches keep seq_tp)
+        return ctx.tp_axis
+    if dim in _FSDP_DIMS:
+        return ctx.fsdp_axis
+    return None
+
+
+def spec_for(dims: Sequence[Optional[str]], ctx: ShardingCtx,
+             shape: Optional[Sequence[int]] = None, activation: bool = False) -> Spec:
+    """The reference's PartitionSpec entries for logical dims, dropping
+    non-divisible annotations; () without a mesh."""
+    if not ctx.enabled:
+        return ()
+    entries = []
+    for i, dim in enumerate(dims):
+        ax = _axis_for(dim, ctx, activation)
+        if isinstance(ax, list):  # candidate tuples, widest first
+            chosen = None
+            for cand in ax:
+                if shape is None or shape[i] % ctx.axis_size(cand) == 0:
+                    chosen = cand if len(cand) > 1 else cand[0]
+                    break
+            ax = chosen
+        elif ax is not None and shape is not None:
+            if shape[i] % ctx.axis_size(ax) != 0:
+                ax = None  # degrade to replicated
+        entries.append(ax)
+    return tuple(entries)
+
+
+def placements_for(spec: Spec, mesh, shape: Optional[Sequence[int]] = None
+                   ) -> Tuple[Placement, ...]:
+    """One DTensor placement per mesh dim for a spec: `Shard(i)` on every
+    mesh dim of more than one rank that tensor dim i's entry names (a mesh
+    dim of one rank holds the whole tensor either way, and DTensor cannot
+    squeeze a size-1 dim that it counts as sharded).  A tuple entry must
+    list its axes in mesh order (DTensor shards over mesh dims major to
+    minor in that order, as the reference's tuple does).  With `shape`, an uneven shard
+    raises, as the reference's NamedSharding does."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    out: List[Placement] = [Replicate()] * len(names)
+    used = set()
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the mesh's order {names}")
+        n = 1
+        for a, m in zip(axes, where):
+            if a in used:
+                raise DuplicateSpecError(
+                    f"spec {spec} has duplicate entries for mesh axis {a!r}: a mesh axis "
+                    "can shard at most one tensor dim")
+            used.add(a)
+            if sizes[a] > 1:  # one shard is the whole: replicated, the same layout
+                out[m] = Shard(i)
+            n *= sizes[a]
+        if shape is not None and shape[i] % n:
+            raise ValueError(f"spec {spec}: dim {i} of {tuple(shape)} does not divide into {n} "
+                             "shards")
+    return tuple(out)
+
+
+def sharding_for(dims, ctx: ShardingCtx, shape=None, activation: bool = False
+                 ) -> Optional[Tuple[Placement, ...]]:
+    """The placements of a tensor with logical `dims` (the reference's
+    NamedSharding), or None without a mesh."""
+    if not ctx.enabled:
+        return None
+    return placements_for(spec_for(dims, ctx, shape, activation), ctx.mesh, shape)
+
+
+def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
+    """`x` as a DTensor on `mesh`: a plain tensor is taken as a replicated
+    value (every rank holds all of it)."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def from_local(t: torch.Tensor, mesh, placements, shape: Sequence[int]) -> DTensor:
+    """This rank's shard `t` of a tensor of `shape` with `placements`, as a
+    contiguous DTensor (no communication)."""
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                              shape=tuple(shape), stride=stride)
+
+
+def like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A plain tensor `t` made fit to combine with `x`: replicated on x's
+    mesh when x is a DTensor, else t itself."""
+    return as_dtensor(t, x.device_mesh) if isinstance(x, DTensor) else t
+
+
+def to_spec(x: torch.Tensor, spec: Spec, mesh) -> DTensor:
+    """`x` (a plain tensor: a replicated value) redistributed to `spec`."""
+    x = as_dtensor(x, mesh)
+    want = placements_for(spec, mesh, x.shape)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
 def constrain(x: torch.Tensor, dims: Sequence[Optional[str]], ctx: ShardingCtx) -> torch.Tensor:
     """The reference's sharding constraint on logical dims: the identity
-    without a mesh."""
+    without a mesh, else `x` redistributed to the strategy-aware spec."""
     if not ctx.enabled:
         return x
-    raise _later("sharding constraints under a mesh")
+    return to_spec(x, spec_for(dims, ctx, x.shape, activation=True), ctx.mesh)
+
+
+def shard_params(params, cfg, ctx: ShardingCtx):
+    """Every parameter as a DTensor placed by `spec_for(param_dims(cfg))`
+    (the reference's `tree_shardings` and `device_put`).  Each rank is taken
+    to hold the same full values (drawn from one seed, or converted) and
+    keeps its own shard without communication; a leaf that is already a
+    DTensor is left as it is."""
+    if not ctx.enabled:
+        return params
+    from repro_torch.models.model import param_dims
+
+    def put(p, dims):
+        if isinstance(p, DTensor):
+            return p
+        place = placements_for(spec_for(dims, ctx, p.shape), ctx.mesh, p.shape)
+        return distribute_tensor(p, ctx.mesh, place, src_data_rank=None)
+
+    def walk(p, d):
+        if isinstance(p, dict):
+            return {k: walk(v, d[k]) for k, v in p.items()}
+        if isinstance(p, list):
+            return [walk(v, dv) for v, dv in zip(p, d)]
+        return put(p, d)
+
+    return walk(params, param_dims(cfg))
+
+
+def local_range(x: DTensor, dim: int) -> Tuple[int, int]:
+    """(start, length) of this rank's shard along tensor dim `dim` of x
+    (even shards, major to minor over the mesh dims that shard it)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    start, n = 0, x.shape[dim]
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(m)
+            start += coord[m] * n
+    return start, n
+
+
+def shard_groups(x: DTensor, dim: int) -> List[Any]:
+    """The process groups of the mesh dims that shard tensor dim `dim`."""
+    return [x.device_mesh.get_group(m) for m, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def write_at(dst: torch.Tensor, dim: int, index: int, src: torch.Tensor) -> None:
+    """dst[index] along `dim` = src (size 1 along `dim`), in place, cast to
+    dst's dtype.  For a DTensor each rank writes its own shard: src is
+    brought to dst's placements but replicated along `dim`, and the rank
+    that holds `index` copies it into its local tensor."""
+    if not isinstance(dst, DTensor):
+        dst.narrow(dim, index, 1).copy_(src.to(dst.dtype))
+        return
+    mesh = dst.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in dst.placements]
+    src = as_dtensor(src, mesh)
+    if tuple(src.placements) != tuple(place):
+        src = src.redistribute(mesh, place)
+    start, n = local_range(dst, dim)
+    if start <= index < start + n:
+        dst.to_local().narrow(dim, index - start, 1).copy_(src.to_local().to(dst.dtype))
 
 
 def rg_key(path: str, rg: int) -> str:

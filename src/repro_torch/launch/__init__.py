@@ -1,2 +1,3 @@
-"""Launchers: the training CLI (port of `repro.launch`; its meshes, dry run
-and serving CLI wait for ROADMAP.md item A.6)."""
+"""Launchers: training, serving and the production mesh (port of
+`repro.launch`; training under a mesh waits for ROADMAP.md item A.6b, the
+specs and the dry run for A.6c)."""

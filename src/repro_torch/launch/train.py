@@ -5,7 +5,7 @@
 
 Port of `repro/launch/train.py` for one device: `--mesh none` (the
 default) trains on `--device` (the card unless asked for the CPU); the
-production meshes (`--mesh single|multi`) wait for ROADMAP.md item A.6.
+production meshes (`--mesh single|multi`) wait for ROADMAP.md item A.6b.
 `--smoke` swaps in the reduced config.
 """
 
@@ -33,13 +33,13 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.distributed.sharding import DISTRIBUTED
+    from repro_torch.distributed.sharding import TRAINING_MESH
     from repro_torch.models.config import not_ported
     from repro_torch.train.loop import train
     from repro_torch.train.optimizer import OptConfig
 
     if args.mesh != "none":
-        raise not_ported(f"--mesh {args.mesh} (the production meshes)", DISTRIBUTED)
+        raise not_ported(f"--mesh {args.mesh} (the production meshes)", TRAINING_MESH)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.microbatches > 1:
         cfg = dataclasses.replace(cfg, microbatches=args.microbatches)

@@ -1,15 +1,27 @@
-"""Shared model layers: norms, rotary, GQA attention, GLU MLPs, embeddings.
+"""Shared model layers: norms, rotary, GQA attention (TP- or SP-parallel),
+GLU MLPs, embeddings.
 
 Port of `repro/models/layers.py` (its `rmsnorm`, `rotary`, `attention`,
 `glu_mlp`, `embed_lookup`, `lm_head_logits` and `softmax_xent`) in plain
 PyTorch, with the reference's (B, S, H, hd) layout.  Attention keeps the
 reference's q-chunked form, which caps the live score tensor at
 (B, H, chunk, Skv), and its rule for a length that the chunk does not
-divide; the chunks run in a Python loop where the reference scans.  Only
-the one-device case ("none" parallelism) is ported: under a mesh
-`constrain` raises.  Training differentiates these plain operations with
-autograd, as the reference differentiates its `jnp` code with
-`jax.value_and_grad`.
+divide; the chunks run in a Python loop where the reference scans.
+Training differentiates these plain operations with autograd, as the
+reference differentiates its `jnp` code with `jax.value_and_grad`.
+
+Under a mesh the tensors are DTensors and the constraints redistribute
+them (distributed/sharding.py).  Attention parallelism is
+divisibility-driven, as in the reference:
+  - head-parallel (Megatron TP) when n_heads and n_kv divide the model axis,
+  - sequence-parallel otherwise (q sharded on Sq, K/V replicated),
+  - decode (Sq == 1, tp > 1) outside head-parallel shards the KV cache on
+    Skv (flash-decode).
+After the reference's constraints, each rank attends over its own shards
+(the body of a `shard_map`): heads and batch rows are independent, a q
+shard shifts its causal positions by its first row, and flash-decode
+combines the shards' softmax statistics with an all-reduce of the row
+maxima and of the sums over the mesh dims that shard the keys.
 """
 
 from __future__ import annotations
@@ -18,9 +30,18 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
-from repro_torch.distributed.sharding import ShardingCtx, constrain
+from repro_torch.distributed.sharding import (
+    ShardingCtx,
+    constrain,
+    from_local,
+    like,
+    local_range,
+    shard_groups,
+)
 
 # ---------------------------------------------------------------------------
 # norms / rotary
@@ -43,8 +64,8 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tens
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
     ang = positions.float()[:, :, None] * freqs[None, None, :]  # (B,S,half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
+    cos = like(torch.cos(ang)[:, :, None, :], x)
+    sin = like(torch.sin(ang)[:, :, None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -68,6 +89,30 @@ def _chunk_for(Sq: int, chunk: int) -> int:
     return chunk
 
 
+def _attn_parallelism(n_heads: int, n_kv: int, ctx: ShardingCtx) -> str:
+    tp = ctx.tp
+    if tp == 1 or ctx.strategy in ("fsdp", "fsdp_ep"):
+        return "none"  # ZeRO: attention fully local per batch shard
+    return "head" if (n_heads % tp == 0 and n_kv % tp == 0) else "seq"
+
+
+_BATCH = ("batch", None, None, None)
+
+
+def attn_dims(n_heads: int, n_kv: int, Sq: int, ctx: ShardingCtx):
+    """(q's, k's and v's) logical dims under the reference's three
+    constrained arms; batch alone elsewhere.  A decode cache is kept in its
+    step's k layout (`attn_dims(H, KV, 1, ctx)[1]`)."""
+    par = _attn_parallelism(n_heads, n_kv, ctx)
+    if par == "head":
+        return ("batch", None, "heads", None), ("batch", None, "kv", None)
+    if Sq == 1 and ctx.tp > 1:  # decode under any strategy: flash-decode
+        return _BATCH, ("batch", "seq_tp", None, None)
+    if par == "seq" and Sq > 1:
+        return ("batch", "seq_tp", None, None), _BATCH
+    return _BATCH, _BATCH
+
+
 def attention(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, KV, hd)
@@ -83,17 +128,37 @@ def attention(
 ) -> torch.Tensor:
     """Grouped-query attention, q-chunked.  Returns (B, Sq, H, hd) in q's
     dtype; scores and softmax in float32, masked scores -1e30."""
-    if ctx.enabled:  # head- or sequence-parallel attention: raises until A.6
-        constrain(q, ("batch", None, "heads", None), ctx)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    kw = dict(causal=causal, window=window, scale=scale, chunk=chunk, kv_valid_len=kv_valid_len)
+    if not ctx.enabled:
+        return _attend(q, k, v, q_offset=q_offset, **kw)
+    qd, kd = attn_dims(q.shape[2], k.shape[2], q.shape[1], ctx)
+    q, k, v = constrain(q, qd, ctx), constrain(k, kd, ctx), constrain(v, kd, ctx)
+    q0, _ = local_range(q, 1)
+    k0, _ = local_range(k, 1)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    groups = shard_groups(k, 1)
+    if groups:  # flash-decode: this rank's keys start at k0
+        out = _attend(ql, kl, vl, q_offset=q_offset + q0, k_offset=k0, groups=groups, **kw)
+    else:
+        out = _attend(ql, kl, vl, q_offset=q_offset + q0, **kw)
+    return from_local(out, q.device_mesh, q.placements, q.shape)
+
+
+def _attend(q, k, v, *, causal, window, scale, chunk, q_offset, kv_valid_len,
+            k_offset: int = 0, groups=()):
+    """The attention of plain tensors; `k_offset` is the position of k's
+    first key, and with `groups` the keys are one shard of those that the
+    ranks of `groups` hold together: the softmax takes the row maxima and
+    sums over all of them."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     rep = H // KV
-    scale = scale if scale is not None else hd ** -0.5
 
     qg = q.reshape(B, Sq, KV, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kg = k.permute(0, 2, 1, 3).float()  # (B,KV,Skv,hd)
     vg = v.permute(0, 2, 1, 3).float()
-    k_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)[None, :]
+    k_pos = (k_offset + torch.arange(Skv, dtype=torch.int32, device=q.device))[None, :]
 
     def attend(qc: torch.Tensor, qc_start: int) -> torch.Tensor:
         # qc: (B,KV,rep,C,hd)
@@ -109,8 +174,19 @@ def attention(
         if kv_valid_len is not None:
             m = m & (k_pos < kv_valid_len)
         s = torch.where(m[None, None, None], s, -1e30)
-        p = torch.softmax(s, dim=-1)
-        return torch.einsum("bkrcs,bksd->bkrcd", p, vg)
+        if not groups:
+            p = torch.softmax(s, dim=-1)
+            return torch.einsum("bkrcs,bksd->bkrcd", p, vg)
+        mx = torch.amax(s, dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
+        p = torch.exp(s - mx)
+        den = torch.sum(p, dim=-1, keepdim=True)
+        num = torch.einsum("bkrcs,bksd->bkrcd", p, vg)
+        for g in groups:
+            dist.all_reduce(den, group=g)
+            dist.all_reduce(num, group=g)
+        return num / den
 
     chunk = _chunk_for(Sq, chunk)
     if Sq <= chunk:
@@ -140,12 +216,32 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,
     """Rows of `embed` for `tokens`, ids clipped into [0, Vp) as the
     reference's `mode="clip"` does.  Gathered with `F.embedding`, whose
     CPU backward adds each row's gradients in a fixed order (plain
-    indexing's backward accumulates from threads in any order)."""
-    idx = tokens.long().clamp(0, embed.shape[0] - 1)
-    out = F.embedding(idx, embed)
+    indexing's backward accumulates from threads in any order).  A DTensor
+    table is read shard by shard (`_sharded_lookup`)."""
+    if isinstance(embed, DTensor):
+        out = _sharded_lookup(embed, tokens)
+    else:
+        out = F.embedding(tokens.long().clamp(0, embed.shape[0] - 1), embed)
     if scale:  # the factor rounded to the table's dtype first, as JAX's weak float is
         out = out * torch.tensor(math.sqrt(embed.shape[1]), dtype=out.dtype, device=out.device)
     return constrain(out, ("batch", None, None), ctx)
+
+
+def _sharded_lookup(embed: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup on each rank's shard of a (Vp, D) table: every rank takes
+    all the ids, reads the rows its vocab shard holds and zeros the others.
+    The result is a partial sum over the mesh dims that shard the vocab
+    (one shard holds each row; the others add exact zeros) and sharded on D
+    as the table is."""
+    idx = tokens.full_tensor() if isinstance(tokens, DTensor) else tokens
+    v0, nv = local_range(embed, 0)
+    i = idx.long().clamp(0, embed.shape[0] - 1) - v0
+    hit = (i >= 0) & (i < nv)
+    out = F.embedding(i.clamp(0, nv - 1), embed.to_local())
+    out = torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    place = [Partial() if isinstance(p, Shard) and p.dim == 0 else
+             Shard(idx.ndim) if isinstance(p, Shard) else p for p in embed.placements]
+    return from_local(out, embed.device_mesh, place, (*idx.shape, embed.shape[1]))
 
 
 def lm_head_logits(h: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:

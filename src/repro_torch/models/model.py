@@ -26,6 +26,13 @@ The enc-dec family (whisper) runs its encoder segment over
 encoder segment's cache is `{}`.  The VLM family (llava) prepends
 `batch["embeds"] @ vis_proj` to the token stream in `forward_train` only:
 `prefill`, like the reference's, never reads `embeds`.
+
+Under a mesh (`ctx` with a DeviceMesh) `prefill` and `decode_step` serve
+the dense and MoE families on DTensor parameters (`sharding.shard_params`):
+the inputs become DTensors at their first constraint, and a packed prompt is
+unpacked by `bitunpack` on each rank's own shard of the words, a plain
+tensor.  Training and the other families under a mesh raise
+`NotImplementedError` naming ROADMAP.md item A.6b.
 """
 
 from __future__ import annotations
@@ -36,10 +43,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import ShardingCtx, constrain, local_ctx
+from repro_torch.distributed.sharding import (
+    TRAINING_MESH,
+    ShardingCtx,
+    constrain,
+    from_local,
+    local_ctx,
+)
 from repro_torch.kernels import ops
 from repro_torch.lakeformat.encodings import LANES, PACK_BLOCK, bits_needed
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, not_ported
 from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm, softmax_xent
 from repro_torch.models.transformer import (
     Segment,
@@ -299,11 +312,29 @@ def unpack_tokens(packed: torch.Tensor, S: int, cfg: ModelConfig) -> torch.Tenso
     return flat.reshape(B, nb * PACK_BLOCK)[:, :S]
 
 
-def _tokens_from_batch(batch, cfg):
-    if "packed" in batch:
-        S = batch["packed"].shape[1] * PACK_BLOCK  # shapes are block-aligned by design
+def _tokens_from_batch(batch, cfg, ctx):
+    if "packed" not in batch:
+        return constrain(batch["tokens"], ("batch", None), ctx)
+    S = batch["packed"].shape[1] * PACK_BLOCK  # shapes are block-aligned by design
+    if not ctx.enabled:
         return unpack_tokens(batch["packed"], S, cfg)
-    return batch["tokens"]
+    # each rank unpacks its own rows of the words: the kernel sees a plain tensor
+    packed = constrain(batch["packed"], ("batch", None, None, None), ctx)
+    tokens = unpack_tokens(packed.to_local(), S, cfg)
+    tokens = from_local(tokens, ctx.mesh, packed.placements, (packed.shape[0], S))
+    return constrain(tokens, ("batch", None), ctx)
+
+
+MESH_FAMILIES = ("dense", "moe")  # what serves under a mesh (ROADMAP.md A.6a)
+
+
+def _mesh_check(cfg: ModelConfig, ctx: ShardingCtx, training: bool = False) -> None:
+    if not ctx.enabled:
+        return
+    if training:
+        raise not_ported("training under a mesh", TRAINING_MESH)
+    if cfg.family not in MESH_FAMILIES:
+        raise not_ported(f"the {cfg.family} family under a mesh", TRAINING_MESH)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +376,8 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     through `vis_proj` in front of the tokens, and every token is a label,
     the first predicted from the last vision position."""
     ctx = ctx or local_ctx()
-    tokens = _tokens_from_batch(batch, cfg)
+    _mesh_check(cfg, ctx, training=True)
+    tokens = _tokens_from_batch(batch, cfg, ctx)
     B, S = tokens.shape
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
     segs, seg_params, enc_out = _decoder(params, batch, cfg, ctx)
@@ -388,7 +420,8 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the encoder segment and `ck`/`cv` of (L, B, Se, KV, hd) beside "k", "v"
     for `decx`)."""
     ctx = ctx or local_ctx()
-    tokens = _tokens_from_batch(batch, cfg)
+    _mesh_check(cfg, ctx)
+    tokens = _tokens_from_batch(batch, cfg, ctx)
     B, S = tokens.shape
     cache_len = cache_len or S
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
@@ -409,9 +442,11 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ModelConfig,
     position it takes.  Writes its keys and values into `caches` in place
     and returns (logits (B, Vp), caches)."""
     ctx = ctx or local_ctx()
+    _mesh_check(cfg, ctx)
     segs, seg_params, dec_caches = model_segments(cfg), params["segments"], caches
     if cfg.is_encdec:  # the encoder ran at prefill: its segment is skipped
         segs, seg_params, dec_caches = segs[1:], seg_params[1:], caches[1:]
+    token = constrain(token, ("batch", None), ctx)
     h = embed_lookup(params["embed"], token, ctx, scale=cfg.embed_scale)
     h, _ = run_segments_decode(seg_params, segs, h, cfg, ctx, int(pos), dec_caches)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)

@@ -25,7 +25,10 @@ frames, the SSM's conv history (L, B, W-1, di+2N) and float32 state
 (L, B, H, P, N).  Sliding-window segments keep ring buffers of `window`
 slots (token t at slot t % window).  The decode step writes its caches in
 place (the reference returns updated copies), which saves a copy of every
-cache per token.
+cache per token.  Under a mesh the parameters, activations and caches are
+DTensors; a prefill's keys and values are kept in the decode step's layout
+(`layers.attn_dims`), so the step's constraint moves nothing, and the step
+writes its slot into each rank's own shard (`sharding.write_at`).
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, write_at
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import attention, glu_mlp, rmsnorm, rotary
+from repro_torch.models.layers import attention, attn_dims, glu_mlp, rmsnorm, rotary
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import ssm_decode_step, ssm_forward
 
@@ -128,9 +131,9 @@ def _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos: int, ring: bool):
     ring, else at `pos` (clamped into the cache as `dynamic_update_slice`
     clamps it) with pos + 1."""
     Smax = kcache.shape[1]
-    write_at = pos % Smax if ring else min(max(pos, 0), Smax - 1)
-    kcache[:, write_at] = k[:, 0].to(kcache.dtype)
-    vcache[:, write_at] = v[:, 0].to(vcache.dtype)
+    at = pos % Smax if ring else min(max(pos, 0), Smax - 1)
+    write_at(kcache, 1, at, k)
+    write_at(vcache, 1, at, v)
     valid = min(pos + 1, Smax) if ring else pos + 1
     return attention(q, kcache, vcache, ctx, causal=False, scale=cfg.attn_scale,
                      kv_valid_len=valid)
@@ -182,7 +185,7 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
     if kind in ("dense", "moe"):
         h, (k, v) = attn_train(h, lp, cfg, ctx, positions)
         if want_cache:
-            cache = {"k": _to_cache(k, cache_len), "v": _to_cache(v, cache_len)}
+            cache = {"k": _cache(k, cfg, ctx, cache_len), "v": _cache(v, cfg, ctx, cache_len)}
         if kind == "dense":
             h = mlp_block(h, lp, cfg, ctx)
         else:
@@ -193,8 +196,8 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
         h, (k2, v2) = attn_train(h, lp, cfg, ctx, positions, prefix="b_")
         h, aux = moe_block(h, _sub(lp, "b_"), cfg, ctx)
         if want_cache:
-            cache = {"k": _to_cache(k1, cache_len), "v": _to_cache(v1, cache_len),
-                     "k2": _to_cache(k2, cache_len), "v2": _to_cache(v2, cache_len)}
+            cache = {"k": _cache(k1, cfg, ctx, cache_len), "v": _cache(v1, cfg, ctx, cache_len),
+                     "k2": _cache(k2, cfg, ctx, cache_len), "v2": _cache(v2, cfg, ctx, cache_len)}
     elif kind == "ssm":
         x = rmsnorm(h, lp["ln1"], cfg.norm_eps)
         if want_cache:
@@ -236,6 +239,12 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
     else:
         raise ValueError(kind)
     return h, aux, cache
+
+
+def _cache(k: torch.Tensor, cfg, ctx, cache_len: Optional[int]):
+    """A prefill's keys or values as a decode cache: `_to_cache`, in the
+    decode step's layout under a mesh."""
+    return constrain(_to_cache(k, cache_len), attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1], ctx)
 
 
 def _to_cache(k: torch.Tensor, cache_len: Optional[int], ring: bool = False) -> torch.Tensor:

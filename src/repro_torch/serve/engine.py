@@ -16,6 +16,14 @@ parameters lie on another device.  Caches are updated in place.  Each
 prefill gets the reference's stub inputs: a VLM's `embeds` (which prefill
 does not read) and an enc-dec model's `enc_embeds`, zeros in bfloat16, so
 whisper is served from 1,500 frames of zeros, as in the reference.
+
+Under a mesh (`ctx`) the engine serves on DTensor parameters (plain ones
+are placed by `sharding.shard_params`) and keeps its batched caches as
+DTensors, the slots sharded over the data axis: a prefill's cache is
+written into its slot on the ranks that hold that slot
+(`sharding.write_at`), and the argmax over vocab-sharded logits takes each
+shard's first maximum, then the first shard holding the largest, which is
+the reference's first index over the padded vocabulary.
 """
 
 from __future__ import annotations
@@ -26,7 +34,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import ShardingCtx, local_ctx
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.sharding import (
+    ShardingCtx,
+    from_local,
+    local_ctx,
+    local_range,
+    placements_for,
+    shard_params,
+    spec_for,
+    write_at,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, prefill
 
@@ -63,9 +82,9 @@ class ServeEngine:
             if leaf.device.type != self.device.type or (
                     self.device.index is not None and leaf.device != self.device):
                 raise RuntimeError(f"parameters lie on {leaf.device}, the engine on {self.device}")
-        self.params = params
         self.cfg = cfg
         self.ctx = ctx or local_ctx()
+        self.params = shard_params(params, cfg, self.ctx)
         self.n_slots = n_slots
         self.max_len = max_len
         self.greedy = greedy  # argmax either way, as in the reference
@@ -96,12 +115,12 @@ class ServeEngine:
                                                   dtype=torch.bfloat16, device=self.device)
             logits, cache1 = prefill(self.params, batch, self.cfg, self.ctx,
                                      cache_len=self.max_len)
-            tok = int(torch.argmax(logits[0]))
+            tok = int(argmax(logits)[0])
             req.out.append(tok)
             if self.caches is None:
                 # first admission defines the batched cache: leaves are
                 # (L, B=1, ...) stacked per segment -> batch axis is 1
-                self.caches = [{k: torch.zeros_like(c).repeat_interleave(self.n_slots, dim=1)
+                self.caches = [{k: _batched_zeros(c, self.n_slots, self.ctx)
                                 for k, c in seg.items()} for seg in cache1]
             _splice_slot(self.caches, cache1, slot)
             self.slot_pos[slot] = prompt.shape[1]
@@ -118,7 +137,7 @@ class ServeEngine:
         pos = int(self.slot_pos[active].max())  # conservative shared pos
         logits, self.caches = decode_step(self.params, self.last_tokens, self.caches, pos,
                                           self.cfg, self.ctx)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        toks = argmax(logits).to(torch.int32).cpu().numpy()
         for slot in active:
             req = self.slots[slot]
             tok = int(toks[slot])
@@ -146,10 +165,52 @@ class ServeEngine:
         return done
 
 
+def argmax(logits: torch.Tensor) -> torch.Tensor:
+    """(B,) first index of each row's largest logit, on every rank.  Over
+    vocab-sharded logits: each shard's first maximum, then the first shard
+    (the lowest ids) that holds the largest."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1)
+    mesh = logits.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim == 1 else Replicate() for p in logits.placements]
+    logits = logits.redistribute(mesh, place)  # every row on every rank, vocab still sharded
+    local = logits.to_local()
+    ix = torch.argmax(local, dim=-1, keepdim=True)
+    best = torch.gather(local, -1, ix)
+    ix = ix + local_range(logits, 1)[0]
+    n = local_range(logits, 1)[1]
+    shards = logits.shape[1] // n
+
+    def gathered(t):  # (B, 1) per shard -> (B, shards) in vocab order
+        return from_local(t, mesh, place, (t.shape[0], shards)).full_tensor()
+
+    best, ix = gathered(best), gathered(ix)
+    return torch.gather(ix, -1, torch.argmax(best, dim=-1, keepdim=True))[:, 0]
+
+
+def _batched_zeros(c: torch.Tensor, n_slots: int, ctx: ShardingCtx) -> torch.Tensor:
+    """Zeros for `n_slots` of a (L, B=1, ...) cache leaf, in its dtype; under
+    a mesh in its layout, the slots sharded as the decode step's batch."""
+    if not isinstance(c, DTensor):
+        return torch.zeros_like(c).repeat_interleave(n_slots, dim=1)
+    mesh = c.device_mesh
+    shape = (c.shape[0], n_slots, *c.shape[2:])
+    place = list(c.placements)
+    batch = placements_for(spec_for((None, "batch"), ctx, shape[:2], activation=True), mesh)
+    if all(isinstance(b, Replicate) or isinstance(p, Replicate) for b, p in zip(batch, place)):
+        place = [b if isinstance(b, Shard) else p for b, p in zip(batch, place)]
+    local = list(shape)
+    for m, p in enumerate(place):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(m)
+    return from_local(torch.zeros(local, dtype=c.dtype, device=c.to_local().device), mesh, place,
+                      shape)
+
+
 def _splice_slot(batched, single, slot: int):
     """Write a prefill cache (B=1) into slot `slot` of the batched cache, in
     place; leaves are (L, B, ...) stacked per segment."""
     for bseg, sseg in zip(batched, single):
         for k, b in bseg.items():
-            b[:, slot:slot + 1] = sseg[k].to(b.dtype)
+            write_at(b, 1, slot, sseg[k])
     return batched

@@ -20,7 +20,7 @@ checking sit under that fallback: moving the leaves onto the template's
 devices comes after it, so a CUDA error or an out-of-memory there leaves
 `restore_latest` instead of passing for an older step.  Retention keeps the
 newest K.  Restoring onto a mesh (the reference's elastic re-mesh,
-`reshard`) waits for ROADMAP.md item A.6.
+`reshard`) waits for ROADMAP.md item A.6b.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import DISTRIBUTED, ShardingCtx
+from repro_torch.distributed.sharding import TRAINING_MESH, ShardingCtx
 from repro_torch.models.config import not_ported
 
 # npz cannot represent bfloat16 or fp8: stored as same-width unsigned ints
@@ -180,7 +180,7 @@ class CheckpointManager:
         template leaf's device (the CPU for a leaf that is not a tensor)."""
         if ctx is not None and ctx.enabled:
             raise not_ported("restoring a checkpoint onto a mesh (the elastic re-mesh)",
-                             DISTRIBUTED)
+                             TRAINING_MESH)
         for step in reversed(self.list_steps()):
             try:
                 flat, manifest = self._load_step(step, template)

@@ -7,7 +7,7 @@ the `bitunpack` kernel on the card: the paper's decode offload as stage 0
 of the training step.  Gradients come from autograd over the model's plain
 operations, as the reference's come from `jax.value_and_grad`; the update
 runs in place.  Sharded gradients (the reference's `_shard_grads` under a
-mesh) wait for ROADMAP.md item A.6.
+mesh) wait for ROADMAP.md item A.6b.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.distributed.fault_tolerance import StragglerDetector
-from repro_torch.distributed.sharding import DISTRIBUTED, ShardingCtx, local_ctx
+from repro_torch.distributed.sharding import TRAINING_MESH, ShardingCtx, local_ctx
 from repro_torch.models.config import ModelConfig, not_ported
 from repro_torch.models.model import forward_train, init_params
 from repro_torch.train.checkpoint import CheckpointManager
@@ -50,7 +50,7 @@ def make_train_step(cfg: ModelConfig, optcfg: OptConfig,
     "grad_norm"}); params and moments are updated in place."""
     ctx = ctx or local_ctx()
     if ctx.enabled:
-        raise not_ported("sharded gradients (training under a mesh)", DISTRIBUTED)
+        raise not_ported("sharded gradients (training under a mesh)", TRAINING_MESH)
     m = cfg.microbatches
 
     def train_step(params, opt_state, batch):

@@ -178,7 +178,7 @@ def test_restore_puts_each_leaf_on_its_template_device(tmp_path, monkeypatch):
 def test_restore_onto_a_mesh_raises_naming_the_roadmap_item(tmp_path):
     m = CheckpointManager(str(tmp_path))
     m.save(1, _tree())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
         m.restore_latest(_tree(), ShardingCtx(mesh=object()), {"params": None})
 
 

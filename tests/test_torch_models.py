@@ -33,7 +33,7 @@ from repro.models import transformer as jtransformer
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.distributed.sharding import ShardingCtx, constrain, local_ctx
 from repro_torch.kernels import ops
-from repro_torch.models import layers, model, moe, transformer
+from repro_torch.models import layers, model, transformer
 
 DENSE = ["qwen3-1.7b", "granite-3-8b", "gemma-7b", "mistral-large-123b"]
 FAMILIES = ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b-a17b",
@@ -564,7 +564,8 @@ def test_encoder_frames_reach_the_decoder():
 
 def test_later_pieces_raise_naming_the_roadmap_item():
     """Every architecture resolves, as in the reference; what still raises
-    is anything under a mesh, the expert-parallel moe_ffn included (A.6)."""
+    under a mesh is training and the SSM, hybrid, enc-dec and VLM families
+    (A.6b), before the mesh is read."""
     assert list_archs() == jlist_archs() and len(list_archs()) == 10
     for arch in list_archs():
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
@@ -577,10 +578,16 @@ def test_later_pieces_raise_naming_the_roadmap_item():
         get_config("whisper-large")
     x = torch.zeros(2, 3)
     assert constrain(x, ("batch", None), local_ctx()) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        constrain(x, ("batch", None), ShardingCtx(mesh=object()))
-    ds = get_smoke_config("deepseek-moe-16b")
-    layer = transformer._layer(model.init_params(ds, 0, device="cpu")["segments"][1], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        moe.moe_ffn(torch.zeros(1, 4, ds.d_model, dtype=torch.bfloat16), layer, ds,
-                    ShardingCtx(mesh=object()))
+    mesh = ShardingCtx(mesh=object())
+    tokens = torch.zeros(1, 4, dtype=torch.int32)
+    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-base", "llava-next-34b"):
+        cfg = get_smoke_config(arch)
+        with pytest.raises(NotImplementedError, match=f"the {cfg.family} family under a mesh "
+                           r"is not ported yet \(ROADMAP.md A.6b"):
+            model.prefill({}, {"tokens": tokens}, cfg, mesh)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
+            model.decode_step({}, tokens[:, :1], [], 4, cfg, mesh)
+    for arch in ("qwen3-1.7b", "deepseek-moe-16b"):
+        with pytest.raises(NotImplementedError, match=r"training under a mesh is not ported yet "
+                           r"\(ROADMAP.md A.6b"):
+            model.forward_train({}, {"tokens": tokens}, get_smoke_config(arch), mesh)

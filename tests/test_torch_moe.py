@@ -187,6 +187,9 @@ def test_top_k_ties_go_to_the_lower_expert():
 
 
 def test_moe_ffn_under_a_mesh_raises_naming_the_roadmap_item():
+    """The expert-parallel moe_ffn serves (tests/test_torch_distributed.py);
+    gradients through it wait for A.6b: with inputs that require grad it
+    raises before it reads the mesh."""
     _, ct, _, pt, _, xt = _layer("deepseek-moe-16b", "float32", 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        moe.moe_ffn(xt, pt, ct, ShardingCtx(mesh=object()))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
+        moe.moe_ffn(xt.clone().requires_grad_(), pt, ct, ShardingCtx(mesh=object()))

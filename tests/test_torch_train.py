@@ -333,7 +333,7 @@ def test_smoke_forward_and_train_step(arch):
 
 
 def test_train_under_a_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
         make_train_step(get_smoke_config("qwen3-1.7b"), OptConfig(), ShardingCtx(mesh=object()))
 
 
@@ -412,5 +412,5 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 def test_launcher_meshes_raise_naming_the_roadmap_item(tmp_path, mesh):
     from repro_torch.launch import train as launcher
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
         launcher.main(["--arch", "qwen3-1.7b", "--corpus", str(tmp_path), "--mesh", mesh])
