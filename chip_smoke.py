@@ -316,8 +316,17 @@ from repro_torch.datapath import (  # noqa: E402
     StorageFault,
     jain_index,
 )
+from repro_torch.distributed.collectives import (  # noqa: E402
+    compressed_psum,
+    hierarchical_psum,
+)
 from repro_torch.distributed.compat import BACKENDS, make_mesh  # noqa: E402
-from repro_torch.distributed.sharding import ShardingCtx, local_ctx, shard_params  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    ShardingCtx,
+    local_ctx,
+    shard_params,
+    sharding_for,
+)
 from repro_torch.kernels import agg_push, bitunpack, bloom_probe, build, delta_decode  # noqa: E402
 from repro_torch.kernels import dict_decode, filter_compact, fused_scan  # noqa: E402
 from repro_torch.kernels import ops, ref, rle_decode  # noqa: E402
@@ -325,13 +334,17 @@ from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.lakeformat.encodings import bitpack_encode, rle_encode  # noqa: E402
 from repro_torch.lakeformat.reader import LakeReader  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import layers, model, moe  # noqa: E402
 from repro_torch.models.transformer import _proj_qkv  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.loop import make_train_step, train  # noqa: E402
 from repro_torch.train.optimizer import (  # noqa: E402
     OptConfig,
     init_opt_state,
+    opt_state_dims,
+    plain,
     tree_leaves,
     tree_map,
 )
@@ -393,6 +406,14 @@ def bloom_ops_per_key(n_hashes: int) -> int:
 
 
 T0 = time.perf_counter()
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def log(msg: str) -> None:
@@ -3089,6 +3110,22 @@ MESH_SHAPE = (1, 1)  # (data, model) on the one card
 MESH_NEW_TOKENS = 16
 MESH_REL_TOL = 1e-3  # (a) prefill logits under the mesh against without, relative L2
 SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "16"]  # (c), the launcher's other options its own
+# (e): phase T (a)'s batches, B 2 x S 4,096 packed, MESH_STEPS timed steps and
+# one more under torch.profiler, each under the mesh and without it
+MESH_STEPS = 3
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "deepseek-moe-16b", 2  # (f): 1 dense + 1 MoE of 28 layers
+# (e), (f): one rank runs the plain path's kernels in its order, so bit for
+# bit is expected; an op that differs is named, and the run held to phase T
+# (d)'s bounds: losses within 1e-3 relative, each parameter leaf within 1e-3
+# relative L2 (phase T (e)'s bound after an AdamW step)
+MESH_STEP_REL = 1e-3
+PSUM_SHAPE = (2048, 2048)  # (g): a qwen3-1.7b projection's float32 gradient
+MESH_RESUME_BATCH = 1  # (h): 2 layers at full width (a 28-layer checkpoint is 17 GB)
+# (h): bf16 moments (the optimizer's option), a 1.9 GB checkpoint in place
+# of 3.1 GB: the save and two restores move it through sha1 and npz
+MESH_RESUME_OPT = dict(OPT, moments_dtype="bfloat16")
+MESH_RESUME_AT, MESH_RESUME_TO = 2, 4
+TRAIN_MESH_ARGS = ["--arch", LM_ARCH, "--mesh", "single"]  # (i)
 
 
 def served_on(params, cfg, ctx, reqs, device) -> dict:
@@ -3125,6 +3162,239 @@ def prefill_ms(params, cfg, ctx, tokens: torch.Tensor) -> float:
     model.prefill(params, {"tokens": tokens}, cfg, ctx, cache_len=LM_MAX_LEN)
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3
+
+
+class PackedBatches:
+    """A pipeline for `train`: B x S token ids from seed + i for the i-th
+    batch, bit-packed at the config's k as the fused TokenPipeline hands
+    them to the step; its cursor (i) resumes exactly."""
+
+    def __init__(self, cfg, B: int, S: int, seed: int, device):
+        self.cfg, self.B, self.S, self.seed, self.device, self.i = cfg, B, S, seed, device, 0
+
+    def next_batch(self) -> dict:
+        rng = np.random.default_rng(self.seed + self.i)
+        self.i += 1
+        toks = rng.integers(0, self.cfg.vocab, (self.B, self.S))
+        k = model.token_bits(self.cfg)
+        packed = np.stack([bitpack_encode(t, k) for t in toks]).view(np.int32)
+        return {"packed": torch.from_numpy(packed).to(self.device)}
+
+    def checkpoint_state(self) -> dict:
+        return {"i": self.i}
+
+    def restore_state(self, d: dict) -> None:
+        self.i = d["i"]
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Leaf paths in `tree_leaves` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def train_run(cfg, optcfg, ctx, batches, seed: int, device) -> dict:
+    """make_train_step from seed's parameters (placed on ctx's mesh when ctx
+    is given) over `batches`: each step but the last timed alone (wall ms
+    after synchronize), the last under torch.profiler.  Returns the (loss,
+    grad norm) of each step, the timed steps' ms, the bitunpack launches of
+    each step, the last step's busy ms and top items, the peak device bytes
+    and the parameters after the steps on the host."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, seed, device=device)
+    if ctx is not None:
+        params = shard_params(params, cfg, ctx)
+    state = init_opt_state(params, optcfg)
+    step = make_train_step(cfg, optcfg, ctx)
+    metrics, ms, launches, busy = [], [], [], None
+    for i, batch in enumerate(batches):
+        before = bitunpack.KERNEL.launches
+        if i == len(batches) - 1:
+            out = {}
+            busy = profiled(lambda: out.update(r=step(params, state, batch)))[:2]
+            params, state, m = out["r"]
+        else:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        launches.append(bitunpack.KERNEL.launches - before)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(params)
+    run = {"metrics": metrics, "ms": ms, "launches": launches, "busy": busy, "peak": peak,
+           "n_params": sum(p.numel() for p in leaves), "names": leaf_names(params),
+           "params": [plain(p).detach().cpu() for p in leaves]}
+    del params, state, step, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def same_runs(mesh: dict, none: dict, label: str) -> str:
+    """'bit for bit' when both runs' losses, grad norms and parameters are
+    equal; else names what differs, held to MESH_STEP_REL."""
+    differ = [n for n, a, b in zip(mesh["names"], mesh["params"], none["params"])
+              if not torch.equal(a, b)]
+    if mesh["metrics"] == none["metrics"] and not differ:
+        return "bit for bit"
+    loss_rel = max(abs(a - b) / abs(b) for (a, _), (b, _) in zip(mesh["metrics"],
+                                                                   none["metrics"]))
+    param_rel = max(rel_l2(a, b) for a, b in zip(mesh["params"], none["params"]))
+    if not (loss_rel <= MESH_STEP_REL and param_rel <= MESH_STEP_REL):
+        raise AssertionError(f"{label} under the mesh against without it: losses "
+                             f"{mesh['metrics']} against {none['metrics']} (relative {loss_rel}), "
+                             f"parameters relative L2 {param_rel}, differing leaves {differ}; "
+                             f"tolerance {MESH_STEP_REL}")
+    return (f"not bit for bit: losses relative {loss_rel:.3e}, parameters relative L2 "
+            f"{param_rel:.3e} (tolerance {MESH_STEP_REL}); differing leaves {differ}")
+
+
+def mesh_training(ctx, seed: int, device, card: str) -> int:
+    """Phase D (e) and (f): qwen3-1.7b at full width and deepseek-moe-16b at
+    2 layers trained under the mesh and without it, their numbers printed
+    beside `card` (the card's name and power limit).  Returns the bitunpack
+    launches they made."""
+    optcfg = OptConfig(**OPT)
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat=True)
+    src = PackedBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, device)
+    batches = [src.next_batch() for _ in range(MESH_STEPS + 1)]
+    t0 = time.perf_counter()
+    runs = {label: train_run(cfg, optcfg, c, batches, seed, device)
+            for label, c in (("mesh", ctx), ("none", None))}
+    verdict = same_runs(runs["mesh"], runs["none"], "(e)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"      (e) {cfg.arch_id} at full width, {cfg.dtype}, remat, AdamW, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ} packed at k={model.token_bits(cfg)}, {len(batches)} steps from seed {seed} "
+        f"under the mesh and without it: losses and grad norms {runs['mesh']['metrics']}; "
+        f"the losses and the {len(runs['mesh']['names'])} parameter leaves after the steps "
+        f"{verdict}; {time.perf_counter() - t0:.1f} s")
+    flops = train_flops(cfg, runs["mesh"]["n_params"], tokens, TRAIN_BATCH, TRAIN_SEQ)
+    for label, run in runs.items():
+        if any(n != 1 for n in run["launches"]):
+            raise AssertionError(f"(e) {label}: bitunpack launches per step {run['launches']}")
+        step_ms = sorted(run["ms"])[len(run["ms"]) // 2]
+        busy_ms, top = run["busy"]
+        log(f"      (e) {label}: step_ms (median of {len(run['ms'])}) {step_ms:.2f} "
+            f"{[round(x, 2) for x in run['ms']]}; tokens/s {tokens / step_ms * 1e3:.1f}; peak "
+            f"GB {run['peak'] / 1e9:.2f}; one step (the last): busy_ms={busy_ms:.3f} "
+            f"idle_share={1 - busy_ms / step_ms:.3f} top={top}; "
+            f"{flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.4f} of "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s ({flops:.4e} model FLOPs a step); bitunpack "
+            f"launches {run['launches']} [{card}]")
+    launches = sum(sum(run["launches"]) for run in runs.values())
+    del runs, batches
+
+    # (f) the MoE family: the mesh moe_ffn's backward on the card
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), n_layers=MESH_MOE_LAYERS, remat=True)
+    batches = [PackedBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, device).next_batch()]
+    runs = {label: train_run(cfg, optcfg, c, batches, seed, device)
+            for label, c in (("mesh", ctx), ("none", None))}
+    verdict = same_runs(runs["mesh"], runs["none"], "(f)")
+    log(f"      (f) {cfg.arch_id} cut to {MESH_MOE_LAYERS} of 28 layers (1 dense + 1 MoE of "
+        f"{cfg.moe_experts} experts, top {cfg.moe_top_k}, {cfg.moe_shared} shared), "
+        f"{cfg.dtype}, one step of B {TRAIN_BATCH} x S {TRAIN_SEQ} packed under the mesh and "
+        f"without it: loss and grad norm {runs['mesh']['metrics']}, parameters {verdict}; busy_ms "
+        f"{runs['mesh']['busy'][0]:.3f} / {runs['none']['busy'][0]:.3f}; peak GB "
+        f"{runs['mesh']['peak'] / 1e9:.2f}; bitunpack launches "
+        f"{runs['mesh']['launches']} / {runs['none']['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches + sum(sum(run["launches"]) for run in runs.values())
+
+
+def mesh_collectives(seed: int, device, card: str) -> None:
+    """Phase D (g): hierarchical_psum and compressed_psum on NCCL over a
+    (pod 1, data 1) mesh, against their host formulas in numpy float32."""
+    pods = make_mesh((1, 1), ("pod", "data"), device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(PSUM_SHAPE, generator=g, device=device)
+    err = torch.randn(PSUM_SHAPE, generator=g, device=device) * 0.01
+    ms = {}
+    for name, fn in (("hierarchical_psum", lambda: hierarchical_psum(x, "data", "pod", pods)),
+                     ("compressed_psum", lambda: compressed_psum(x, err, "pod", pods))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t) * 1e3, out)
+    hier = ms["hierarchical_psum"][1]
+    total, new_err = ms["compressed_psum"][1]
+    xh, eh = x.cpu().numpy(), err.cpu().numpy()
+    comb = xh + eh
+    scale = np.float32(np.abs(comb).max()) / np.float32(127.0) + np.float32(1e-12)
+    q = np.clip(np.round(comb / scale), -127, 127).astype(np.int8)
+    deq = q.astype(np.float32) * scale  # one rank: the sum of one dequantized term
+    if not np.array_equal(hier.cpu().numpy(), xh):
+        raise AssertionError("(g) hierarchical_psum over one rank is not the rank's own x")
+    got_t, got_e = total.cpu().numpy(), new_err.cpu().numpy()
+    t_err = float(np.abs(got_t - deq).max())
+    e_err = float(np.abs(got_e - (comb - deq)).max())
+    if t_err > 1e-6 * float(np.abs(deq).max()) or e_err > 1e-6:
+        raise AssertionError(f"(g) compressed_psum against the host formula: sum max |diff| "
+                             f"{t_err}, error {e_err}")
+    log(f"      (g) NCCL, a (pod 1, data 1) mesh, float32 {PSUM_SHAPE}: hierarchical_psum "
+        f"equals x bit for bit ({ms['hierarchical_psum'][0]:.3f} ms); compressed_psum's int8 "
+        f"sum against numpy's max |diff| {t_err:.3e}, its new error {e_err:.3e} "
+        f"({ms['compressed_psum'][0]:.3f} ms); one rank moves no bytes between cards [{card}]")
+
+
+def mesh_checkpoint(ctx, seed: int, device, card: str) -> int:
+    """Phase D (h): train() under the mesh at 2 layers of full width saves
+    at step 2; the checkpoint restores onto the mesh as DTensors equal to
+    the saved parameters; a resumed train() continues an uninterrupted
+    run's losses.  Returns the bitunpack launches it made."""
+    optcfg = OptConfig(**MESH_RESUME_OPT)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=RESUME_LAYERS, remat=True)
+    before = bitunpack.KERNEL.launches
+    t0 = time.perf_counter()
+    quiet = dict(ctx=ctx, seed=seed, log_every=10**9, log_fn=lambda s: None, device=device)
+
+    def src():
+        return PackedBatches(cfg, MESH_RESUME_BATCH, TRAIN_SEQ, seed, device)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_") as d:
+        first = train(cfg, optcfg, src(), steps=MESH_RESUME_AT, ckpt_dir=d,
+                      ckpt_every=MESH_RESUME_AT, **quiet)
+        saved = [plain(p) for p in tree_leaves(first["params"])]
+        template = {"params": first["params"], "opt": first["opt_state"]}
+        dims = {"params": model.param_dims(cfg),
+                "opt": opt_state_dims(model.param_dims(cfg), first["params"], optcfg)}
+        restored, manifest = CheckpointManager(d).restore_latest(template, ctx, dims)
+        placed = tree_map(lambda p, dm: tuple(p.placements) == sharding_for(dm, ctx, p.shape),
+                          restored["params"], dims["params"])
+        if manifest["meta"]["step"] != MESH_RESUME_AT or not all(tree_leaves(placed)):
+            raise AssertionError(f"(h) step {manifest['meta']['step']} restored, placed by its "
+                                 f"dims: {placed}")
+        leaves = tree_leaves(restored["params"])
+        if not all(torch.equal(plain(a), b) for a, b in zip(leaves, saved)):
+            raise AssertionError("(h) the restored parameters differ from the saved ones")
+        del first, template, restored, leaves, saved
+        logs = []
+        resumed = train(cfg, optcfg, src(), steps=MESH_RESUME_TO, ckpt_dir=d,
+                        ckpt_every=10**9, **dict(quiet, log_fn=logs.append))["losses"]
+    whole = train(cfg, optcfg, src(), steps=MESH_RESUME_TO, **quiet)["losses"]
+    if f"[train] resumed from step {MESH_RESUME_AT}" not in logs:
+        raise AssertionError(f"(h) did not resume at step {MESH_RESUME_AT}: {logs}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[MESH_RESUME_AT:]))
+    if not gap <= RESUME_REL:
+        raise AssertionError(f"(h) resumed {resumed} against {whole[MESH_RESUME_AT:]} (relative "
+                             f"{gap}); tolerance {RESUME_REL}")
+    log(f"      (h) {RESUME_LAYERS} layers at full width, B {MESH_RESUME_BATCH} x S {TRAIN_SEQ}, "
+        f"{optcfg.moments_dtype} moments: "
+        f"train() under the mesh saved step {MESH_RESUME_AT}, restored as DTensors placed by "
+        f"param_dims, bit for bit; resumed losses {resumed} against the uninterrupted "
+        f"{whole[MESH_RESUME_AT:]}: relative gap {gap:.3e} "
+        f"({'bit for bit' if resumed == whole[MESH_RESUME_AT:] else 'not bit for bit'}; "
+        f"tolerance {RESUME_REL}); bitunpack launches {bitunpack.KERNEL.launches - before}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return bitunpack.KERNEL.launches - before
 
 
 def mesh_phase(seed: int, device: str = "cuda") -> dict:
@@ -3206,13 +3476,31 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
         log(f"      (c) launch.serve {' '.join(SERVE_ARGS)}: {stats['requests']} requests, "
             f"{stats['tokens']} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
             f"{stats['ticks']} ticks in {stats['seconds']:.2f} s")
+
+        # (e)-(f) training under the mesh, (g) the collectives, (h) checkpoints
+        card = card_line()
+        unpacks = 1 + mesh_training(ctx, seed, device, card)
+        mesh_collectives(seed, device, card)
+        unpacks += mesh_checkpoint(ctx, seed, device, card)
+
+        # (i) the train launcher's production mesh needs its 256 ranks
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as d:
+                train_launcher.main(TRAIN_MESH_ARGS + ["--corpus", d, "--device", device])
+        except RuntimeError as e:
+            if "needs 256 ranks, found 1" not in str(e):
+                raise
+            log(f"      (i) launch.train {' '.join(TRAIN_MESH_ARGS)}: RuntimeError: {e} [{card}]")
+        else:
+            raise AssertionError("(i) launch.train --mesh single ran on one rank")
     finally:
         # (d)
         dist.destroy_process_group()
     launches = ops.kernel_launches()
-    if launches != dict(dict.fromkeys(ops.KERNELS, 0), bitunpack=1):
-        raise AssertionError(f"phase D launched {launches}, not one bitunpack")
-    log("      (d) process group destroyed")
+    if launches != dict(dict.fromkeys(ops.KERNELS, 0), bitunpack=unpacks):
+        raise AssertionError(f"phase D launched {launches}, not {unpacks} bitunpack")
+    log(f"      (d) process group destroyed; {unpacks} bitunpack launches: (b) 1, the packed "
+        "training batches of (e), (f) and (h) one a step")
     return launches
 
 
@@ -3280,10 +3568,7 @@ def main(argv=None) -> int:
         return 1
 
     # phase 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    print(card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 

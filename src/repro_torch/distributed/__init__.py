@@ -1,6 +1,6 @@
-"""Distributed runtime: sharding rules and the device mesh, the scan
-fabric's ring and fault-tolerance policies (the gradient collectives of
-`repro.distributed.collectives` wait for ROADMAP.md item A.6b)."""
+"""Distributed runtime: sharding rules and the device mesh, the gradient
+collectives (`collectives`), the scan fabric's ring and fault-tolerance
+policies."""
 
 from repro_torch.distributed.fault_tolerance import (  # noqa: F401
     HeartbeatMonitor,

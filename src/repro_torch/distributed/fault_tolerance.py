@@ -18,9 +18,10 @@ The *policies* are built and tested against simulated telemetry:
   plan_pod_drain    — the fabric's death path: remove a pod from the ring
                       and say which row-group keys re-home where
 
-The mechanisms a RestartPlan triggers on a mesh (checkpoint restore and
-re-sharding) wait for ROADMAP.md item A.6b; the fabric's drain is real
-(`datapath/fabric.py`).
+The mechanisms a RestartPlan triggers on a mesh are
+`train.checkpoint.CheckpointManager.restore_latest(template, ctx, dims)`
+and its `reshard`, which place a checkpoint on a mesh of another shape;
+the fabric's drain is real (`datapath/fabric.py`).
 """
 
 from __future__ import annotations

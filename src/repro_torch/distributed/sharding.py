@@ -19,7 +19,9 @@ placement per mesh dim (a tuple entry shards one tensor dim over several
 mesh dims, major to minor in mesh order, as `NamedSharding` does),
 `shard_params` places parameters by `param_dims`, and `constrain`
 redistributes an activation to the strategy-aware spec
-(`activation=True`).  A plain tensor given to `constrain` is taken as a
+(`activation=True`).  `local_grad` hands a local body a parameter's shard
+with the gradient placements that the body's tokens give it (training under
+a mesh).  A plain tensor given to `constrain` is taken as a
 replicated value.  The reference requires annotated dims to divide the
 axis size, so every rule is guarded: a non-divisible dim degrades to
 replicated, and `placements_for` refuses an uneven shard, which DTensor
@@ -39,10 +41,17 @@ import hashlib
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Placement,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
 
 # the ROADMAP.md section A item that the NotImplementedError messages name
-TRAINING_MESH = "A.6b training, and the SSM, hybrid, enc-dec and VLM families, under a mesh"
+FAMILIES_MESH = "A.6b-ii: the SSM, hybrid, enc-dec and VLM families under a mesh"
 
 # logical dim -> mesh axis role
 _TP_DIMS = frozenset({"vocab", "ff", "heads", "kv", "experts", "moe_ff", "inner", "seq_tp",
@@ -260,6 +269,16 @@ def shard_params(params, cfg, ctx: ShardingCtx):
         return put(p, d)
 
     return walk(params, param_dims(cfg))
+
+
+def local_grad(t: DTensor, x: DTensor) -> torch.Tensor:
+    """t's local tensor, for a body that runs on x's local shards.  Its
+    gradient is declared `Partial` on each mesh dim where t is replicated
+    but x is sharded (each rank's own tokens add their share to the
+    gradient), and as t's own placements on the others."""
+    grad = [Partial() if isinstance(p, Replicate) and q.is_shard() else p
+            for p, q in zip(t.placements, x.placements)]
+    return t.to_local(grad_placements=grad)
 
 
 def local_range(x: DTensor, dim: int) -> Tuple[int, int]:

@@ -1,3 +1,4 @@
 """Launchers: training, serving and the production mesh (port of
-`repro.launch`; training under a mesh waits for ROADMAP.md item A.6b, the
-specs and the dry run for A.6c)."""
+`repro.launch`: training and serving under the production meshes of
+dense and MoE models; the specs and the dry run wait for ROADMAP.md item
+A.6c)."""

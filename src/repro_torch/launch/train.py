@@ -3,10 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --corpus /data/corpus --steps 1000 [--device cuda|cpu] [--mesh none]
 
-Port of `repro/launch/train.py` for one device: `--mesh none` (the
-default) trains on `--device` (the card unless asked for the CPU); the
-production meshes (`--mesh single|multi`) wait for ROADMAP.md item A.6b.
-`--smoke` swaps in the reduced config.
+Port of `repro/launch/train.py`: `--mesh none` (the default) trains on one
+`--device` (the card unless asked for the CPU); `--mesh single|multi`
+trains under the production mesh (`launch.mesh.production_ctx`: (data 16,
+model 16) or (pod 2, data 16, model 16)), one rank a card, which needs 256
+or 512 ranks in the process group and raises `RuntimeError` otherwise, as
+the reference raises without that many devices.  A process started with a
+launcher's environment (`WORLD_SIZE`, `RANK`, `MASTER_ADDR`, ...) joins its
+process group first.  The reference's `XLA_FLAGS` line for 512 fake devices
+has no counterpart here.  `--smoke` swaps in the reduced config.
 """
 
 import argparse
@@ -31,15 +36,21 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.distributed.sharding import TRAINING_MESH
-    from repro_torch.models.config import not_ported
+    from repro_torch.distributed.compat import BACKENDS
+    from repro_torch.distributed.sharding import local_ctx
+    from repro_torch.launch.mesh import production_ctx
     from repro_torch.train.loop import train
     from repro_torch.train.optimizer import OptConfig
 
+    ctx = local_ctx()
     if args.mesh != "none":
-        raise not_ported(f"--mesh {args.mesh} (the production meshes)", TRAINING_MESH)
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(BACKENDS[args.device])
+        ctx = production_ctx(multi_pod=args.mesh == "multi", device=args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.microbatches > 1:
         cfg = dataclasses.replace(cfg, microbatches=args.microbatches)
@@ -52,7 +63,7 @@ def main(argv=None):
         lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps,
     )
-    out = train(cfg, optcfg, pipe, steps=args.steps, ckpt_dir=args.ckpt_dir,
+    out = train(cfg, optcfg, pipe, steps=args.steps, ctx=ctx, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, device=args.device)
     print(f"[launch.train] done: {len(out['losses'])} steps, "
           f"final loss {out['losses'][-1]:.4f}, stragglers: {out['stragglers']}")

@@ -21,7 +21,11 @@ After the reference's constraints, each rank attends over its own shards
 (the body of a `shard_map`): heads and batch rows are independent, a q
 shard shifts its causal positions by its first row, and flash-decode
 combines the shards' softmax statistics with an all-reduce of the row
-maxima and of the sums over the mesh dims that shard the keys.
+maxima and of the sums over the mesh dims that shard the keys.  In training
+autograd runs through the bodies: the head-parallel arm shards q, k and v
+alike, and the sequence-parallel arm declares k's and v's gradients
+`Partial` over the q shards (`sharding.local_grad`).  Flash-decode is
+decode-only and has no backward.
 """
 
 from __future__ import annotations
@@ -32,13 +36,14 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import (
     ShardingCtx,
     constrain,
     from_local,
     like,
+    local_grad,
     local_range,
     shard_groups,
 )
@@ -136,7 +141,9 @@ def attention(
     q, k, v = constrain(q, qd, ctx), constrain(k, kd, ctx), constrain(v, kd, ctx)
     q0, _ = local_range(q, 1)
     k0, _ = local_range(k, 1)
-    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    # sequence-parallel: each rank's q rows read all of the replicated k and
+    # v, whose local gradients are then partial sums over the q shards
+    ql, kl, vl = q.to_local(), local_grad(k, q), local_grad(v, q)
     groups = shard_groups(k, 1)
     if groups:  # flash-decode: this rank's keys start at k0
         out = _attend(ql, kl, vl, q_offset=q_offset + q0, k_offset=k0, groups=groups, **kw)
@@ -253,15 +260,21 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_real: int,
                  label_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE in float32; the padded vocab rows (ids >=
     vocab_real) take part in the partition at -1e30, as the reference adds
-    its bias, so their gradient is the reference's exp(-1e30 - lse) = 0."""
+    its bias, so their gradient is the reference's exp(-1e30 - lse) = 0.
+    On vocab-sharded DTensor logits the gathered gold logit is a masked
+    partial sum; it is reduced before its last dim is dropped (DTensor's
+    mask does not follow that reshape)."""
     Vp = logits.shape[-1]
     lf = logits.float()
     if Vp > vocab_real:
         pad = torch.arange(Vp, device=lf.device) >= vocab_real
-        lf = lf + torch.where(pad, -1e30, 0.0)
+        lf = lf + like(torch.where(pad, -1e30, 0.0), lf)
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    gold = torch.gather(lf, -1, labels[..., None].long())
+    if isinstance(gold, DTensor) and any(p.is_partial() for p in gold.placements):
+        gold = gold.redistribute(gold.device_mesh, [Replicate() if p.is_partial() else p
+                                                    for p in gold.placements])
+    nll = lse - gold[..., 0]
     if label_mask is not None:
         nll = nll * label_mask
         return torch.sum(nll) / torch.clamp(torch.sum(label_mask), min=1.0)

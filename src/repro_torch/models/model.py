@@ -27,12 +27,15 @@ encoder segment's cache is `{}`.  The VLM family (llava) prepends
 `batch["embeds"] @ vis_proj` to the token stream in `forward_train` only:
 `prefill`, like the reference's, never reads `embeds`.
 
-Under a mesh (`ctx` with a DeviceMesh) `prefill` and `decode_step` serve
-the dense and MoE families on DTensor parameters (`sharding.shard_params`):
-the inputs become DTensors at their first constraint, and a packed prompt is
-unpacked by `bitunpack` on each rank's own shard of the words, a plain
-tensor.  Training and the other families under a mesh raise
-`NotImplementedError` naming ROADMAP.md item A.6b.
+Under a mesh (`ctx` with a DeviceMesh) `prefill`, `decode_step` and
+`forward_train` run the dense and MoE families on DTensor parameters
+(`sharding.shard_params`): the inputs become DTensors at their first
+constraint, and packed tokens are unpacked by `bitunpack` on each rank's
+own shard of the words, a plain tensor.  `forward_train`'s loss is then a
+replicated DTensor scalar, and autograd gives each parameter's gradient as
+a DTensor (`train/loop.py` places it as the parameter is stored).  The
+other families under a mesh raise `NotImplementedError` naming ROADMAP.md
+item A.6b-ii.
 """
 
 from __future__ import annotations
@@ -42,12 +45,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.sharding import (
-    TRAINING_MESH,
+    FAMILIES_MESH,
     ShardingCtx,
     constrain,
     from_local,
+    like,
     local_ctx,
 )
 from repro_torch.kernels import ops
@@ -325,16 +330,12 @@ def _tokens_from_batch(batch, cfg, ctx):
     return constrain(tokens, ("batch", None), ctx)
 
 
-MESH_FAMILIES = ("dense", "moe")  # what serves under a mesh (ROADMAP.md A.6a)
+MESH_FAMILIES = ("dense", "moe")  # served and trained under a mesh (ROADMAP.md A.6a, A.6b-i)
 
 
-def _mesh_check(cfg: ModelConfig, ctx: ShardingCtx, training: bool = False) -> None:
-    if not ctx.enabled:
-        return
-    if training:
-        raise not_ported("training under a mesh", TRAINING_MESH)
-    if cfg.family not in MESH_FAMILIES:
-        raise not_ported(f"the {cfg.family} family under a mesh", TRAINING_MESH)
+def _mesh_check(cfg: ModelConfig, ctx: ShardingCtx) -> None:
+    if ctx.enabled and cfg.family not in MESH_FAMILIES:
+        raise not_ported(f"the {cfg.family} family under a mesh", FAMILIES_MESH)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +377,7 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     through `vis_proj` in front of the tokens, and every token is a label,
     the first predicted from the last vision position."""
     ctx = ctx or local_ctx()
-    _mesh_check(cfg, ctx, training=True)
+    _mesh_check(cfg, ctx)
     tokens = _tokens_from_batch(batch, cfg, ctx)
     B, S = tokens.shape
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
@@ -397,6 +398,9 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         pred_h, labels = h[:, :-1], tokens[:, 1:]
     logits = lm_head_logits(pred_h, _head(params, cfg), ctx)
     loss = softmax_xent(logits, labels, cfg.vocab)
+    if isinstance(loss, DTensor):  # one replicated value; the Switch losses a plain one
+        loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
+        aux = like(aux, loss)
     tokens_seen = torch.tensor(B * S, dtype=torch.int32, device=h.device)
     return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": tokens_seen}
 

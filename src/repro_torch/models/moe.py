@@ -33,9 +33,18 @@ reference:
   - else the global `_routed_local` on every rank: the reference routes over
     the global batch there, so the capacity counts every token.
 The router's top k runs on each rank's own tokens (a per-token function)
-and the auxiliary loss sums over the ranks.  These bodies call plain
-collectives, which carry no gradient: gradients through the expert-parallel
-`moe_ffn` wait for ROADMAP.md item A.6b.
+and the auxiliary loss sums over the ranks.  The bodies train: their
+collectives are the differentiable ones of `distributed/collectives.py`
+(an all-reduce whose sum every rank uses has the identity as its backward,
+an all-to-all is its own transpose, an all-gather and a reduce-scatter are
+each other's), and each input that a body takes through `to_local` declares
+its gradient `Partial` on the mesh dims where the input is replicated but
+the body's tokens are sharded (`sharding.local_grad`).  In the EP arm every
+model rank routes the same tokens but runs only its own experts: the tokens
+and gates enter the experts through `collectives.copy_to` (backward: the
+model ranks' partial gradients summed), and the routed sum leaves through
+`collectives.all_reduce_sum` (backward: the identity), so the router and
+the Switch loss see one replicated gradient.
 """
 
 from __future__ import annotations
@@ -43,18 +52,18 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (
-    TRAINING_MESH,
     ShardingCtx,
     as_dtensor,
     constrain,
     from_local,
+    local_grad,
     to_spec,
 )
-from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import glu_mlp
 
 # expert blocks of at most this many bytes per owner column live resident on
@@ -70,7 +79,7 @@ def _capacity(n_tokens: int, k: int, n_experts: int, factor: float) -> int:
 def _routed_local(x, ids, gates, wg, wu, wo, *, k: int, n_experts: int, capacity: float,
                   act: str, e0: int = 0, reduce=None):
     """Routed-expert compute.  x (B,S,D); ids/gates (B,S,k); wg/wu (E,D,F),
-    wo (E,F,D): experts e0 .. e0 + E - 1 of `n_experts`.  `reduce` takes the
+    wo (E,F,D): experts e0 .. e0 + E - 1 of `n_experts`.  `reduce` maps the
     float32 (N, D) sum before its cast to x's dtype (the model axis's
     all-reduce)."""
     B, S, D = x.shape
@@ -105,7 +114,7 @@ def _routed_local(x, ids, gates, wg, wu, wo, *, k: int, n_experts: int, capacity
         # card's atomic adds leave every sum in the reference's order
         out.index_add_(0, seg_tok[e], ys.float() * w)
     if reduce is not None:
-        reduce(out)
+        out = reduce(out)
     return out.reshape(B, S, D).to(x.dtype)
 
 
@@ -142,14 +151,6 @@ def _row_group(row_axes, mesh):
     return mesh[tuple(row_axes)]._flatten().get_group()
 
 
-def _all_to_all(x, group):
-    """Tiled all-to-all along dim 0: chunk j goes to the group's rank j,
-    chunk j of the result came from rank j (`lax.all_to_all(tiled=True)`)."""
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
-
-
 def _routed_2d(x, ids, gates, wg, wu, wo, *, e_local: int, k: int, capacity: float, act: str,
                tp: int, model_group, row_group, resident: bool = False):
     """Per-shard body of the 2D arm.  x (Nl_b, S, D) wide-batch block.
@@ -183,18 +184,14 @@ def _routed_2d(x, ids, gates, wg, wu, wo, *, e_local: int, k: int, capacity: flo
     send_w = (s_gate[seg] * valid)[..., None].float()
 
     # 2) all-to-all along model: tokens reach their owner column
-    rx = _all_to_all(send_x, model_group)
-    re = _all_to_all(send_eid, model_group)
+    rx = coll.all_to_all(send_x, model_group)
+    re = coll.all_to_all(send_eid, model_group)
     if resident:
         gx, ge = rx.reshape(-1, D), re.reshape(-1)  # (tp*C, D): this row's tokens only
     else:
         # 3) broadcast along the data rows (F is row-sharded)
-        rows = dist.get_world_size(row_group)
-        gx = torch.empty((rows * tp, C, D), dtype=rx.dtype, device=dev)
-        ge = torch.empty((rows * tp, C), dtype=re.dtype, device=dev)
-        dist.all_gather_into_tensor(gx, rx, group=row_group)
-        dist.all_gather_into_tensor(ge, re, group=row_group)
-        gx, ge = gx.reshape(-1, D), ge.reshape(-1)  # (dp*tp*C, D)
+        gx = coll.all_gather(rx, row_group).reshape(-1, D)  # (dp*tp*C, D)
+        ge = coll.all_gather(re, row_group).reshape(-1)
 
     # 4) local expert compute on the F/dp slice
     order2 = torch.argsort(ge, stable=True)
@@ -216,11 +213,10 @@ def _routed_2d(x, ids, gates, wg, wu, wo, *, e_local: int, k: int, capacity: flo
     if resident:
         mine = out_partial  # (tp*C, D): already complete (full F)
     else:
-        mine = torch.empty((tp * C, D), dtype=torch.float32, device=dev)
-        dist.reduce_scatter_tensor(mine, out_partial, group=row_group)
+        mine = coll.reduce_scatter(out_partial, row_group)  # (tp*C, D)
 
     # 6) all-to-all back + gated scatter into source tokens
-    back = _all_to_all(mine.reshape(tp, C, D), model_group)
+    back = coll.all_to_all(mine.reshape(tp, C, D), model_group)
     out = torch.zeros((N, D), dtype=torch.float32, device=dev)
     for j in range(tp):
         out.index_add_(0, send_tok[j], back[j].float() * send_w[j])
@@ -250,9 +246,14 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: ModelConfig,
     if ctx.enabled:
         return _moe_ffn_mesh(x, params, cfg, ctx)
     E = cfg.moe_experts
-    probs, gates, ids = route(x, params["router"], cfg)
+    # the router and the experts read x through one alias, as the mesh arms
+    # read it through `to_local`: autograd then adds x's gradients in the
+    # same order on both paths (router and experts first, then the shared
+    # experts), which keeps a one-rank mesh bit for bit with one device
+    xl = x.view_as(x)
+    probs, gates, ids = route(xl, params["router"], cfg)
     aux = _aux(ids, probs, cfg)
-    routed = _routed_local(x, ids, gates, params["e_wg"], params["e_wu"], params["e_wo"],
+    routed = _routed_local(xl, ids, gates, params["e_wg"], params["e_wu"], params["e_wo"],
                            k=cfg.moe_top_k, n_experts=E, capacity=cfg.moe_capacity,
                            act=cfg.act)
     if cfg.moe_shared:
@@ -271,9 +272,9 @@ def _aux(ids, probs, cfg: ModelConfig, groups=(), n_tokens: int = 0):
         p = torch.mean(probs, dim=(0, 1))
     else:
         f, p = torch.sum(one_hot, dim=(0, 1)), torch.sum(probs, dim=(0, 1))
-        for g in groups:
-            dist.all_reduce(f, group=g)
-            dist.all_reduce(p, group=g)
+        for g in groups:  # every rank goes on with the sums: the identity backward
+            f = coll.all_reduce_sum(f, g)
+            p = coll.all_reduce_sum(p, g)
         f, p = f / n_tokens, p / n_tokens
     return E * torch.sum(f * p) * cfg.moe_aux_weight
 
@@ -281,9 +282,6 @@ def _aux(ids, probs, cfg: ModelConfig, groups=(), n_tokens: int = 0):
 def _moe_ffn_mesh(x, params, cfg: ModelConfig, ctx: ShardingCtx):
     """The reference's mesh arms; the routed output and the shared experts'
     as DTensors, the aux loss a plain float32 scalar on every rank."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, params["router"], params["e_wg"])):
-        raise not_ported("gradients through the expert-parallel moe_ffn", TRAINING_MESH)
     E, k = cfg.moe_experts, cfg.moe_top_k
     mesh, tp = ctx.mesh, ctx.tp
     x = as_dtensor(x, mesh)
@@ -303,7 +301,7 @@ def _moe_ffn_mesh(x, params, cfg: ModelConfig, ctx: ShardingCtx):
         x_spec = (None, None, None)
     xs = to_spec(x, x_spec, mesh)
     xl = xs.to_local()
-    router = to_spec(params["router"], (None, None), mesh).to_local()
+    router = local_grad(to_spec(params["router"], (None, None), mesh), xs)
     probs, gates, ids = route(xl, router, cfg)
     groups = [mesh.get_group(m) for m, p in enumerate(xs.placements) if p.is_shard()]
     aux = _aux(ids, probs, cfg, groups, B * S)
@@ -313,21 +311,23 @@ def _moe_ffn_mesh(x, params, cfg: ModelConfig, ctx: ShardingCtx):
         # all-to-all only, no row-axis collectives
         resident = (E // tp) * 3 * cfg.d_model * cfg.moe_d_ff * 2 <= RESIDENT_BYTES
         f_ax = None if resident else ctx.fsdp_axis
-        w = [to_spec(params[n], spec, mesh).to_local() for n, spec in (
+        w = [local_grad(to_spec(params[n], spec, mesh), xs) for n, spec in (
             ("e_wg", (ctx.tp_axis, None, f_ax)), ("e_wu", (ctx.tp_axis, None, f_ax)),
             ("e_wo", (ctx.tp_axis, f_ax, None)))]
         out = _routed_2d(xl, ids, gates, *w, e_local=E // tp, tp=tp,
                          model_group=mesh.get_group(ctx.tp_axis),
                          row_group=_row_group(dp_spec, mesh), resident=resident, **kw)
     elif ep:
-        w = [to_spec(params[n], (ctx.tp_axis, None, None), mesh).to_local()
+        w = [local_grad(to_spec(params[n], (ctx.tp_axis, None, None), mesh), xs)
              for n in ("e_wg", "e_wu", "e_wo")]
         e0 = mesh.get_local_rank(ctx.tp_axis) * (E // tp)  # this rank's first expert
         model_group = mesh.get_group(ctx.tp_axis)
-        out = _routed_local(xl, ids, gates, *w, n_experts=E, e0=e0,
-                            reduce=lambda o: dist.all_reduce(o, group=model_group), **kw)
+        out = _routed_local(coll.copy_to(xl, model_group), ids, coll.copy_to(gates, model_group),
+                            *w, n_experts=E, e0=e0,
+                            reduce=lambda o: coll.all_reduce_sum(o, model_group), **kw)
     else:
-        w = [to_spec(params[n], (None, None, None), mesh).to_local() for n in ("e_wg", "e_wu", "e_wo")]
+        w = [local_grad(to_spec(params[n], (None, None, None), mesh), xs)
+             for n in ("e_wg", "e_wu", "e_wo")]
         out = _routed_local(xl, ids, gates, *w, n_experts=E, **kw)
     routed = from_local(out, mesh, xs.placements, xs.shape)
     if cfg.moe_shared:

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -89,12 +90,26 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
+def _split_heads(t: torch.Tensor, B: int, S: int, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dim is sharded
+    over more ranks than n divides by (n_kv 2 on 4 model ranks) is gathered
+    on that dim first: DTensor cannot split an uneven shard, where GSPMD
+    reshards on its own."""
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        place = [Replicate() if isinstance(q, Shard) and q.dim == t.ndim - 1 and n % mesh.size(m)
+                 else q for m, q in enumerate(t.placements)]
+        if place != list(t.placements):
+            t = t.redistribute(mesh, place)
+    return t.reshape(B, S, n, hd)
+
+
 def _proj_qkv(x, p, cfg: ModelConfig, positions, ctx, prefix=""):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ p[prefix + "wq"]).reshape(B, S, H, hd)
-    k = (x @ p[prefix + "wk"]).reshape(B, S, KV, hd)
-    v = (x @ p[prefix + "wv"]).reshape(B, S, KV, hd)
+    q = _split_heads(x @ p[prefix + "wq"], B, S, H, hd)
+    k = _split_heads(x @ p[prefix + "wk"], B, S, KV, hd)
+    v = _split_heads(x @ p[prefix + "wv"], B, S, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p[prefix + "qn"], cfg.norm_eps)
         k = rmsnorm(k, p[prefix + "kn"], cfg.norm_eps)

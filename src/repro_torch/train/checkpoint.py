@@ -19,8 +19,17 @@ truncated file, a checksum mismatch, a missing key).  Only reading and
 checking sit under that fallback: moving the leaves onto the template's
 devices comes after it, so a CUDA error or an out-of-memory there leaves
 `restore_latest` instead of passing for an older step.  Retention keeps the
-newest K.  Restoring onto a mesh (the reference's elastic re-mesh,
-`reshard`) waits for ROADMAP.md item A.6b.
+newest K.
+
+Under a mesh a tree's DTensor leaves are gathered with `full_tensor()` on
+every rank (a collective: every rank calls `save`), rank 0 alone writes,
+stages and renames, and a barrier follows; the file is the same as one
+device's.  `restore_latest(template, ctx, dims)` reads and checks on every
+rank, then `reshard` places each leaf by `sharding_for(dims)` on the
+current mesh, whatever mesh the step was saved on (the reference's elastic
+re-mesh).  Where the reference's `reshard` maps over `dims` and raises at a
+`None` subtree (`jax.tree.map`: "Expected dict, got None"), the port leaves
+that subtree's leaves as plain tensors on their template's device.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import TRAINING_MESH, ShardingCtx
-from repro_torch.models.config import not_ported
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.sharding import ShardingCtx, sharding_for
 
 # npz cannot represent bfloat16 or fp8: stored as same-width unsigned ints
 _EXOTIC = {
@@ -57,6 +68,8 @@ def _to_storable(leaf) -> Tuple[np.ndarray, str]:
     if not isinstance(leaf, torch.Tensor):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()  # a collective: every rank gathers
     t = leaf.detach().cpu()
     if t.dtype in _BY_TORCH:
         name = _BY_TORCH[t.dtype]
@@ -108,16 +121,30 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, meta: Optional[dict] = None) -> str:
+        """Write `tree` as step `step`.  With DTensor leaves every rank of
+        their mesh calls it: each leaf is gathered, the mesh's first rank
+        writes, and every rank leaves after a barrier."""
         flat = _flatten(tree)
+        mesh = next((leaf.device_mesh for _, leaf in flat if isinstance(leaf, DTensor)), None)
         arrays = {}
-        checksums = {}
-        dtypes = {}
         for key, leaf in flat:
-            arr, dtype_name = _to_storable(leaf)
-            arrays[key] = arr
-            dtypes[key] = dtype_name
-            checksums[key] = hashlib.sha1(arr.tobytes()).hexdigest()[:12]
+            arrays[key] = _to_storable(leaf)
         final = os.path.join(self.dir, f"step_{step:08d}")
+        if mesh is None:
+            return self._write(step, flat, arrays, meta, final)
+        try:
+            if dist.get_rank() == int(mesh.mesh.min()):
+                self._write(step, flat, arrays, meta, final)
+        finally:
+            dist.barrier()
+        return final
+
+    def _write(self, step: int, flat, stored: Dict[str, Tuple[np.ndarray, str]],
+               meta: Optional[dict], final: str) -> str:
+        arrays = {key: arr for key, (arr, _) in stored.items()}
+        dtypes = {key: name for key, (_, name) in stored.items()}
+        checksums = {key: hashlib.sha1(arr.tobytes()).hexdigest()[:12]
+                     for key, arr in arrays.items()}
         staging = tempfile.mkdtemp(prefix=f"step_{step:08d}.tmp-", dir=self.dir)
         try:
             npz_path = os.path.join(staging, "arrays.npz")
@@ -177,10 +204,8 @@ class CheckpointManager:
     def restore_latest(self, template: Any, ctx: Optional[ShardingCtx] = None,
                        dims: Optional[Any] = None) -> Tuple[Optional[Any], Optional[dict]]:
         """Try newest -> oldest; verify integrity; put each leaf on its
-        template leaf's device (the CPU for a leaf that is not a tensor)."""
-        if ctx is not None and ctx.enabled:
-            raise not_ported("restoring a checkpoint onto a mesh (the elastic re-mesh)",
-                             TRAINING_MESH)
+        template leaf's device (the CPU for a leaf that is not a tensor), then,
+        with a mesh in `ctx` and `dims`, place it on the mesh (`reshard`)."""
         for step in reversed(self.list_steps()):
             try:
                 flat, manifest = self._load_step(step, template)
@@ -193,5 +218,28 @@ class CheckpointManager:
                 device = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
                 return _from_storable(arr, dtypes.get(key, str(arr.dtype)), device)
 
-            return _unflatten(template, leaf), manifest
+            tree = _unflatten(template, leaf)
+            if ctx is not None and ctx.enabled and dims is not None:
+                tree = reshard(tree, dims, ctx)
+            return tree, manifest
         return None, None
+
+
+def _is_dims(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def reshard(tree: Any, dims: Any, ctx: ShardingCtx) -> Any:
+    """Every leaf of `tree` (each rank holding all of it) as a DTensor
+    placed by `sharding_for(dims)` on the CURRENT mesh, each rank keeping its
+    own shard without communication: the elastic-scaling entry point (the
+    mesh the tree was saved on does not matter).  A `None` in `dims` leaves
+    its subtree's leaves as they are."""
+    if dims is None:
+        return tree
+    if _is_dims(dims):
+        place = sharding_for(dims, ctx, tuple(tree.shape))
+        return distribute_tensor(tree, ctx.mesh, place, src_data_rank=None)
+    if isinstance(tree, dict):
+        return {k: reshard(v, dims[k], ctx) for k, v in tree.items()}
+    return [reshard(v, d, ctx) for v, d in zip(tree, dims)]

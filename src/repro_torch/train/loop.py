@@ -1,13 +1,24 @@
 """Training loop: datapath batches -> microbatched grad accumulation ->
 optimizer -> checkpoint/resume, with straggler instrumentation.
 
-Port of `repro/train/loop.py` for one device.  The step's first op on a
-'fused'-mode batch is the bit-unpack of the token blocks (models/model.py),
-the `bitunpack` kernel on the card: the paper's decode offload as stage 0
-of the training step.  Gradients come from autograd over the model's plain
+Port of `repro/train/loop.py`.  The step's first op on a 'fused'-mode
+batch is the bit-unpack of the token blocks (models/model.py), the
+`bitunpack` kernel on the card: the paper's decode offload as stage 0 of
+the training step.  Gradients come from autograd over the model's plain
 operations, as the reference's come from `jax.value_and_grad`; the update
-runs in place.  Sharded gradients (the reference's `_shard_grads` under a
-mesh) wait for ROADMAP.md item A.6b.
+runs in place.
+
+Under a mesh (`ctx` with a DeviceMesh) the parameters and moments are
+DTensors (`train` places the drawn parameters with `shard_params` before
+`init_opt_state`, where the reference has GSPMD place them inside `jit`).
+Every rank reads the same global batch, and `forward_train` keeps each
+rank's rows.  Autograd gives each gradient in whatever placement its last
+op left (a `Partial` sum, say); `shard_grads`, the reference's
+`_shard_grads`, then redistributes it to its parameter's storage
+placements: a partial gradient is reduce-scattered onto a sharded parameter
+and all-reduced onto a replicated one.  Microbatches accumulate first and are placed once, as in
+the reference.  The loss and the gradient norm come out as plain tensors,
+the same value on every rank.
 """
 
 from __future__ import annotations
@@ -16,16 +27,19 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.fault_tolerance import StragglerDetector
-from repro_torch.distributed.sharding import TRAINING_MESH, ShardingCtx, local_ctx
-from repro_torch.models.config import ModelConfig, not_ported
-from repro_torch.models.model import forward_train, init_params
+from repro_torch.distributed.sharding import ShardingCtx, local_ctx, shard_params, sharding_for
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import forward_train, init_params, param_dims
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import (
     OptConfig,
     apply_updates,
     init_opt_state,
+    opt_state_dims,
+    plain,
     tree_leaves,
     tree_map,
 )
@@ -44,36 +58,52 @@ def _requires_grad(params, on: bool):
     tree_map(lambda p: p.requires_grad_(on), params)
 
 
+def _placed(g: torch.Tensor, place) -> torch.Tensor:
+    """g redistributed to `place` (a DTensor gradient), or g itself."""
+    if not isinstance(g, DTensor) or tuple(g.placements) == tuple(place):
+        return g
+    return g.redistribute(g.device_mesh, place)
+
+
+def shard_grads(grads, cfg: ModelConfig, ctx: ShardingCtx):
+    """Each gradient placed as its parameter is stored (`sharding_for(
+    param_dims)`, the reference's `_shard_grads`): a partial sum is
+    reduce-scattered onto a sharded parameter rather than gathered whole."""
+    if not ctx.enabled:
+        return grads
+    return tree_map(lambda g, dm: _placed(g, sharding_for(dm, ctx, tuple(g.shape))),
+                    grads, param_dims(cfg))
+
+
 def make_train_step(cfg: ModelConfig, optcfg: OptConfig,
                     ctx: Optional[ShardingCtx] = None) -> Callable:
     """step(params, opt_state, batch) -> (params, opt_state, {"loss", "lr",
     "grad_norm"}); params and moments are updated in place."""
     ctx = ctx or local_ctx()
-    if ctx.enabled:
-        raise not_ported("sharded gradients (training under a mesh)", TRAINING_MESH)
     m = cfg.microbatches
 
     def train_step(params, opt_state, batch):
         _requires_grad(params, True)
         if m == 1:
             loss, _ = forward_train(params, batch, cfg, ctx)
-            grads = _grads(params, loss)
+            grads = shard_grads(_grads(params, loss), cfg, ctx)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = None
             loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
             for i in range(m):
                 mb = {k: x.reshape(m, x.shape[0] // m, *x.shape[1:])[i]
                       for k, x in batch.items()}
                 l, _ = forward_train(params, mb, cfg, ctx)
                 g = _grads(params, l)
+                if grads is None:  # zeros of the gradients' own placements
+                    grads = tree_map(lambda b: torch.zeros_like(b, dtype=torch.float32), g)
                 grads = tree_map(lambda a, b: a + b.float(), grads, g)
-                loss = loss + l.detach()
-            grads = tree_map(lambda g: g / m, grads)
+                loss = loss + plain(l.detach())
+            grads = shard_grads(tree_map(lambda g: g / m, grads), cfg, ctx)
             loss = loss / m
         _requires_grad(params, False)  # plain tensors again, as init_params made them
         params, opt_state, stats = apply_updates(params, grads, opt_state, optcfg)
-        return params, opt_state, {"loss": loss.detach(), **stats}
+        return params, opt_state, {"loss": plain(loss.detach()), **stats}
 
     return train_step
 
@@ -92,15 +122,23 @@ def train(
     device="cuda",
 ) -> Dict[str, Any]:
     """Runs `steps` steps on `device` (the card unless the caller asks for
-    the CPU); resumes from the latest checkpoint in `ckpt_dir` if present."""
+    the CPU); resumes from the latest checkpoint in `ckpt_dir` if present.
+    Under a mesh every rank calls it with the same arguments and reads the
+    same batches; the moments are restored by their parameters' dims (the
+    reference passes `None` there and raises: ROADMAP.md C)."""
     ctx = ctx or local_ctx()
-    params = init_params(cfg, seed, device)
+    params = shard_params(init_params(cfg, seed, device), cfg, ctx)
     opt_state = init_opt_state(params, optcfg)
     start_step = 0
 
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if manager is not None:
-        restored, manifest = manager.restore_latest({"params": params, "opt": opt_state}, ctx)
+        dims = None
+        if ctx.enabled:
+            pdims = param_dims(cfg)
+            dims = {"params": pdims, "opt": opt_state_dims(pdims, params, optcfg)}
+        restored, manifest = manager.restore_latest({"params": params, "opt": opt_state}, ctx,
+                                                    dims)
         if restored is not None:
             params, opt_state = restored["params"], restored["opt"]
             start_step = manifest["meta"].get("step", 0)

@@ -11,6 +11,14 @@ bits.  `apply_updates` writes the new parameters and moments into their
 tensors in place (the counterpart of the reference's `donate_argnums`),
 each rounded back to its tensor's dtype.
 
+On DTensor parameters (training under a mesh) the moments are DTensors that
+inherit their parameter's placements, as the reference's docstring says
+GSPMD gives them; Adafactor's factored `vr` / `vc` take the placements of
+the parameter's dims that they keep.  The step, the schedule and the bias
+corrections stay plain 0-dim tensors, which DTensor takes as replicated
+scalars.  `global_norm` sums each rank's squares and reduces them once, and
+comes out as a plain tensor, the same on every rank.
+
 moments_dtype='bfloat16' halves Adam state at <0.1% update error.
 """
 
@@ -21,6 +29,8 @@ import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,36 +98,91 @@ def _device(params) -> torch.device:
     return tree_leaves(params)[0].device
 
 
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor on every rank, else x."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _kept(dims, drop: Tuple[int, ...]):
+    """`dims` (a placement's tensor dims or logical dims) without the
+    indices in `drop`, renumbered."""
+    return tuple(d for i, d in enumerate(dims) if i not in drop)
+
+
+def _zeros(p: torch.Tensor, shape, drop: Tuple[int, ...] = ()) -> torch.Tensor:
+    """float32 zeros of `shape`, p's dims less `drop`; for a DTensor p,
+    placed as p's placements place the dims that stay (a dim that goes
+    leaves its mesh dims replicated)."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    keep = [i for i in range(p.ndim) if i not in drop]
+    place = [Shard(keep.index(q.dim)) if isinstance(q, Shard) and q.dim in keep
+             else Replicate() for q in p.placements]
+    return dtensor_zeros(tuple(shape), dtype=torch.float32, device_mesh=p.device_mesh,
+                         placements=place)
+
+
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
     step = torch.zeros((), dtype=torch.int32, device=_device(params))
     if cfg.name == "adamw":
         mdt = _MOMENT_DTYPES[cfg.moments_dtype]
+        # zeros_like keeps a DTensor parameter's placements
         return {
-            "m": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
+            "m": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
             "step": step,
         }
     if cfg.name == "adafactor":
         def vrow(p):
-            shape = p.shape[:-1] if _factored(p.shape, cfg.factored_min_size) else p.shape
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if _factored(p.shape, cfg.factored_min_size):
+                return _zeros(p, p.shape[:-1], (p.ndim - 1,))
+            return _zeros(p, p.shape)
 
         def vcol(p):
-            shape = (p.shape[:-2] + p.shape[-1:] if _factored(p.shape, cfg.factored_min_size)
-                     else (1,))
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if _factored(p.shape, cfg.factored_min_size):
+                return _zeros(p, p.shape[:-2] + p.shape[-1:], (p.ndim - 2,))
+            return _zeros(p, (1,), tuple(range(p.ndim)))  # a placeholder, replicated
 
         return {"vr": tree_map(vrow, params), "vc": tree_map(vcol, params), "step": step}
     raise ValueError(cfg.name)
 
 
+def opt_state_dims(param_dims, params, cfg: OptConfig) -> Dict[str, Any]:
+    """The logical dims of `init_opt_state(params, cfg)`'s leaves, for
+    placing a restored state on a mesh: each moment its parameter's dims
+    (Adafactor's factored ones those of the dims they keep), the step None
+    (a plain tensor)."""
+    if cfg.name == "adamw":
+        return {"m": param_dims, "v": param_dims, "step": None}
+    if cfg.name == "adafactor":
+        def vrow(p, dm):
+            return _kept(dm, (p.ndim - 1,)) if _factored(p.shape, cfg.factored_min_size) else dm
+
+        def vcol(p, dm):
+            if _factored(p.shape, cfg.factored_min_size):
+                return _kept(dm, (p.ndim - 2,))
+            return (None,)
+
+        return {"vr": tree_map(vrow, params, param_dims), "vc": tree_map(vcol, params, param_dims),
+                "step": None}
+    raise ValueError(cfg.name)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, leaves added
-    in the reference's order."""
+    in the reference's order; for DTensor leaves each rank adds its own
+    shards' squares and one reduction follows (the sum in another order)."""
     total = 0
     for leaf in tree_leaves(tree):
         total = total + torch.sum(leaf.float() ** 2)
-    return torch.sqrt(total)
+    return plain(torch.sqrt(total))
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src), src first placed as dst is when both are DTensors."""
+    if isinstance(dst, DTensor) and tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -138,7 +203,7 @@ def apply_updates(params, grads, state, cfg: OptConfig
     def newp(p, delta, do_wd):
         if do_wd:
             delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        _store(p, (p.float() - lr * delta).to(p.dtype))
 
     if cfg.name == "adamw":
         b1, b2 = cfg.b1, cfg.b2
@@ -152,8 +217,8 @@ def apply_updates(params, grads, state, cfg: OptConfig
             mhat = m32 / bc1
             vhat = v32 / bc2
             newp(p, mhat / (torch.sqrt(vhat) + cfg.eps), do_wd)
-            m.copy_(m32)
-            v.copy_(v32)
+            _store(m, m32)
+            _store(v, v32)
 
         tree_map(upd, params, grads, state["m"], state["v"], mask)
         return params, {"m": state["m"], "v": state["v"], "step": step}, stats
@@ -169,7 +234,7 @@ def apply_updates(params, grads, state, cfg: OptConfig
                 vc32 = decay * vc + (1 - decay) * torch.mean(g2, dim=-2)
                 denom = torch.clamp(torch.mean(vr32, dim=-1, keepdim=True), min=1e-30)
                 vhat = (vr32[..., None] * vc32[..., None, :]) / denom[..., None]
-                vc.copy_(vc32)
+                _store(vc, vc32)
             else:
                 vr32 = decay * vr + (1 - decay) * g2
                 vhat = vr32
@@ -177,7 +242,7 @@ def apply_updates(params, grads, state, cfg: OptConfig
             # update clipping (RMS <= 1), Adafactor-style
             rms = torch.sqrt(torch.mean(delta ** 2) + 1e-30)
             newp(p, delta / torch.clamp(rms, min=1.0), do_wd)
-            vr.copy_(vr32)
+            _store(vr, vr32)
 
         tree_map(upd, params, grads, state["vr"], state["vc"], mask)
         return params, {"vr": state["vr"], "vc": state["vc"], "step": step}, stats

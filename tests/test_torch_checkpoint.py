@@ -175,11 +175,46 @@ def test_restore_puts_each_leaf_on_its_template_device(tmp_path, monkeypatch):
     assert devices == [torch.device("cpu")] * 3
 
 
-def test_restore_onto_a_mesh_raises_naming_the_roadmap_item(tmp_path):
-    m = CheckpointManager(str(tmp_path))
-    m.save(1, _tree())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
-        m.restore_latest(_tree(), ShardingCtx(mesh=object()), {"params": None})
+@pytest.fixture
+def one_rank_mesh():
+    """A (data 1, model 1) mesh over a gloo process group of one rank in
+    this process, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import make_mesh
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_onto_a_mesh_gives_dtensors(tmp_path, one_rank_mesh):
+    """A mesh save (DTensor leaves: the one rank gathers and writes) restored
+    onto the mesh: every leaf with dims a DTensor placed by them, bit for
+    bit; a None subtree stays plain; the file is one device's."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    ctx = ShardingCtx(mesh=one_rank_mesh)
+    tree = _tree()
+    on_mesh = {"params": {k: distribute_tensor(v, one_rank_mesh, [Replicate(), Replicate()])
+                          for k, v in tree["params"].items()}, "opt": tree["opt"]}
+    CheckpointManager(str(tmp_path / "mesh")).save(1, on_mesh, meta={"step": 1})
+    CheckpointManager(str(tmp_path / "one")).save(1, tree, meta={"step": 1})
+    for name in ("manifest.json", "arrays.npz"):
+        assert (tmp_path / "mesh" / "step_00000001" / name).read_bytes() == \
+            (tmp_path / "one" / "step_00000001" / name).read_bytes()
+    dims = {"params": {"w": ("d", "heads"), "b16": (None,)}, "opt": None}
+    got, manifest = CheckpointManager(str(tmp_path / "mesh")).restore_latest(_tree(), ctx, dims)
+    assert manifest["meta"] == {"step": 1}
+    for k, v in tree["params"].items():
+        leaf = got["params"][k]
+        assert isinstance(leaf, DTensor) and leaf.device_mesh is one_rank_mesh
+        assert tuple(leaf.placements) == (Replicate(), Replicate())
+        assert leaf.dtype == v.dtype and torch.equal(leaf.full_tensor(), v)
+    assert not isinstance(got["opt"][0], DTensor) and torch.equal(got["opt"][0], tree["opt"][0])
 
 
 def test_same_format_as_the_reference(tmp_path):

@@ -1,11 +1,15 @@
-"""chip_smoke.py's mesh phase (phase D: serving under a device mesh)
-rehearsed on the CPU with plain kernels counted as launches: qwen3's smoke
-config at float32 and 2 layers in place of the full width, prompts of 24-48
-tokens with 8 new each on 64-slot caches, and the launcher on the smoke
-config; a gloo process group
-of one rank on a HashStore in place of NCCL.  It passes every check (on one
-rank the mesh serves bit for bit as no mesh does), launches one bitunpack
-in its window, and destroys its process group, also when a check fails.
+"""chip_smoke.py's mesh phase (phase D: serving and training under a device
+mesh) rehearsed on the CPU with plain kernels counted as launches: qwen3's
+and deepseek's smoke configs at float32, 2 layers and 2 heads in place of the full
+width, prompts of 24-48 tokens with 8 new each on 64-slot caches, the
+launcher on the smoke config, training batches of 1 x 4,096 packed tokens
+(2 steps each under the mesh and without it; a checkpoint at step 1,
+resumed to 2), a 64 x 64 gradient for the
+collectives; a gloo process group of one rank on a HashStore in place of
+NCCL.  It passes every check (on one rank the mesh serves and trains bit
+for bit as no mesh does), launches bitunpack once for (b) and once a
+training step in its window, and destroys its process group, also when a
+check fails.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import pytest
+import torch
 import torch.distributed as dist
 
 import chip_smoke
@@ -21,14 +26,38 @@ from tests.test_torch_chip_smoke import on_cpu, plain_launches  # noqa: F401 (fi
 
 @pytest.fixture
 def mesh_on_cpu(monkeypatch, on_cpu, plain_launches):  # noqa: F811
+    """The smoke configs at float32, 2 layers and 2 heads (the training
+    parts run at the packed block's 4,096 tokens), on 2 torch threads so
+    that parallel test workers do not oversubscribe the cores."""
     from repro_torch.configs import get_smoke_config
 
     monkeypatch.setattr(chip_smoke, "get_config", lambda arch: dataclasses.replace(
-        get_smoke_config(arch), dtype="float32", n_layers=2))
+        get_smoke_config(arch), dtype="float32", n_layers=2, n_heads=2, n_kv=2))
     monkeypatch.setattr(chip_smoke, "LM_PROMPTS", (24, 32, 40, 48))
     monkeypatch.setattr(chip_smoke, "LM_MAX_LEN", 64)
     monkeypatch.setattr(chip_smoke, "MESH_NEW_TOKENS", 8)
     monkeypatch.setattr(chip_smoke, "SERVE_ARGS", chip_smoke.SERVE_ARGS + ["--smoke"])
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 1)
+    monkeypatch.setattr(chip_smoke, "MESH_STEPS", 1)
+    monkeypatch.setattr(chip_smoke, "MESH_RESUME_AT", 1)
+    monkeypatch.setattr(chip_smoke, "MESH_RESUME_TO", 2)
+    monkeypatch.setattr(chip_smoke, "PSUM_SHAPE", (64, 64))
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: CARD)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+CARD = "a CPU rehearsal, no card"  # in place of nvidia-smi's name and power limit
+# (b), then (e) 2 runs of MESH_STEPS + 1 steps, (f) 2 runs of one step, (h)
+# 1 step saved, 1 resumed and 2 uninterrupted
+UNPACKS = 1 + 2 * 2 + 2 + 4
 
 
 def test_mesh_phase_rehearsal(mesh_on_cpu, capsys):
@@ -41,9 +70,25 @@ def test_mesh_phase_rehearsal(mesh_on_cpu, capsys):
                  "(a) mesh: prefill_ms (24 tokens, warm)", "(a) none: prefill_ms",
                  "idle_share=", "(b) 4096-token prompt packed at k=9 under the mesh: one "
                  "bitunpack launch", "(c) launch.serve --arch qwen3-1.7b --requests 16 --smoke: "
-                 "16 requests, 256 tokens", "(d) process group destroyed"):
+                 "16 requests, 256 tokens",
+                 "(e) qwen3-smoke at full width, float32, remat, AdamW, B 1 x S 4096 packed at "
+                 "k=9, 2 steps from seed 0 under the mesh and without it",
+                 "parameter leaves after the steps bit for bit", "(e) mesh: step_ms (median of 1)",
+                 "(e) none: step_ms", f"bitunpack launches [1, 1] [{CARD}]",
+                 "(f) deepseek-moe-smoke cut to 2 of 28 layers (1 dense + 1 MoE of 8 experts, "
+                 "top 3, 2 shared), float32", "bitunpack launches [1] / [1]; ",
+                 "parameters bit for bit",
+                 "(g) NCCL, a (pod 1, data 1) mesh, float32 (64, 64): hierarchical_psum equals x "
+                 "bit for bit", "compressed_psum's int8 sum against numpy's max |diff| 0.000e+00",
+                 "(h) 2 layers at full width, B 1 x S 4096, bfloat16 moments: train() under the "
+                 "mesh saved step 1, "
+                 "restored as DTensors placed by param_dims, bit for bit",
+                 "(bit for bit; tolerance 0.001); bitunpack launches 4; ",
+                 "(i) launch.train --arch qwen3-1.7b --mesh single: RuntimeError: mesh (16, 16) "
+                 f"needs 256 ranks, found 1 in the process group [{CARD}]",
+                 f"(d) process group destroyed; {UNPACKS} bitunpack launches"):
         assert part in out, part
-    assert launches == dict(dict.fromkeys(chip_smoke.ops.KERNELS, 0), bitunpack=1)
+    assert launches == dict(dict.fromkeys(chip_smoke.ops.KERNELS, 0), bitunpack=UNPACKS)
     assert not dist.is_initialized()
 
 
@@ -65,3 +110,21 @@ def test_mesh_phase_stops_when_the_mesh_engine_differs(mesh_on_cpu, monkeypatch,
     out = capsys.readouterr().out
     assert "(a)" not in out and "(b)" not in out
     assert not dist.is_initialized()
+
+
+def test_same_runs_names_what_differs_and_holds_it_to_the_bound():
+    """(e)/(f)'s comparison: equal runs are bit for bit; a leaf off by a
+    rounding is named and held to MESH_STEP_REL; past it the phase fails."""
+    def run(scale=1.0, loss=6.0):
+        return {"metrics": [(loss, 1.0)], "names": ["embed", "final_ln"],
+                "params": [torch.ones(4) * scale, torch.zeros(3)]}
+
+    assert chip_smoke.same_runs(run(), run(), "(e)") == "bit for bit"
+    verdict = chip_smoke.same_runs(run(1 + 1e-6), run(), "(e)")
+    assert verdict.startswith("not bit for bit: losses relative 0.000e+00, parameters "
+                              "relative L2 9.537e-07 (tolerance 0.001)")
+    assert verdict.endswith("differing leaves ['embed']")
+    with pytest.raises(AssertionError, match=r"\(e\) under the mesh against without it"):
+        chip_smoke.same_runs(run(1.01), run(), "(e)")
+    with pytest.raises(AssertionError, match=r"against \[\(6.0, 1.0\)\] \(relative 0.0099"):
+        chip_smoke.same_runs(run(loss=6.06), run(), "(e)")

@@ -355,7 +355,7 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.models.ssm, repro_torch.configs.mamba2_370m, "
         "repro_torch.configs.hymba_1_5b, repro_torch.configs.deepseek_moe_16b, "
         "repro_torch.configs.llama4_maverick_400b, repro_torch.distributed.compat, "
-        "repro_torch.launch.mesh, repro_torch.launch.serve\n"
+        "repro_torch.launch.mesh, repro_torch.launch.serve, repro_torch.distributed.collectives\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes'"
         " or m.startswith('ml_dtypes.'))\n"

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro.configs import get_smoke_config as jget_smoke
 from repro.distributed.sharding import local_ctx as jlocal_ctx
@@ -186,10 +187,40 @@ def test_top_k_ties_go_to_the_lower_expert():
     assert float(at) == pytest.approx(float(aj), rel=1e-6)
 
 
-def test_moe_ffn_under_a_mesh_raises_naming_the_roadmap_item():
-    """The expert-parallel moe_ffn serves (tests/test_torch_distributed.py);
-    gradients through it wait for A.6b: with inputs that require grad it
-    raises before it reads the mesh."""
+def test_moe_ffn_gradient_under_a_mesh_equals_one_devices():
+    """Gradients through the mesh moe_ffn (its local bodies, DTensor
+    parameters, the Switch loss as a replicated scalar) on a (1, 1) mesh of
+    one gloo rank: x's and every parameter's gradient equal to one device's,
+    bit for bit.  The 4-rank arms are held to the reference in
+    tests/test_torch_train_mesh.py."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import as_dtensor
+
     _, ct, _, pt, _, xt = _layer("deepseek-moe-16b", "float32", 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
-        moe.moe_ffn(xt.clone().requires_grad_(), pt, ct, ShardingCtx(mesh=object()))
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        ctx = ShardingCtx(mesh=mesh, strategy="tp")
+        grads = {}
+        for label in ("mesh", "one"):
+            x = xt.clone().requires_grad_(True)
+            if label == "mesh":
+                p = {k: distribute_tensor(v, mesh, [Replicate(), Replicate()]).requires_grad_()
+                     for k, v in pt.items()}
+                y, aux = moe.moe_ffn(as_dtensor(x, mesh), p, ct, ctx)
+                total = (y.float() ** 2).sum().full_tensor() + aux
+            else:
+                p = {k: v.clone().requires_grad_(True) for k, v in pt.items()}
+                y, aux = moe.moe_ffn(x, p, ct, local_ctx())
+                total = (y.float() ** 2).sum() + aux
+            grads[label] = [g.full_tensor() if hasattr(g, "full_tensor") else g
+                            for g in torch.autograd.grad(total, [x, *p.values()])]
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(grads["mesh"], grads["one"]):
+        assert torch.equal(got, want)
+    assert float(grads["one"][1].abs().sum()) > 0  # the router learns through the gates

@@ -332,9 +332,54 @@ def test_smoke_forward_and_train_step(arch):
     assert float((params["embed"].float() - embed0).abs().max()) > 0, arch
 
 
-def test_train_under_a_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
-        make_train_step(get_smoke_config("qwen3-1.7b"), OptConfig(), ShardingCtx(mesh=object()))
+@pytest.fixture
+def one_rank_mesh():
+    """A (data 1, model 1) mesh over a gloo process group of one rank in
+    this process, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compat import make_mesh
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b"])
+def test_mesh_train_step_equals_no_mesh_bit_for_bit(arch, one_rank_mesh):
+    """Two float32 steps at 2 layers under a (1, 1) mesh (DTensor parameters
+    and moments, shard_grads, the loss and grad norm plain) against two
+    without it: the same losses, grad norms and parameters, bit for bit (4
+    ranks: tests/test_torch_train_mesh.py; bf16 at full width: chip_smoke
+    phase D)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import shard_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", n_layers=2)
+    optcfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.01)
+    batch = {"tokens": torch.from_numpy(_tokens(cfg, 3))}
+    runs = {}
+    for label, ctx in (("mesh", ShardingCtx(mesh=one_rank_mesh)), ("none", None)):
+        params = model.init_params(cfg, 0, device="cpu")
+        if ctx is not None:
+            params = shard_params(params, cfg, ctx)
+        state = init_opt_state(params, optcfg)
+        step = make_train_step(cfg, optcfg, ctx)
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            assert not isinstance(m["loss"], DTensor) and not isinstance(m["grad_norm"], DTensor)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if ctx is not None:
+            assert all(isinstance(x, DTensor) for x in tree_leaves(state["m"]))
+        runs[label] = metrics, [p.full_tensor() if isinstance(p, DTensor) else p
+                                for p in tree_leaves(params)]
+    assert runs["mesh"][0] == runs["none"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["mesh"][1], runs["none"][1]))
 
 
 def test_training_runs_on_the_card_by_default(monkeypatch):
@@ -408,9 +453,13 @@ def test_launcher_trains_on_the_cpu(tmp_path):
     assert os.path.isdir(tmp_path / "ck" / "step_00000002")
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launcher_meshes_raise_naming_the_roadmap_item(tmp_path, mesh):
+@pytest.mark.parametrize("mesh,ranks", [("single", 256), ("multi", 512)])
+def test_launcher_meshes_need_their_ranks(tmp_path, mesh, ranks, one_rank_mesh):
+    """--mesh single|multi build the production mesh, which needs 256 or
+    512 ranks in the process group: with one it raises RuntimeError, as the
+    reference raises without that many devices."""
     from repro_torch.launch import train as launcher
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
-        launcher.main(["--arch", "qwen3-1.7b", "--corpus", str(tmp_path), "--mesh", mesh])
+    with pytest.raises(RuntimeError, match=f"needs {ranks} ranks, found 1 in the process group"):
+        launcher.main(["--arch", "qwen3-1.7b", "--corpus", str(tmp_path), "--mesh", mesh,
+                       "--device", "cpu"])
