@@ -266,7 +266,25 @@ D. serving under a device mesh: NCCL initialized at world size 1 on a
    once on the rank's own shard of the words, and nothing else in the
    phase, the logits equal to the tokens prefill's under the mesh; (c) the
    serve launcher, `launch.serve.main` on qwen3-1.7b at full width on the
-   card, 16 requests: requests, tokens, tokens/s and ticks; (d) the process
+   card, 16 requests: requests, tokens, tokens/s and ticks; (e)-(i) training
+   under the mesh (qwen3-1.7b and deepseek-moe-16b against no mesh, the
+   collectives, a checkpoint re-meshed, the train launcher's mesh); (j)
+   mamba2-370m, hymba-1.5b and whisper-base uncut and llava-next-34b cut to
+   2 of 60 layers at full width, each served by a 4-slot engine under the
+   mesh and without it (phase M's prompts of 1,024-4,096 tokens, whose
+   longer three wrap hymba's 1,024-slot rings; whisper's 64-448 over 1,500
+   zero frames; 16 new tokens each): the same tokens and ticks, a packed
+   4,096-token prefill under the mesh (whisper: 448 tokens over random
+   frames) against the tokens prefill without it within 1e-3 relative L2,
+   its largest difference printed, prefill ms, decode ms per tick, busy ms,
+   idle share and peak GB for both, whisper's encoder ms; (k) the same
+   models trained (mamba2 at 4 of 48 layers, hymba at 3 of 32, llava at 2)
+   with remat, 3 AdamW steps under the mesh and without it, bit for bit in
+   losses, grad norms and parameters, the second step's ms (and the
+   first's) and the third's idle share for both: B 1 x 4,096 packed
+   tokens (llava after its 576 vision embeddings), whisper 8 x 448 tokens
+   over 8 x 1,500 frames; (l) bitunpack counted over the window: one a
+   packed prefill, one a packed step, nothing else; (d) the process
    group destroyed;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
@@ -3126,13 +3144,36 @@ MESH_RESUME_BATCH = 1  # (h): 2 layers at full width (a 28-layer checkpoint is 1
 MESH_RESUME_OPT = dict(OPT, moments_dtype="bfloat16")
 MESH_RESUME_AT, MESH_RESUME_TO = 2, 4
 TRAIN_MESH_ARGS = ["--arch", LM_ARCH, "--mesh", "single"]  # (i)
+# (j)-(k): the SSM, hybrid, enc-dec and VLM families under the mesh against
+# without it; llava-next-34b cut to 2 of its 60 layers at full width (60
+# layers are ~68 GB of bf16 weights, twice over with the unsharded copy's
+# first-use buffers); in (k) hymba cut to 3 of 32 layers (`family_config`
+# keeps the first global, the rest windowed) and mamba2 to 4 of 48: its SSD
+# chunk loop launches ~60,000 kernels a 48-layer step, which torch.profiler
+# took ~110 s to trace on an H100 80GB HBM3
+MESH_ARCHS = ("mamba2-370m", "hymba-1.5b", "whisper-base", "llava-next-34b")
+MESH_SERVE_LAYERS = {"llava-next-34b": 2}
+MESH_TRAIN_LAYERS = {"mamba2-370m": 4, "hymba-1.5b": 3, "llava-next-34b": 2}
+# the first step (DTensor's first dispatch of each op, cuBLAS's first
+# shapes) and the second timed alone, the third under torch.profiler
+MESH_TRAIN_STEPS = 3
+# (k): packed batches of B x PACKED_LEN tokens where the family takes them in
+# 4,096-token blocks; whisper's text context is 448 tokens, so it trains on
+# phase E (e)'s 8 x 448 tokens (not a block multiple: as tokens) over 8 x
+# 1,500 frames
+MESH_TRAIN_BATCH = 1
 
 
-def served_on(params, cfg, ctx, reqs, device) -> dict:
-    """Drain copies of `reqs` on a 4-slot engine: their tokens, the ticks,
-    the median decode tick's wall ms, tokens/s and, from torch.profiler, the
-    device busy ms of one more decode tick of all four slots (the third)."""
-    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, ctx=ctx, device=device)
+def served_on(params, cfg, ctx, reqs, device, max_len: int = None) -> dict:
+    """Drain copies of `reqs` on a 4-slot engine (caches of `max_len`,
+    LM_MAX_LEN if None): their tokens, the ticks, the median decode tick's
+    wall ms, tokens/s, the peak device bytes of the drain and, from
+    torch.profiler, the device busy ms of one more decode tick of all four
+    slots (the third)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=max_len or LM_MAX_LEN, ctx=ctx,
+                      device=device)
     mine = [Request(rid=r.rid, tokens=r.tokens, max_new_tokens=MESH_NEW_TOKENS) for r in reqs]
     for r in mine:
         eng.submit(r)
@@ -3151,17 +3192,26 @@ def served_on(params, cfg, ctx, reqs, device) -> dict:
     return {"tokens": {r.rid: r.out for r in mine}, "ticks": eng.steps,
             "tick_ms": sorted(decode_ms)[len(decode_ms) // 2],
             "tokens_per_s": sum(n for n, _ in ticks[1:]) / (sum(decode_ms) / 1e3),
-            "busy_ms": busy[0], "top": busy[1]}
+            "busy_ms": busy[0], "top": busy[1], "peak": torch.cuda.max_memory_allocated()}
 
 
-def prefill_ms(params, cfg, ctx, tokens: torch.Tensor) -> float:
-    """Warm wall ms of one prefill of `tokens` on the engine's caches."""
-    model.prefill(params, {"tokens": tokens}, cfg, ctx, cache_len=LM_MAX_LEN)
+def warm_ms(fn) -> float:
+    """Wall ms of a second call of `fn`, the first one warming it."""
+    fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    model.prefill(params, {"tokens": tokens}, cfg, ctx, cache_len=LM_MAX_LEN)
+    fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3
+
+
+def prefill_ms(params, cfg, ctx, tokens: torch.Tensor, extra=None, cache_len: int = None
+               ) -> float:
+    """Warm wall ms of one prefill of `tokens` (with `extra` inputs) on the
+    engine's caches (of `cache_len`, LM_MAX_LEN if None)."""
+    batch = {"tokens": tokens, **(extra or {})}
+    return warm_ms(lambda: model.prefill(params, batch, cfg, ctx,
+                                         cache_len=cache_len or LM_MAX_LEN))
 
 
 class PackedBatches:
@@ -3397,6 +3447,137 @@ def mesh_checkpoint(ctx, seed: int, device, card: str) -> int:
     return bitunpack.KERNEL.launches - before
 
 
+def mesh_family_serving(arch: str, ctx, seed: int, device, card: str) -> int:
+    """Phase D (j) for one model: a 4-slot engine under the mesh and without
+    it (FAMILY_PROMPTS, whisper's EV_PROMPTS over zero frames) gives the same
+    tokens and ticks; a PACKED_LEN-token prompt bit-packed under the mesh
+    (whisper: 448 tokens over random frames, as tokens) against its tokens
+    prefill without it; prefill ms, decode tick ms, busy ms, idle share and
+    peak GB for both (whisper's encoder ms too).  Returns the bitunpack
+    launches it made."""
+    cfg = family_config(arch, MESH_SERVE_LAYERS.get(arch))
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    params = model.init_params(cfg, seed, device=device)
+    sharded = shard_params(params, cfg, ctx)
+    prompts = EV_PROMPTS[arch] if cfg.is_encdec else FAMILY_PROMPTS
+    max_len = EV_MAX_LEN.get(arch, FAMILY_MAX_LEN)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,))) for i, n in enumerate(prompts)]
+    runs = {label: served_on(p, cfg, c, reqs, device, max_len)
+            for label, p, c in (("mesh", sharded, ctx), ("none", params, None))}
+    if runs["mesh"]["tokens"] != runs["none"]["tokens"] or \
+            runs["mesh"]["ticks"] != runs["none"]["ticks"]:
+        raise AssertionError(f"(j) {arch}: the engine under the mesh gave other tokens or ticks "
+                             "than without it")
+    before = bitunpack.KERNEL.launches
+    extra = ev_inputs(cfg, rng, 1, device) if cfg.is_encdec else {}
+    if cfg.is_encdec:
+        n = EV_PROMPTS[arch][-1]
+        toks = rng.integers(0, cfg.vocab, (1, n)).astype(np.int32)
+        mesh_batch = {"tokens": torch.from_numpy(toks).to(device), **extra}
+    else:
+        n = PACKED_LEN
+        toks = rng.integers(0, cfg.vocab, (1, n)).astype(np.int64)
+        k_bits = model.token_bits(cfg)
+        packed = np.stack([bitpack_encode(toks[0], k_bits)]).view(np.int32)
+        mesh_batch = {"packed": torch.from_numpy(packed).to(device)}
+    l_mesh = model.prefill(sharded, mesh_batch, cfg, ctx)[0].full_tensor().float()
+    torch.cuda.synchronize()
+    unpacks = bitunpack.KERNEL.launches - before
+    if unpacks != (0 if cfg.is_encdec else 1):
+        raise AssertionError(f"(j) {arch}: the packed prefill launched bitunpack {unpacks} times")
+    plain_batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device), **extra}
+    l_none = model.prefill(params, plain_batch, cfg)[0].float()
+    err = float((l_mesh - l_none).abs().max())
+    rel = float((l_mesh - l_none).norm() / l_none.norm())
+    if not rel <= MESH_REL_TOL:
+        raise AssertionError(f"(j) {arch}: prefill logits under the mesh differ from without it: "
+                             f"relative L2 {rel} > {MESH_REL_TOL}")
+    cut = "" if cfg.n_layers == get_config(arch).n_layers else \
+        f" cut to {cfg.n_layers} of {get_config(arch).n_layers} layers"
+    n_tokens = sum(len(o) for o in runs["mesh"]["tokens"].values())
+    log(f"      (j) {arch}{cut} at full width ({cfg.family}, {cfg.dtype}): {len(reqs)} requests "
+        f"of {list(prompts)} tokens, {MESH_NEW_TOKENS} new each ({n_tokens} tokens), on "
+        f"{LM_SLOTS} slots of {max_len} in {runs['mesh']['ticks']} ticks: the same tokens and "
+        f"ticks under the mesh and without it; a {n}-token prefill "
+        f"({'as tokens over random frames' if cfg.is_encdec else 'bit-packed'} under the mesh, "
+        f"tokens without it): max |diff| {err:.3e}, relative L2 {rel:.3e} "
+        f"({'bit for bit' if err == 0 else 'not bit for bit'}; tolerance {MESH_REL_TOL}); "
+        f"bitunpack launches {unpacks} [{card}]")
+    seq = torch.from_numpy(reqs[0].tokens[None].astype(np.int32)).to(device)
+    for label, p, c in (("mesh", sharded, ctx), ("none", params, None)):
+        run = runs[label]
+        ms = prefill_ms(p, cfg, c, seq, extra, max_len)
+        enc = ""
+        if cfg.is_encdec:
+            frames = extra["enc_embeds"]
+            enc = f"encoder_ms (1 x {cfg.encoder_seq} frames, warm) " \
+                f"{warm_ms(lambda: model.encode(p, frames, cfg, c)):.2f}; "
+        log(f"      (j) {arch} {label}: prefill_ms ({prompts[0]} tokens, warm) {ms:.2f}; {enc}"
+            f"decode_ms per tick (median) {run['tick_ms']:.2f}, tokens/s "
+            f"{run['tokens_per_s']:.1f}; one decode tick: busy_ms={run['busy_ms']:.3f} "
+            f"idle_share={1 - run['busy_ms'] / run['tick_ms']:.3f} top={run['top']}; peak GB "
+            f"{run['peak'] / 1e9:.2f}; {time.perf_counter() - t0:.1f} s [{card}]")
+    del params, sharded, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return unpacks
+
+
+def mesh_family_training(arch: str, ctx, seed: int, device, card: str) -> int:
+    """Phase D (k) for one model: MESH_TRAIN_STEPS AdamW steps with remat
+    under the mesh and without it, bit for bit (losses, grad norms and
+    parameters), step ms and idle share for both.  Returns the bitunpack
+    launches it made."""
+    optcfg = OptConfig(**OPT)
+    cfg = dataclasses.replace(family_config(arch, MESH_TRAIN_LAYERS.get(arch)), remat=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        B, S = EV_TRAIN_B, EV_TRAIN_S
+        batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                               .astype(np.int32)).to(device),
+                    **ev_inputs(cfg, rng, B, device)} for _ in range(MESH_TRAIN_STEPS)]
+    else:
+        B, S = MESH_TRAIN_BATCH, PACKED_LEN
+        src = PackedBatches(cfg, B, S, seed, device)
+        batches = [{**src.next_batch(), **(ev_inputs(cfg, rng, B, device)
+                                           if cfg.family == "vlm" else {})}
+                   for _ in range(MESH_TRAIN_STEPS)]
+    runs = {label: train_run(cfg, optcfg, c, batches, seed, device)
+            for label, c in (("mesh", ctx), ("none", None))}
+    verdict = same_runs(runs["mesh"], runs["none"], f"(k) {arch}")
+    if verdict != "bit for bit":  # one rank runs the plain path's kernels in its order
+        raise AssertionError(f"(k) {arch} under the mesh against without it: {verdict}")
+    want = 0 if cfg.is_encdec else 1
+    for label, run in runs.items():
+        if any(n != want for n in run["launches"]):
+            raise AssertionError(f"(k) {arch} {label}: bitunpack launches per step "
+                                 f"{run['launches']}, not {want}")
+    cut = "" if cfg.n_layers == get_config(arch).n_layers else \
+        f" cut to {cfg.n_layers} of {get_config(arch).n_layers} layers"
+    inputs = f"B {B} x S {S} " + ("tokens over random frames" if cfg.is_encdec else
+                                  f"packed at k={model.token_bits(cfg)}")
+    if cfg.family == "vlm":
+        inputs += f" after {cfg.vision_tokens} vision embeddings"
+    log(f"      (k) {arch}{cut} at full width, {cfg.dtype}, remat, AdamW, {inputs}, "
+        f"{len(batches)} steps from seed {seed} under the mesh and without it: losses and grad "
+        f"norms {runs['mesh']['metrics']}; the losses and the {len(runs['mesh']['names'])} "
+        f"parameter leaves after the steps {verdict}; {time.perf_counter() - t0:.1f} s [{card}]")
+    for label, run in runs.items():
+        step_ms = run["ms"][-1]
+        busy_ms, top = run["busy"]
+        log(f"      (k) {arch} {label}: step_ms {step_ms:.2f} (the first {run['ms'][0]:.2f}); "
+            f"one step (the last): busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / step_ms:.3f} "
+            f"top={top}; peak GB {run['peak'] / 1e9:.2f}; bitunpack launches {run['launches']} "
+            f"[{card}]")
+    unpacks = sum(sum(run["launches"]) for run in runs.values())
+    del runs, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return unpacks
+
+
 def mesh_phase(seed: int, device: str = "cuda") -> dict:
     """Phase D.  Returns the kernel launches of its window, the whole phase."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3493,6 +3674,15 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
             log(f"      (i) launch.train {' '.join(TRAIN_MESH_ARGS)}: RuntimeError: {e} [{card}]")
         else:
             raise AssertionError("(i) launch.train --mesh single ran on one rank")
+
+        # (j) the SSM, hybrid, enc-dec and VLM families served, (k) trained
+        served = {arch: mesh_family_serving(arch, ctx, seed, device, card) for arch in MESH_ARCHS}
+        trained = {arch: mesh_family_training(arch, ctx, seed, device, card)
+                   for arch in MESH_ARCHS}
+        unpacks += sum(served.values()) + sum(trained.values())
+        # (l) every bitunpack of the window: one a packed prefill, one a packed step
+        log(f"      (l) bitunpack launches in phase D's window: {unpacks}: (b) 1, (e), (f) and "
+            f"(h) one a step, (j) {served}, (k) {trained} [{card}]")
     finally:
         # (d)
         dist.destroy_process_group()
@@ -3500,7 +3690,7 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
     if launches != dict(dict.fromkeys(ops.KERNELS, 0), bitunpack=unpacks):
         raise AssertionError(f"phase D launched {launches}, not {unpacks} bitunpack")
     log(f"      (d) process group destroyed; {unpacks} bitunpack launches: (b) 1, the packed "
-        "training batches of (e), (f) and (h) one a step")
+        "training batches of (e), (f), (h) and (k) one a step, (j)'s packed prefills one each")
     return launches
 
 
@@ -3707,9 +3897,11 @@ def main(argv=None) -> int:
 
     # phase D
     t0 = time.perf_counter()
-    log(f"[D] serving under a device mesh on the card: {LM_ARCH} at full width")
+    log(f"[D] serving and training under a device mesh on the card: {LM_ARCH} at full width, "
+        f"then the SSM, hybrid, enc-dec and VLM families")
     dist_launches = mesh_phase(args.seed)
-    log(f"      launches {dist_launches}; phase D took {time.perf_counter() - t0:.1f} s")
+    log(f"      launches {dist_launches}; phase D took {time.perf_counter() - t0:.1f} s; the "
+        f"script so far {time.perf_counter() - T0:.1f} s")
 
     # phase 10
     kernels = kernels_line(records, {

@@ -19,13 +19,15 @@ placement per mesh dim (a tuple entry shards one tensor dim over several
 mesh dims, major to minor in mesh order, as `NamedSharding` does),
 `shard_params` places parameters by `param_dims`, and `constrain`
 redistributes an activation to the strategy-aware spec
-(`activation=True`).  `local_grad` hands a local body a parameter's shard
-with the gradient placements that the body's tokens give it (training under
-a mesh).  A plain tensor given to `constrain` is taken as a
-replicated value.  The reference requires annotated dims to divide the
-axis size, so every rule is guarded: a non-divisible dim degrades to
-replicated, and `placements_for` refuses an uneven shard, which DTensor
-itself would allow.  A spec that names one mesh axis twice raises
+(`activation=True`).  `gather_dim` makes one dim whole on every rank before
+an op that cuts it where DTensor cannot follow a shard, and `on_shards`
+applies an op that DTensor has no strategy for to each rank's shard.
+`local_grad` hands a local body a parameter's shard with the gradient
+placements that the body's tokens give it (training under a mesh).  A plain
+tensor given to `constrain` is taken as a replicated value.  The reference
+requires annotated dims to divide the axis size, so every rule is guarded:
+a non-divisible dim degrades to replicated, and `placements_for` refuses an
+uneven shard, which DTensor itself would allow.  A spec that names one mesh axis twice raises
 `DuplicateSpecError`, as `NamedSharding` does.
 
 `rg_key` and `HashRing` map row groups to the fabric's pods
@@ -49,9 +51,6 @@ from torch.distributed.tensor import (
     Shard,
     distribute_tensor,
 )
-
-# the ROADMAP.md section A item that the NotImplementedError messages name
-FAMILIES_MESH = "A.6b-ii: the SSM, hybrid, enc-dec and VLM families under a mesh"
 
 # logical dim -> mesh axis role
 _TP_DIMS = frozenset({"vocab", "ff", "heads", "kv", "experts", "moe_ff", "inner", "seq_tp",
@@ -298,6 +297,33 @@ def shard_groups(x: DTensor, dim: int) -> List[Any]:
     """The process groups of the mesh dims that shard tensor dim `dim`."""
     return [x.device_mesh.get_group(m) for m, p in enumerate(x.placements)
             if isinstance(p, Shard) and p.dim == dim]
+
+
+def gather_dim(t: torch.Tensor, dim: int, pieces: Optional[int] = None) -> torch.Tensor:
+    """t with tensor dim `dim` whole on every rank, for an op that cuts that
+    dim where DTensor cannot follow a shard (GSPMD reshards on its own): a
+    split into unequal pieces (the SSM's z, x, B, C and dt), a roll, a
+    reshape into heads that the shards do not divide.  A DTensor is gathered
+    along the mesh dims that shard `dim`; with `pieces`, only along those
+    whose size does not divide `pieces` (a reshape into `pieces` equal heads
+    keeps the others).  A plain tensor is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, dim = t.device_mesh, dim % t.ndim
+    place = [Replicate() if isinstance(q, Shard) and q.dim == dim
+             and (pieces is None or pieces % mesh.size(m)) else q
+             for m, q in enumerate(t.placements)]
+    return t if place == list(t.placements) else t.redistribute(mesh, place)
+
+
+def on_shards(fn, t: torch.Tensor) -> torch.Tensor:
+    """fn(t) for an op that keeps t's shape and mixes values only along
+    dims that no mesh dim shards: on a DTensor each rank applies it to its
+    own shard, the result placed as t is (for an op that DTensor has no
+    strategy for, such as `torch.roll` on the card's torch 2.11)."""
+    if not isinstance(t, DTensor):
+        return fn(t)
+    return from_local(fn(t.to_local()), t.device_mesh, t.placements, t.shape)
 
 
 def write_at(dst: torch.Tensor, dim: int, index: int, src: torch.Tensor) -> None:

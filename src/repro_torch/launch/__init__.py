@@ -1,4 +1,3 @@
 """Launchers: training, serving and the production mesh (port of
-`repro.launch`: training and serving under the production meshes of
-dense and MoE models; the specs and the dry run wait for ROADMAP.md item
-A.6c)."""
+`repro.launch`: training and serving under the production meshes, every
+family; the specs and the dry run wait for ROADMAP.md item A.6c)."""

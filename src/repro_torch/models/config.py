@@ -2,9 +2,7 @@
 
 A copy of `repro/models/config.py`.  Families: dense | moe | ssm | hybrid |
 audio (enc-dec) | vlm; the port runs all six.  The exact per-arch
-instantiations live in `repro_torch/configs/<id>.py`.  `not_ported` makes the
-error that a piece still to come (the mesh paths) raises, naming its
-ROADMAP.md item.
+instantiations live in `repro_torch/configs/<id>.py`.
 """
 
 from __future__ import annotations
@@ -13,11 +11,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 VOCAB_PAD = 2048  # embedding tables padded so 'vocab' always TP-shards
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a piece of the reference that a later slice brings."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def round_up(x: int, m: int) -> int:

@@ -28,14 +28,13 @@ encoder segment's cache is `{}`.  The VLM family (llava) prepends
 `prefill`, like the reference's, never reads `embeds`.
 
 Under a mesh (`ctx` with a DeviceMesh) `prefill`, `decode_step` and
-`forward_train` run the dense and MoE families on DTensor parameters
-(`sharding.shard_params`): the inputs become DTensors at their first
-constraint, and packed tokens are unpacked by `bitunpack` on each rank's
-own shard of the words, a plain tensor.  `forward_train`'s loss is then a
-replicated DTensor scalar, and autograd gives each parameter's gradient as
-a DTensor (`train/loop.py` places it as the parameter is stored).  The
-other families under a mesh raise `NotImplementedError` naming ROADMAP.md
-item A.6b-ii.
+`forward_train` run every family on DTensor parameters
+(`sharding.shard_params`): the inputs (tokens, an enc-dec model's frames, a
+VLM's vision embeddings) become DTensors at their first constraint, and
+packed tokens are unpacked by `bitunpack` on each rank's own shard of the
+words, a plain tensor.  `forward_train`'s loss is then a replicated DTensor
+scalar, and autograd gives each parameter's gradient as a DTensor
+(`train/loop.py` places it as the parameter is stored).
 """
 
 from __future__ import annotations
@@ -48,7 +47,6 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.sharding import (
-    FAMILIES_MESH,
     ShardingCtx,
     constrain,
     from_local,
@@ -57,7 +55,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.kernels import ops
 from repro_torch.lakeformat.encodings import LANES, PACK_BLOCK, bits_needed
-from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, lm_head_logits, rmsnorm, softmax_xent
 from repro_torch.models.transformer import (
     Segment,
@@ -330,14 +328,6 @@ def _tokens_from_batch(batch, cfg, ctx):
     return constrain(tokens, ("batch", None), ctx)
 
 
-MESH_FAMILIES = ("dense", "moe")  # served and trained under a mesh (ROADMAP.md A.6a, A.6b-i)
-
-
-def _mesh_check(cfg: ModelConfig, ctx: ShardingCtx) -> None:
-    if ctx.enabled and cfg.family not in MESH_FAMILIES:
-        raise not_ported(f"the {cfg.family} family under a mesh", FAMILIES_MESH)
-
-
 # ---------------------------------------------------------------------------
 # forward / loss
 # ---------------------------------------------------------------------------
@@ -352,7 +342,9 @@ def encode(params, enc_embeds: torch.Tensor, cfg: ModelConfig,
     """The enc-dec encoder: its segment over the frames (B, Se, D), cast to
     the embedding's dtype, at positions 0..Se-1, then `enc_final_ln`."""
     ctx = ctx or local_ctx()
-    enc_h = enc_embeds.to(params["embed"].dtype)
+    # the frames as the tokens: batch rows under a mesh before the first
+    # product with a DTensor parameter
+    enc_h = constrain(enc_embeds.to(params["embed"].dtype), ("batch", None, None), ctx)
     B, Se = enc_h.shape[:2]
     enc_pos = torch.arange(Se, dtype=torch.int32, device=enc_h.device).expand(B, Se)
     enc_h, _ = run_segments_train(params["segments"][:1], model_segments(cfg)[:1], enc_h, cfg,
@@ -377,15 +369,14 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     through `vis_proj` in front of the tokens, and every token is a label,
     the first predicted from the last vision position."""
     ctx = ctx or local_ctx()
-    _mesh_check(cfg, ctx)
     tokens = _tokens_from_batch(batch, cfg, ctx)
     B, S = tokens.shape
     h = embed_lookup(params["embed"], tokens, ctx, scale=cfg.embed_scale)
     segs, seg_params, enc_out = _decoder(params, batch, cfg, ctx)
     n_vis = 0
     if cfg.family == "vlm" and "embeds" in batch:
-        vis = constrain(batch["embeds"].to(h.dtype) @ params["vis_proj"],
-                        ("batch", None, None), ctx)
+        embeds = constrain(batch["embeds"].to(h.dtype), ("batch", None, None), ctx)
+        vis = constrain(embeds @ params["vis_proj"], ("batch", None, None), ctx)
         h = torch.cat([vis, h], dim=1)
         n_vis = vis.shape[1]
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device).expand(
@@ -424,7 +415,6 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the encoder segment and `ck`/`cv` of (L, B, Se, KV, hd) beside "k", "v"
     for `decx`)."""
     ctx = ctx or local_ctx()
-    _mesh_check(cfg, ctx)
     tokens = _tokens_from_batch(batch, cfg, ctx)
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -446,7 +436,6 @@ def decode_step(params, token: torch.Tensor, caches, pos: int, cfg: ModelConfig,
     position it takes.  Writes its keys and values into `caches` in place
     and returns (logits (B, Vp), caches)."""
     ctx = ctx or local_ctx()
-    _mesh_check(cfg, ctx)
     segs, seg_params, dec_caches = model_segments(cfg), params["segments"], caches
     if cfg.is_encdec:  # the encoder ran at prefill: its segment is skipped
         segs, seg_params, dec_caches = segs[1:], seg_params[1:], caches[1:]

@@ -15,6 +15,15 @@ clog_j is the positive sum of |A dt| over (i, j], whose exp overflows to inf
 once it passes ~88 within a chunk (a head with A = -16 and dt = 0.1 does so
 after 56 steps of a 256-step chunk), and inf * 0 is NaN.
 
+Under a mesh the reference constrains `in_proj`'s output on `inner` and
+lets GSPMD carry the rest.  Here the mixer (the cut into z, x, B, C and dt,
+the conv, the scan and the gated norm) is the body of a `shard_map`: its
+input is gathered whole on its last dim, since the cut's offsets straddle
+the `inner` shards, and each rank runs the body on its own batch rows with
+every head, the replicated leaves read through `sharding.local_grad`.  A
+decode step runs it on the rows of the caches' shards that the engine
+placed.
+
 Layer params:
   in_proj (D, 2*di + 2*N + H)   -> [z, x, B, C, dt]
   conv_w (W, di + 2*N), conv_b  -> causal depthwise conv on (x, B, C)
@@ -30,7 +39,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import ShardingCtx, constrain
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.sharding import (
+    ShardingCtx,
+    as_dtensor,
+    constrain,
+    from_local,
+    gather_dim,
+    local_grad,
+    to_spec,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 
@@ -114,20 +133,16 @@ def ssd_scan(
     return y, state
 
 
-def ssm_forward(
-    h: torch.Tensor,  # (B,S,D) pre-normed input
-    p: dict,
-    cfg: ModelConfig,
-    ctx: ShardingCtx,
-    conv_state: Optional[torch.Tensor] = None,
-    ssm_state: Optional[torch.Tensor] = None,
-    return_state: bool = False,
-):
-    """Full-sequence SSM branch (train / prefill)."""
-    B, S, D = h.shape
+_LEAVES = ("conv_w", "conv_b", "A_log", "D_skip", "dt_bias", "norm_y")  # replicated
+
+
+def _mixer(proj, p, cfg: ModelConfig, dtype, conv_state=None, ssm_state=None):
+    """The SSD mixer on plain tensors: proj (B,S,2di+2N+H) cut into z, x, B,
+    C and dt, the causal conv, the chunked scan and the gated norm.  Returns
+    (y (B,S,di) in `dtype`, conv state, float32 SSM state)."""
+    B, S = proj.shape[:2]
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     Pd = cfg.ssm_head_dim
-    proj = constrain(h @ p["in_proj"], ("batch", None, "inner"), ctx)
     z, xin, Bc, Cc, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
@@ -150,11 +165,87 @@ def ssm_forward(
         y = y[:, :S]
         xh = xh[:, :S]
     y = y + xh.float() * p["D_skip"].float()[None, None, :, None]
-    y = y.reshape(B, S, di).to(h.dtype)
+    y = y.reshape(B, S, di).to(dtype)
     y = rmsnorm(y * F.silu(z), p["norm_y"], cfg.norm_eps)
+    return y, new_conv, state.float()
+
+
+def _decode_mixer(proj, p, cfg: ModelConfig, dtype, conv_state, ssm_state):
+    """One recurrent step of the mixer on plain tensors: proj (B,1,...),
+    conv_state (B,W-1,di+2N), ssm_state (B,H,P,N) float32.  Returns (y
+    (B,1,di) in `dtype`, conv state, SSM state), the states new tensors."""
+    B = proj.shape[0]
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    Pd = cfg.ssm_head_dim
+    z, xin, Bc, Cc, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([xin, Bc, Cc], dim=-1)  # (B,1,C)
+    xp = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
+    y = torch.einsum("bwc,wc->bc", xp.float(), p["conv_w"].float())
+    y = F.silu(y + p["conv_b"].float())[:, None, :].to(dtype)
+    new_conv = xp[:, 1:, :]
+    xin, Bc, Cc = torch.split(y, [di, N, N], dim=-1)
+    dtp = _softplus(dt.float() + p["dt_bias"].float())  # (B,1,H)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(A[None, :] * dtp[:, 0])  # (B,H)
+    xh = xin.reshape(B, H, Pd).float() * dtp[:, 0, :, None]
+    upd = torch.einsum("bn,bhp->bhpn", Bc[:, 0].float(), xh)
+    state = ssm_state * a[:, :, None, None] + upd
+    yh = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
+    yh = yh + xin.reshape(B, H, Pd).float() * p["D_skip"].float()[None, :, None]
+    yf = yh.reshape(B, 1, di).to(dtype)
+    yf = rmsnorm(yf * F.silu(z), p["norm_y"], cfg.norm_eps)
+    return yf, new_conv, state
+
+
+def _rows(proj: torch.Tensor, like_rows: Optional[torch.Tensor] = None) -> DTensor:
+    """proj's batch rows as the mixer's body reads them: its last dim whole
+    on every rank (the split's pieces straddle the `inner` shards), its
+    batch sharded as `like_rows`' (a state placed by its rows, as the engine
+    places a cache's slots) or as it is."""
+    proj = gather_dim(proj, -1)
+    if like_rows is None:
+        return proj
+    mesh = proj.device_mesh
+    place = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+             for q in as_dtensor(like_rows, mesh).placements]
+    return proj if list(proj.placements) == place else proj.redistribute(mesh, place)
+
+
+def _body_leaves(p: dict, rows: DTensor) -> dict:
+    """The replicated leaves as a body over `rows`' local shards reads them,
+    their gradients `Partial` on the mesh dims that shard the rows
+    (`sharding.local_grad`)."""
+    mesh = rows.device_mesh
+    return {k: local_grad(to_spec(p[k], (None,) * p[k].ndim, mesh), rows) for k in _LEAVES}
+
+
+def ssm_forward(
+    h: torch.Tensor,  # (B,S,D) pre-normed input
+    p: dict,
+    cfg: ModelConfig,
+    ctx: ShardingCtx,
+    conv_state: Optional[torch.Tensor] = None,
+    ssm_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Full-sequence SSM branch (train / prefill).  Under a mesh the mixer
+    is the body of a `shard_map`: each rank runs it on its own batch rows,
+    with every head (the model ranks of a row repeat it)."""
+    proj = constrain(h @ p["in_proj"], ("batch", None, "inner"), ctx)
+    if not ctx.enabled:
+        y, new_conv, state = _mixer(proj, p, cfg, h.dtype, conv_state, ssm_state)
+    else:
+        rows = _rows(proj, conv_state)
+        states = [None if t is None else as_dtensor(t, ctx.mesh).to_local()
+                  for t in (conv_state, ssm_state)]
+        y, new_conv, state = _mixer(rows.to_local(), _body_leaves(p, rows), cfg, h.dtype,
+                                    *states)
+        y, new_conv, state = (from_local(t, ctx.mesh, rows.placements, (proj.shape[0],
+                                                                       *t.shape[1:]))
+                              for t in (y, new_conv, state))
     out = constrain(y @ p["out_proj"], ("batch", None, None), ctx)
     if return_state:
-        return out, (new_conv, state.float())
+        return out, (new_conv, state)
     return out
 
 
@@ -167,27 +258,19 @@ def ssm_decode_step(
     ssm_state: torch.Tensor,  # (B,H,P,N) float32
 ):
     """O(1) recurrent step.  Returns (out (B,1,D), (conv_state, ssm_state)),
-    both states new tensors."""
-    B, _, D = h.shape
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    Pd = cfg.ssm_head_dim
+    both states new tensors.  Under a mesh each rank steps its own slots:
+    the rows that its shards of the caches hold."""
     proj = h @ p["in_proj"]
-    z, xin, Bc, Cc, dt = _split_proj(cfg, proj)
-    conv_in = torch.cat([xin, Bc, Cc], dim=-1)  # (B,1,C)
-    xp = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
-    y = torch.einsum("bwc,wc->bc", xp.float(), p["conv_w"].float())
-    y = F.silu(y + p["conv_b"].float())[:, None, :].to(h.dtype)
-    new_conv = xp[:, 1:, :]
-    xin, Bc, Cc = torch.split(y, [di, N, N], dim=-1)
-    dtp = _softplus(dt.float() + p["dt_bias"].float())  # (B,1,H)
-    A = -torch.exp(p["A_log"].float())
-    a = torch.exp(A[None, :] * dtp[:, 0])  # (B,H)
-    xh = xin.reshape(B, H, Pd).float() * dtp[:, 0, :, None]
-    upd = torch.einsum("bn,bhp->bhpn", Bc[:, 0].float(), xh)
-    state = ssm_state * a[:, :, None, None] + upd
-    yh = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
-    yh = yh + xin.reshape(B, H, Pd).float() * p["D_skip"].float()[None, :, None]
-    yf = yh.reshape(B, 1, di).to(h.dtype)
-    yf = rmsnorm(yf * F.silu(z), p["norm_y"], cfg.norm_eps)
-    out = yf @ p["out_proj"]
+    if not ctx.enabled:
+        y, new_conv, state = _decode_mixer(proj, p, cfg, h.dtype, conv_state, ssm_state)
+    else:
+        mesh = ctx.mesh
+        rows = _rows(proj, conv_state)  # the engine places both states by their slots
+        y, new_conv, state = _decode_mixer(rows.to_local(), _body_leaves(p, rows), cfg, h.dtype,
+                                           as_dtensor(conv_state, mesh).to_local(),
+                                           as_dtensor(ssm_state, mesh).to_local())
+        y, new_conv, state = (from_local(t, mesh, rows.placements, (proj.shape[0],
+                                                                   *t.shape[1:]))
+                              for t in (y, new_conv, state))
+    out = y @ p["out_proj"]
     return out, (new_conv, state)

@@ -26,9 +26,12 @@ frames, the SSM's conv history (L, B, W-1, di+2N) and float32 state
 slots (token t at slot t % window).  The decode step writes its caches in
 place (the reference returns updated copies), which saves a copy of every
 cache per token.  Under a mesh the parameters, activations and caches are
-DTensors; a prefill's keys and values are kept in the decode step's layout
-(`layers.attn_dims`), so the step's constraint moves nothing, and the step
-writes its slot into each rank's own shard (`sharding.write_at`).
+DTensors; a prefill's keys and values (a hybrid's ring caches, whose roll
+gathers the slots first, and the cross-attention's `ck`/`cv` among them)
+are kept in the decode step's layout (`layers.attn_dims`), so the step's
+constraint moves nothing, and the step writes its slot into each rank's
+own shard (`sharding.write_at`) and its SSM states into the shards the
+engine placed.
 """
 
 from __future__ import annotations
@@ -38,14 +41,20 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.distributed.sharding import constrain, write_at
+from repro_torch.distributed.sharding import (
+    DuplicateSpecError,
+    constrain,
+    gather_dim,
+    on_shards,
+    write_at,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention, attn_dims, glu_mlp, rmsnorm, rotary
 from repro_torch.models.moe import moe_ffn
@@ -93,15 +102,8 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 def _split_heads(t: torch.Tensor, B: int, S: int, n: int, hd: int) -> torch.Tensor:
     """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dim is sharded
     over more ranks than n divides by (n_kv 2 on 4 model ranks) is gathered
-    on that dim first: DTensor cannot split an uneven shard, where GSPMD
-    reshards on its own."""
-    if isinstance(t, DTensor):
-        mesh = t.device_mesh
-        place = [Replicate() if isinstance(q, Shard) and q.dim == t.ndim - 1 and n % mesh.size(m)
-                 else q for m, q in enumerate(t.placements)]
-        if place != list(t.placements):
-            t = t.redistribute(mesh, place)
-    return t.reshape(B, S, n, hd)
+    on that dim first (`sharding.gather_dim`)."""
+    return gather_dim(t, -1, pieces=n).reshape(B, S, n, hd)
 
 
 def _proj_qkv(x, p, cfg: ModelConfig, positions, ctx, prefix=""):
@@ -130,9 +132,9 @@ def attn_train(h, p, cfg, ctx, positions, *, causal=True, window=None, prefix=""
     else:
         B, S = x.shape[:2]
         H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-        q = (x @ p[prefix + "wq"]).reshape(B, S, H, hd)
-        k = (src @ p[prefix + "wk"]).reshape(B, src.shape[1], KV, hd)
-        v = (src @ p[prefix + "wv"]).reshape(B, src.shape[1], KV, hd)
+        q = _split_heads(x @ p[prefix + "wq"], B, S, H, hd)
+        k = _split_heads(src @ p[prefix + "wk"], B, src.shape[1], KV, hd)
+        v = _split_heads(src @ p[prefix + "wv"], B, src.shape[1], KV, hd)
     o = attention(q, k, v, ctx, causal=causal, window=window, scale=cfg.attn_scale,
                   chunk=cfg.attn_block)
     B, S = h.shape[:2]
@@ -182,6 +184,10 @@ def moe_block(h, p, cfg, ctx):
 
 
 def _hybrid_mix(h, attn_out, y, lp, cfg, ctx):
+    """h plus the mean of the normed attention and SSM outputs; under a mesh
+    the attention's output (a partial sum over the head shards after `wo`)
+    is first made whole on its batch rows, as the SSM's is."""
+    attn_out = constrain(attn_out, ("batch", None, None), ctx)
     mix = 0.5 * (rmsnorm(attn_out, lp["na"], cfg.norm_eps) * lp["beta_a"]
                  + rmsnorm(y, lp["ns"], cfg.norm_eps) * lp["beta_s"])
     return h + constrain(mix.to(h.dtype), ("batch", None, None), ctx)
@@ -233,7 +239,7 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
             y, (cs, ss) = ssm_forward(x, _sub(lp, "s_"), cfg, ctx, return_state=True)
             clen = window if window is not None else cache_len
             ring = window is not None
-            cache = {"k": _to_cache(k, clen, ring=ring), "v": _to_cache(v, clen, ring=ring),
+            cache = {"k": _cache(k, cfg, ctx, clen, ring), "v": _cache(v, cfg, ctx, clen, ring),
                      "conv": cs, "state": ss}
         else:
             y = ssm_forward(x, _sub(lp, "s_"), cfg, ctx)
@@ -245,21 +251,29 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
     elif kind == "decx":
         h, (k, v) = attn_train(h, lp, cfg, ctx, positions)
         if want_cache:
-            cache = {"k": _to_cache(k, cache_len), "v": _to_cache(v, cache_len)}
+            cache = {"k": _cache(k, cfg, ctx, cache_len), "v": _cache(v, cfg, ctx, cache_len)}
         h, (ck, cv) = attn_train(h, lp, cfg, ctx, None, causal=False, prefix="x_",
                                  src=enc_kv)
         if want_cache:
-            cache["ck"], cache["cv"] = ck, cv
+            cache["ck"], cache["cv"] = _cache(ck, cfg, ctx, None), _cache(cv, cfg, ctx, None)
         h = mlp_block(h, lp, cfg, ctx)
     else:
         raise ValueError(kind)
     return h, aux, cache
 
 
-def _cache(k: torch.Tensor, cfg, ctx, cache_len: Optional[int]):
+def _cache(k: torch.Tensor, cfg, ctx, cache_len: Optional[int], ring: bool = False):
     """A prefill's keys or values as a decode cache: `_to_cache`, in the
-    decode step's layout under a mesh."""
-    return constrain(_to_cache(k, cache_len), attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1], ctx)
+    decode step's layout under a mesh (ring caches and the cross-attention's
+    `ck`/`cv` included)."""
+    k = _to_cache(k, cache_len, ring)
+    try:
+        return constrain(k, attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1], ctx)
+    except DuplicateSpecError:
+        # fsdp's step layout names `model` twice (the widened batch and the
+        # flash-decode slots): the step raises, as the reference's does, but
+        # the prefill serves, as the reference's does
+        return constrain(k, ("batch", None, None, None), ctx)
 
 
 def _to_cache(k: torch.Tensor, cache_len: Optional[int], ring: bool = False) -> torch.Tensor:
@@ -272,8 +286,9 @@ def _to_cache(k: torch.Tensor, cache_len: Optional[int], ring: bool = False) -> 
     if S < cache_len:
         return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cache_len - S))
     trimmed = k[:, S - cache_len:]
-    if ring:
-        trimmed = torch.roll(trimmed, S % cache_len, dims=1)
+    if ring:  # a DTensor's slots are gathered first, then each rank rolls its shard
+        trimmed = on_shards(lambda t: torch.roll(t, S % cache_len, dims=1),
+                            gather_dim(trimmed, 1))
     return trimmed
 
 
@@ -322,7 +337,7 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
         # attn_train's; whisper's plain norms make the two the same
         x = rmsnorm(h, lp["x_ln1"], cfg.norm_eps)
         B = h.shape[0]
-        q = (x @ lp["x_wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = _split_heads(x @ lp["x_wq"], B, 1, cfg.n_heads, cfg.head_dim)
         o = attention(q, cache["ck"], cache["cv"], ctx, causal=False, scale=cfg.attn_scale)
         h = h + o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"]
         h = mlp_block(h, lp, cfg, ctx)
@@ -331,9 +346,14 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
 
 
 def _store(cache, states):
-    """Copy a decode step's new (conv, state) into the cache's own tensors."""
-    cache["conv"].copy_(states[0])
-    cache["state"].copy_(states[1])
+    """Copy a decode step's new (conv, state) into the cache's own tensors;
+    under a mesh each rank into its own shards of those the engine placed
+    (the step's states come in their placements)."""
+    for name, new in zip(("conv", "state"), states):
+        if isinstance(cache[name], DTensor):
+            cache[name].to_local().copy_(new.to_local())
+        else:
+            cache[name].copy_(new)
 
 
 # ---------------------------------------------------------------------------

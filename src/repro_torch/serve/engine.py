@@ -15,11 +15,14 @@ raises `RuntimeError` when asked for a card there is none of, or when the
 parameters lie on another device.  Caches are updated in place.  Each
 prefill gets the reference's stub inputs: a VLM's `embeds` (which prefill
 does not read) and an enc-dec model's `enc_embeds`, zeros in bfloat16, so
-whisper is served from 1,500 frames of zeros, as in the reference.
+whisper is served from 1,500 frames of zeros, as in the reference.  Every
+family serves under a mesh; a prompt's batch of one stays whole on every
+rank.
 
 Under a mesh (`ctx`) the engine serves on DTensor parameters (plain ones
 are placed by `sharding.shard_params`) and keeps its batched caches as
-DTensors, the slots sharded over the data axis: a prefill's cache is
+DTensors, the slots sharded over the data axis (the SSM's conv and state
+as the attention caches): a prefill's cache is
 written into its slot on the ranks that hold that slot
 (`sharding.write_at`), and the argmax over vocab-sharded logits takes each
 shard's first maximum, then the first shard holding the largest, which is
@@ -38,6 +41,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.sharding import (
     ShardingCtx,
+    constrain,
     from_local,
     local_ctx,
     local_range,
@@ -106,13 +110,12 @@ class ServeEngine:
             req = self.queue.pop(0)
             prompt = torch.from_numpy(np.asarray(req.tokens, np.int32)[None, :])
             batch = {"tokens": prompt.to(self.device)}
-            # the reference's stub inputs, zeros: no image and no sound
+            # the reference's stub inputs, zeros: no image and no sound; under a
+            # mesh DTensors whose one row stays whole on every rank
             if self.cfg.family == "vlm":
-                batch["embeds"] = torch.zeros((1, self.cfg.vision_tokens, self.cfg.d_model),
-                                              dtype=torch.bfloat16, device=self.device)
+                batch["embeds"] = self._stub(self.cfg.vision_tokens)
             if self.cfg.is_encdec:
-                batch["enc_embeds"] = torch.zeros((1, self.cfg.encoder_seq, self.cfg.d_model),
-                                                  dtype=torch.bfloat16, device=self.device)
+                batch["enc_embeds"] = self._stub(self.cfg.encoder_seq)
             logits, cache1 = prefill(self.params, batch, self.cfg, self.ctx,
                                      cache_len=self.max_len)
             tok = int(argmax(logits)[0])
@@ -126,6 +129,10 @@ class ServeEngine:
             self.slot_pos[slot] = prompt.shape[1]
             self.slots[slot] = req
             self.last_tokens[slot, 0] = tok
+
+    def _stub(self, n: int) -> torch.Tensor:
+        zeros = torch.zeros((1, n, self.cfg.d_model), dtype=torch.bfloat16, device=self.device)
+        return constrain(zeros, ("batch", None, None), self.ctx)
 
     # ------------------------------------------------------------------
     def step(self) -> int:

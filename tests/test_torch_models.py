@@ -558,14 +558,23 @@ def test_encoder_frames_reach_the_decoder():
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not port yet
+# every family under a mesh
 # ---------------------------------------------------------------------------
 
 
 def test_later_pieces_raise_naming_the_roadmap_item():
-    """Every architecture resolves, as in the reference; what still raises
-    under a mesh is the SSM, hybrid, enc-dec and VLM families, served or
-    trained (A.6b-ii), before the mesh is read."""
+    """Every architecture resolves, as in the reference, and `constrain` is
+    the identity without a mesh.  Nothing raises `NotImplementedError` under
+    a mesh any more: the SSM, hybrid, enc-dec and VLM families (ROADMAP
+    A.6b-ii, the last ones) prefill, decode and train under a (1, 1) mesh
+    over a gloo group of one rank, bit for bit as without it (4 ranks:
+    tests/test_torch_families_mesh.py and ..._train_mesh.py)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.sharding import shard_params
+
     assert list_archs() == jlist_archs() and len(list_archs()) == 10
     for arch in list_archs():
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
@@ -578,14 +587,26 @@ def test_later_pieces_raise_naming_the_roadmap_item():
         get_config("whisper-large")
     x = torch.zeros(2, 3)
     assert constrain(x, ("batch", None), local_ctx()) is x
-    mesh = ShardingCtx(mesh=object())
-    tokens = torch.zeros(1, 4, dtype=torch.int32)
-    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-base", "llava-next-34b"):
-        cfg = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match=f"the {cfg.family} family under a mesh "
-                           r"is not ported yet \(ROADMAP.md A.6b-ii"):
-            model.prefill({}, {"tokens": tokens}, cfg, mesh)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.6b-ii"):
-            model.decode_step({}, tokens[:, :1], [], 4, cfg, mesh)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md A.6b-ii"):
-            model.forward_train({}, {"tokens": tokens}, cfg, mesh)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = ShardingCtx(mesh=make_mesh((1, 1), ("data", "model"), device="cpu"))
+        for arch in ("mamba2-370m", "hymba-1.5b", "whisper-base", "llava-next-34b"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", n_layers=2)
+            params = model.init_params(cfg, 0, device="cpu")
+            rng = np.random.default_rng(0)
+            batch = {"tokens": _t(rng.integers(0, cfg.vocab, (1, 40)).astype(np.int32)),
+                     **{k: _t(v) for k, v in _extra(cfg, rng, 1).items()}}
+            got = {}
+            for label, ctx, p in (("mesh", mesh, shard_params(params, cfg, mesh)),
+                                  ("none", None, params)):
+                logits, caches = model.prefill(p, batch, cfg, ctx, cache_len=48)
+                step, _ = model.decode_step(p, batch["tokens"][:, :1], caches, 40, cfg, ctx)
+                loss, _ = model.forward_train(p, batch, cfg, ctx)
+                got[label] = [t.full_tensor() if isinstance(t, DTensor) else t
+                              for t in (logits, step, loss)]
+                assert isinstance(logits, DTensor) == (label == "mesh")
+            for a, b in zip(got["mesh"], got["none"]):
+                assert torch.equal(a, b), arch
+    finally:
+        dist.destroy_process_group()
