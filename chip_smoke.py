@@ -286,6 +286,14 @@ D. serving under a device mesh: NCCL initialized at world size 1 on a
    over 8 x 1,500 frames; (l) bitunpack counted over the window: one a
    packed prefill, one a packed step, nothing else; (d) the process
    group destroyed;
+R. the multi-pod dry run: `python -m repro_torch.launch.dryrun`, a cell a
+   subprocess (its `fake` process group is global to its process), all
+   started together: qwen3-1.7b x decode_32k and x train_4k on the 16x16 mesh, and
+   x long_500k, which a full-attention arch skips: each record's status,
+   per-device FLOPs, collective bytes, argument bytes and trace seconds,
+   with the card's name and power limit (a dry run computes nothing on the
+   card, so the phase prints no card time); a nonzero exit, a failed cell
+   or a cell of another status stops the script;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
    phases 9, T, M, E and D, must be > 0; phase D's as `launches_dist`);
@@ -3694,6 +3702,58 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase R: the multi-pod dry run
+# ---------------------------------------------------------------------------
+
+# (arch, shape, the status the cell must come back with)
+DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "ok"), (LM_ARCH, "train_4k", "ok"),
+                (LM_ARCH, "long_500k", "skipped"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS) -> list:
+    """Phase R: each cell through the dry run's command line, in a
+    subprocess of its own, all started together (each traces on one host
+    core); returns the records."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, _ in cells:
+        out = os.path.join(tmpdir, f"dryrun_{arch}_{shape}.json")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--json", out], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=ROOT)))
+    try:
+        results = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for _, p in procs]
+    finally:
+        for _, p in procs:  # a timeout or a failure leaves no process behind
+            p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    records = []
+    for (arch, shape, status), (out, proc), (stdout, stderr) in zip(cells, procs, results):
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {arch} x {shape} exited {proc.returncode}:\n"
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        with open(out) as f:
+            [rec] = json.load(f)
+        if rec["status"] != status:
+            raise AssertionError(f"dry run {arch} x {shape}: status {rec['status']}, not "
+                                 f"{status}: {rec}")
+        if status == "ok":
+            log(f"      {arch} x {shape} x {rec['mesh']} ({rec['strategy']}): ok, per device "
+                f"flops {rec['flops']:.4e}, collective bytes {rec['collective_bytes']:.4e} "
+                f"{rec['collectives']}, argument bytes {rec['memory']['argument_bytes']}, "
+                f"output bytes {rec['memory']['output_bytes']}; trace {rec['lower_s']} s")
+        else:
+            log(f"      {arch} x {shape}: {rec['status']} ({rec['reason']})")
+        records.append(rec)
+    log(f"      {len(cells)} subprocesses, started together, in {seconds:.1f} s")
+    return records
+
+
 def kernels_line(records: dict, by_order: dict, once: dict) -> list:
     """Phase 10's record of each kernel: phase 3's numbers and its launches,
     summed over every counted window.  `by_order` maps a window's key (its
@@ -3902,6 +3962,15 @@ def main(argv=None) -> int:
     dist_launches = mesh_phase(args.seed)
     log(f"      launches {dist_launches}; phase D took {time.perf_counter() - t0:.1f} s; the "
         f"script so far {time.perf_counter() - T0:.1f} s")
+
+    # phase R
+    t0 = time.perf_counter()
+    log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH} on the 16x16 "
+        "mesh over a fake process group, nothing computed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        dryrun_phase(d)
+    log(f"      phase R took {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - T0:.1f} s")
 
     # phase 10
     kernels = kernels_line(records, {

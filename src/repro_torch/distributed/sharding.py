@@ -207,6 +207,22 @@ def sharding_for(dims, ctx: ShardingCtx, shape=None, activation: bool = False
     return placements_for(spec_for(dims, ctx, shape, activation), ctx.mesh, shape)
 
 
+def _is_dims(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
+def tree_shardings(param_dims, ctx: ShardingCtx, param_shapes):
+    """A tree (dicts and lists) of logical-dims tuples and the matching tree
+    of shapes (tuples, or anything with a `.shape`) -> the same tree of
+    `sharding_for`'s placements (None in every leaf without a mesh)."""
+    if _is_dims(param_dims):
+        shape = getattr(param_shapes, "shape", param_shapes)
+        return sharding_for(param_dims, ctx, tuple(shape))
+    if isinstance(param_dims, dict):
+        return {k: tree_shardings(v, ctx, param_shapes[k]) for k, v in param_dims.items()}
+    return [tree_shardings(d, ctx, s) for d, s in zip(param_dims, param_shapes, strict=True)]
+
+
 def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
     """`x` as a DTensor on `mesh`: a plain tensor is taken as a replicated
     value (every rank holds all of it)."""

@@ -93,6 +93,31 @@ def reset_transfer_count() -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# batch-padding buckets
+# ---------------------------------------------------------------------------
+
+# The port's engine pads no stack (`core/engine.py`: `batch_pad_blocks`
+# stays 0), so nothing in the engine reads this.  It keeps the reference's
+# values for callers such as a benchmark's pad sweep; the reference's
+# settable default (`BUCKET_MODE`, `set_bucket_mode`) has no reader here.
+def bucket_blocks(n: int, mode: str = "ladder") -> int:
+    """A stacked block count padded to its bucket, as the reference's
+    engine pads its batch launches.
+
+    'ladder' (default): two rungs per octave, {2^m, 3*2^(m-1)}, i.e. 1, 2,
+    3, 4, 6, 8, 12, 16, 24, 32, ...; 'pow2': the next power of two."""
+    if n <= 0:
+        raise ValueError(f"block count must be positive, got {n}")
+    if mode not in ("ladder", "pow2"):
+        raise ValueError(f"unknown bucket mode {mode!r}: 'ladder' or 'pow2'")
+    p = 1 << (n - 1).bit_length()  # next power of two >= n
+    if mode == "pow2" or p < 4:
+        return p
+    mid = 3 * (p // 4)  # the mid-octave rung 3*2^(m-2)
+    return mid if n <= mid else p
+
+
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True when the operands lie on a CUDA device, False on the CPU."""
     dev = tensors[0].device

@@ -68,6 +68,11 @@ def bitunpack(packed: torch.Tensor, k: int) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
+def bitunpack_flat(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """(nblocks, k, 128) int32 words -> the first n values, flat (n,) int32."""
+    return bitunpack(packed, k).reshape(-1)[:n]
+
+
 # ---------------------------------------------------------------------------
 # dict decode
 # ---------------------------------------------------------------------------

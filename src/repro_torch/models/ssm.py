@@ -211,6 +211,16 @@ def _rows(proj: torch.Tensor, like_rows: Optional[torch.Tensor] = None) -> DTens
     return proj if list(proj.placements) == place else proj.redistribute(mesh, place)
 
 
+def _placed_as_rows(state: torch.Tensor, rows: DTensor) -> DTensor:
+    """A state placed as `rows` are: its batch rows sharded alike, every
+    other dim whole (a cache sharded on another dim too, as the dry run's
+    specs place one, is gathered there first)."""
+    state = as_dtensor(state, rows.device_mesh)
+    place = tuple(rows.placements)
+    return state if tuple(state.placements) == place else state.redistribute(
+        rows.device_mesh, place)
+
+
 def _body_leaves(p: dict, rows: DTensor) -> dict:
     """The replicated leaves as a body over `rows`' local shards reads them,
     their gradients `Partial` on the mesh dims that shard the rows
@@ -267,8 +277,8 @@ def ssm_decode_step(
         mesh = ctx.mesh
         rows = _rows(proj, conv_state)  # the engine places both states by their slots
         y, new_conv, state = _decode_mixer(rows.to_local(), _body_leaves(p, rows), cfg, h.dtype,
-                                           as_dtensor(conv_state, mesh).to_local(),
-                                           as_dtensor(ssm_state, mesh).to_local())
+                                           _placed_as_rows(conv_state, rows).to_local(),
+                                           _placed_as_rows(ssm_state, rows).to_local())
         y, new_conv, state = (from_local(t, mesh, rows.placements, (proj.shape[0],
                                                                    *t.shape[1:]))
                               for t in (y, new_conv, state))

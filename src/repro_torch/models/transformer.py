@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (
 from repro_torch.distributed.sharding import (
     DuplicateSpecError,
     constrain,
+    from_local,
     gather_dim,
     on_shards,
     write_at,
@@ -137,9 +138,19 @@ def attn_train(h, p, cfg, ctx, positions, *, causal=True, window=None, prefix=""
         v = _split_heads(src @ p[prefix + "wv"], B, src.shape[1], KV, hd)
     o = attention(q, k, v, ctx, causal=causal, window=window, scale=cfg.attn_scale,
                   chunk=cfg.attn_block)
-    B, S = h.shape[:2]
-    out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p[prefix + "wo"]
+    out = _out_proj(o, p[prefix + "wo"])
     return h + constrain(out, ("batch", None, None), ctx), (k, v)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """A whole sequence's attention output o (B,S,H,hd) through `wo`.  The
+    sequence-parallel arm returns o sharded on its sequence as well as its
+    batch, and the card's torch 2.11 cannot flatten the two for the
+    product: the sequence is made whole first, as the residual stream
+    holds it."""
+    o = gather_dim(o, 1)
+    B, S, H, hd = o.shape
+    return o.reshape(B, S, H * hd) @ wo
 
 
 def _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos: int, ring: bool):
@@ -233,8 +244,7 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
         q, k, v = _proj_qkv(x, lp, cfg, positions, ctx)
         o = attention(q, k, v, ctx, causal=True, window=window, scale=cfg.attn_scale,
                       chunk=cfg.attn_block)
-        B, S = h.shape[:2]
-        attn_out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+        attn_out = _out_proj(o, lp["wo"])
         if want_cache:
             y, (cs, ss) = ssm_forward(x, _sub(lp, "s_"), cfg, ctx, return_state=True)
             clen = window if window is not None else cache_len
@@ -284,7 +294,15 @@ def _to_cache(k: torch.Tensor, cache_len: Optional[int], ring: bool = False) -> 
     if cache_len is None or S == cache_len and not (ring and S > cache_len):
         return k
     if S < cache_len:
-        return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, cache_len - S))
+        # on each rank's shard, the slots whole (the card's torch 2.11 fails
+        # to place a DTensor `pad` of a cache sharded on its heads)
+        k = gather_dim(k, 1)
+        padded = F.pad(k.to_local() if isinstance(k, DTensor) else k,
+                       (0, 0, 0, 0, 0, cache_len - S))
+        if not isinstance(k, DTensor):
+            return padded
+        return from_local(padded, k.device_mesh, k.placements,
+                          (k.shape[0], cache_len, *k.shape[2:]))
     trimmed = k[:, S - cache_len:]
     if ring:  # a DTensor's slots are gathered first, then each rank rolls its shard
         trimmed = on_shards(lambda t: torch.roll(t, S % cache_len, dims=1),
@@ -348,9 +366,12 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
 def _store(cache, states):
     """Copy a decode step's new (conv, state) into the cache's own tensors;
     under a mesh each rank into its own shards of those the engine placed
-    (the step's states come in their placements)."""
+    (the step's states come in their placements, or are placed so first)."""
     for name, new in zip(("conv", "state"), states):
         if isinstance(cache[name], DTensor):
+            place = tuple(cache[name].placements)
+            if tuple(new.placements) != place:
+                new = new.redistribute(new.device_mesh, place)
             cache[name].to_local().copy_(new.to_local())
         else:
             cache[name].copy_(new)

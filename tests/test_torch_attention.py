@@ -6,6 +6,7 @@ Inputs are made with numpy from a seed and handed to both packages as
 float32 (or rounded to bfloat16 the same way on both sides).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

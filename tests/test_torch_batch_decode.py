@@ -8,6 +8,7 @@ its bloom).  The port pads no stack, so it books `batch_pad_blocks` 0 where
 the reference books its bucket padding.  Also the batch entry points of
 `kernels.ops`."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax.numpy as jnp

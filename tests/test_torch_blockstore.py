@@ -6,6 +6,7 @@ engine-level encoded-page tier — with tensors as the values, billed at
 `numel() * element_size()`.  Also the port's ownership rule: what the store
 keeps never views a larger buffer, and an evicted tensor is released."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import gc
 import weakref
 

@@ -4,6 +4,7 @@ format shared with the JAX package's (each restores the other's checkpoint
 bit for bit), and a fallback that stops at the device: a failure while
 moving the leaves onto the template's device leaves `restore_latest`."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import json
 import os
 

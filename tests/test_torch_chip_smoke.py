@@ -15,6 +15,7 @@ counted as a launch; `small_tables` writes seed-4 TPC-H files at sf=0.05.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 from pathlib import Path
 
 import pytest

@@ -4,6 +4,7 @@ plain kernels counted as launches.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

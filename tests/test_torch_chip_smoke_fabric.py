@@ -8,6 +8,7 @@ scan's.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

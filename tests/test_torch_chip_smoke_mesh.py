@@ -18,6 +18,7 @@ window, and destroys its process group, also when a check fails.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

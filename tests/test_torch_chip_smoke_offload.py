@@ -6,6 +6,7 @@ at the first mode whose answers differ from raw's.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

@@ -5,6 +5,7 @@ whose results differ from the direct scans'.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

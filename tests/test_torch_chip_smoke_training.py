@@ -5,6 +5,7 @@ engine mode's batches differ from the host mode's.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import pytest

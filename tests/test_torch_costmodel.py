@@ -7,6 +7,7 @@ footprints against the JAX engine's: equal on every plan but one whose
 group-by domain is over MAX_GROUPS, where the port prices the windows it
 launches on the card."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import json
 
 import numpy as np

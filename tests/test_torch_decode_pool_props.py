@@ -17,6 +17,7 @@ tensor: the pool keeps copies of their own, billed at their own bytes.
 Module skips without `hypothesis` (same policy as tests/test_encodings.py).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import pytest
 import torch
 

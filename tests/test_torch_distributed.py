@@ -21,6 +21,7 @@ statistics); bfloat16 MoE outputs by the reference test's own rule
 ticks, placements and the packed prefill exact.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import os
 import pickle
 import threading

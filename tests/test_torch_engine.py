@@ -7,6 +7,7 @@ bloom semijoin.  Also what the port refuses: a card that is not there, and
 the datapath names of later slices.  Batched scans and aggregate pushdown have
 their own files (test_torch_batch_decode.py, test_torch_pushdown.py)."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import os
 import shutil
@@ -355,7 +356,8 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.models.ssm, repro_torch.configs.mamba2_370m, "
         "repro_torch.configs.hymba_1_5b, repro_torch.configs.deepseek_moe_16b, "
         "repro_torch.configs.llama4_maverick_400b, repro_torch.distributed.compat, "
-        "repro_torch.launch.mesh, repro_torch.launch.serve, repro_torch.distributed.collectives\n"
+        "repro_torch.launch.mesh, repro_torch.launch.serve, repro_torch.distributed.collectives, "
+        "repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.lakeformat.textformat\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes'"
         " or m.startswith('ml_dtypes.'))\n"

@@ -26,6 +26,7 @@ propagating out of `tick()` instead of draining a pod.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import functools
 import itertools

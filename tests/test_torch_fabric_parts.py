@@ -16,6 +16,7 @@ ring (`repro_torch.distributed.sharding`), the fault-tolerance policies
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import random
 

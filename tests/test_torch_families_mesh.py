@@ -23,6 +23,7 @@ orders: the mesh's partial products and all-reduces); tokens, ticks,
 placements and the packed prefill exact.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import os
 import pickle

@@ -26,6 +26,7 @@ lr/10 where |g| is within a few eps of 0; a wrong gradient moves whole
 leaves by lr).  The checkpoint restored bit for bit.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import os
 import pickle

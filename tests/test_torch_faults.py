@@ -17,6 +17,7 @@ recoverable mix, one poisoned pod, the hypothesis sweep's two-pod arm).
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import functools
 import itertools

@@ -7,6 +7,7 @@ and `flash_attention` within a stated tolerance of `ref.mha`.  The
 file imports no JAX, so it runs where only torch is installed.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import numpy as np

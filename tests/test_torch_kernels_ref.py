@@ -12,6 +12,7 @@ Compaction is compared on finite values without -0.0: the reference's f32
 one-hot contraction turns -0.0 into +0.0 and a +-inf in a row that does not
 survive into NaN, where the port's scatter moves every value exactly."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

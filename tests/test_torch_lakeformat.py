@@ -2,6 +2,7 @@
 the same seed, identical encodings, round trips, and pages carried across
 packages with `from_numpy_column`."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -15,6 +15,7 @@ relative); bfloat16 outputs within 2^-7 of the largest output (one bf16
 step: the expert products round to bf16 on both sides).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -19,6 +19,7 @@
   equal to `raw`.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import random
 import shutil

@@ -17,6 +17,7 @@ parameters after n steps agree within n * lr * 2 * 2^-7.  `global_norm` sums
 ~40,000 squares in another order: within 32 ulps (2 sides x log2 N).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ Every comparison is exact: tokens are integers, and the packed words are
 the file's own bits.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import filecmp
 
 import numpy as np

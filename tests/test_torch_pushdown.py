@@ -12,6 +12,7 @@ ScanStats field equal but `batch_pad_blocks` (the port pads no stack; a
 fleet's merged stats also differ in `kernel_launches`, which follow the
 port's own dispatch)."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ tolerance; otherwise either of the two is right.
 Q19 selects about one lineitem row in 10,000, so its tests use seed 4,
 whose sf=0.05 files give it a handful of rows (seed 0 gives none)."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import numpy as np
 import pytest
 import torch

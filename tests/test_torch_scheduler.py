@@ -10,6 +10,7 @@ deterministic telemetry and virtual time (test_torch_service.py's harness).
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import copy
 
 import pytest

@@ -10,6 +10,7 @@ image), and the batched cache that the first admission builds: the SSM's
 float32 state and the rings spliced slot by slot, whisper's empty encoder
 segment and its unpadded ck/cv."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax

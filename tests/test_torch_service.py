@@ -30,6 +30,7 @@ test_torch_faults.py, test_torch_service_props.py).
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import json
 import os

@@ -20,6 +20,7 @@ max_examples and skip without hypothesis, as the reference's do.
 
 from __future__ import annotations
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import json
 
 import numpy as np

@@ -16,6 +16,7 @@ raises and never falls back to gloo; the production meshes raise without
 their world size.  The serve launcher drains its requests on the CPU.
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import itertools
 
 import pytest

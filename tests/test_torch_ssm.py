@@ -11,6 +11,7 @@ forward against its own decode steps, and the scan against a float64
 recurrence, take the same bound (the chunked form against the recurrence).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ port emits `fetch`, `decode_launch`, `filter` and `store_hit`, with the same
 span names and counts as the JAX engine's, and returns what an untraced
 scan returns."""
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import json
 
 import pytest

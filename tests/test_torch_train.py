@@ -24,6 +24,7 @@ Tolerances:
     and batches, rounded apart by a few ulps per step).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import dataclasses
 import os
 import shutil

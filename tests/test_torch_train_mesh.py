@@ -35,6 +35,7 @@ batches whose cursor resumes exactly (the host and engine pipelines drop
 the rest of their pool on a resume, in both packages: ROADMAP C).
 """
 
+import tests.torch_threads  # noqa: F401 (one torch thread a test process)
 import os
 import pickle
 import threading
