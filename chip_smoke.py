@@ -292,8 +292,10 @@ R. the multi-pod dry run: `python -m repro_torch.launch.dryrun`, a cell a
    x long_500k, which a full-attention arch skips: each record's status,
    per-device FLOPs, collective bytes, argument bytes and trace seconds,
    with the card's name and power limit (a dry run computes nothing on the
-   card, so the phase prints no card time); a nonzero exit, a failed cell
-   or a cell of another status stops the script;
+   card, so the phase prints no card time); train_4k's per-device FLOPs
+   at most 1.02x the reference's count (ROADMAP C.5); a nonzero exit, a
+   failed cell, a cell of another status or over its bound stops the
+   script;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
    phases 9, T, M, E and D, must be > 0; phase D's as `launches_dist`);
@@ -3710,12 +3712,20 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
 DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "ok"), (LM_ARCH, "train_4k", "ok"),
                 (LM_ARCH, "long_500k", "skipped"))
 DRYRUN_TIMEOUT_S = 300
+# the reference's per-device FLOPs of qwen3-1.7b x train_4k on the 16x16 mesh:
+# the JAX package's dry run (`repro.launch.dryrun`, trip-aware HLO count) at
+# 512 host devices, as PERF.md section 6 records it
+TRAIN_4K_REFERENCE_FLOPS = 1.0105e14
+# (arch, shape) -> (the reference's per-device FLOPs, the most the port may
+# count over it): each product on rank 0's share (ROADMAP C.5)
+DRYRUN_BOUNDS = {(LM_ARCH, "train_4k"): (TRAIN_4K_REFERENCE_FLOPS, 1.02)}
 
 
-def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS) -> list:
+def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS, bounds=DRYRUN_BOUNDS) -> list:
     """Phase R: each cell through the dry run's command line, in a
     subprocess of its own, all started together (each traces on one host
-    core); returns the records."""
+    core); a cell of `bounds` must count at most its factor times the
+    reference's per-device FLOPs.  Returns the records."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     procs = []
@@ -3749,6 +3759,15 @@ def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS) -> list:
                 f"output bytes {rec['memory']['output_bytes']}; trace {rec['lower_s']} s")
         else:
             log(f"      {arch} x {shape}: {rec['status']} ({rec['reason']})")
+        if (arch, shape) in bounds:
+            ref, most = bounds[arch, shape]
+            ratio = rec["flops"] / ref
+            log(f"      {arch} x {shape}: {ratio:.4f}x the reference's {ref:.4e} FLOPs a device "
+                f"(at most {most}x)")
+            if ratio > most:
+                raise AssertionError(f"dry run {arch} x {shape}: {rec['flops']:.4e} FLOPs a "
+                                     f"device, {ratio:.4f}x the reference's {ref:.4e}, over "
+                                     f"{most}x")
         records.append(rec)
     log(f"      {len(cells)} subprocesses, started together, in {seconds:.1f} s")
     return records

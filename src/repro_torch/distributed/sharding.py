@@ -23,7 +23,9 @@ redistributes an activation to the strategy-aware spec
 an op that cuts it where DTensor cannot follow a shard, and `on_shards`
 applies an op that DTensor has no strategy for to each rank's shard.
 `local_grad` hands a local body a parameter's shard with the gradient
-placements that the body's tokens give it (training under a mesh).  A plain
+placements that the body's tokens give it (training under a mesh), and
+`constrain_cotangent` constrains a gradient as the reference's constraint
+does its cotangent (where DTensor would pass a partial sum back).  A plain
 tensor given to `constrain` is taken as a replicated value.  The reference
 requires annotated dims to divide the axis size, so every rule is guarded:
 a non-divisible dim degrades to replicated, and `placements_for` refuses an
@@ -258,6 +260,50 @@ def constrain(x: torch.Tensor, dims: Sequence[Optional[str]], ctx: ShardingCtx) 
     if not ctx.enabled:
         return x
     return to_spec(x, spec_for(dims, ctx, x.shape, activation=True), ctx.mesh)
+
+
+class _CotangentAs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def constrain_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """x, whose gradient is redistributed to x's own placements before it
+    flows back into the op that made x (a plain tensor, or one that needs
+    no gradient, is x itself): the transpose of the reference's
+    `with_sharding_constraint`, which constrains the cotangent as it does
+    the value.  DTensor's own redistribution passes a `Partial` gradient
+    back unreduced wherever its forward input was `Partial`.
+
+    The constraint that takes it is the one at a GLU MLP's output
+    (`layers.glu_mlp`: the dense MLP and the MoE's shared experts).  Its
+    forward reduces the down projection's partial sums over the ff shards;
+    in training the gradient reaching it is `Partial` on the model axis.
+    The head's backward starts that partial sum (dh = dlogits w^T, a
+    contraction over the vocab shards), the products at each layer's
+    input add to it (the MLP's dx = dh_g wg^T + dh_u wu^T over the ff
+    shards, the attention's over the head shards), and the norms' backward
+    and the residual stream carry it from layer to layer unreduced.
+    Passed back unreduced, DTensor pairs it with the down projection's
+    gathered weight and hidden state, and both backward products of
+    (a h_u) wo run at the whole ff on every rank; reduced here, they run on
+    the rank's ff shard.  The other constraints keep DTensor's own
+    backward: constraining the cotangents of the residual stream
+    everywhere hands the q, k and v projections' head-sharded views
+    gradients sharded on their last dim that do not unflatten into heads
+    which the model axis does not divide (DTensor raises), and their
+    gradients are not partial sums over a dim that a product contracts."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _CotangentAs.apply(x)
 
 
 def shard_params(params, cfg, ctx: ShardingCtx):

@@ -36,9 +36,11 @@ Per cell the record keeps the reference's keys.  What it counts is rank
   - `dot_bytes`: each product's output and first operand, as the
     reference's;
   - `collectives` and `collective_bytes`: the functional collectives that
-    DTensor issues on rank 0, by the reference's kind names, each its
-    output's bytes times the reference's ring factor (all-reduce 2x, the
-    rest 1x; `benchmarks/hlo_analysis.py`);
+    DTensor issues on rank 0 and the process-group collectives of the
+    port's own bodies (`distributed/collectives.py`, flash-decode's softmax
+    statistics), by the reference's kind names, each its output's bytes
+    times the reference's ring factor (all-reduce 2x, the rest 1x;
+    `benchmarks/hlo_analysis.py`);
   - `memory.argument_bytes` and `memory.output_bytes`: rank 0's local
     bytes of the step's inputs and outputs (the decode's position counts 4
     bytes, an int32 scalar as the reference's argument is, though the
@@ -86,6 +88,15 @@ _COLLECTIVES = {
     _funcol.all_reduce.default: ("all-reduce", 2.0),
     _funcol.reduce_scatter_tensor.default: ("reduce-scatter", 1.0),
     _funcol.all_to_all_single.default: ("all-to-all", 1.0),
+}
+_c10d = torch.ops.c10d
+# the same for the process-group collectives, which write their output in
+# place: their first argument (a list of tensors for the all-reduce)
+_INPLACE = {
+    _c10d.allreduce_.default: ("all-reduce", 2.0),
+    _c10d._allgather_base_.default: ("all-gather", 1.0),
+    _c10d._reduce_scatter_base_.default: ("reduce-scatter", 1.0),
+    _c10d.alltoall_base_.default: ("all-to-all", 1.0),
 }
 
 
@@ -145,7 +156,8 @@ class LocalCounter(S.DTensorOnFakes):
     op (a local body's, or no mesh) is counted from its operands.  The
     products DTensor runs inside an op are not counted again (nor are they
     all seen: for placements that it has cached DTensor runs them below
-    this mode).  The collectives it issues are counted where they run."""
+    this mode).  The collectives it issues, and those of the port's own
+    bodies, are counted where they run."""
 
     def __init__(self):
         super().__init__()
@@ -175,11 +187,16 @@ class LocalCounter(S.DTensorOnFakes):
         if func in _MATMULS and self.depth == 0:
             self._product(out, _operands(func, args)[0].shape[-1])
         elif func in _COLLECTIVES:
-            kind, factor = _COLLECTIVES[func]
-            nb = out.numel() * out.element_size() * factor
-            self.collective_bytes += nb
-            self.collectives[kind] += nb
+            self._collective(_COLLECTIVES[func], [out])
+        elif func in _INPLACE:
+            self._collective(_INPLACE[func], args[0] if isinstance(args[0], list) else [args[0]])
         return out
+
+    def _collective(self, kind_factor, outs) -> None:
+        kind, factor = kind_factor
+        nb = sum(t.numel() * t.element_size() for t in outs) * factor
+        self.collective_bytes += nb
+        self.collectives[kind] += nb
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,

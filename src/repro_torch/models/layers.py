@@ -41,6 +41,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.distributed.sharding import (
     ShardingCtx,
     constrain,
+    constrain_cotangent,
     from_local,
     like,
     local_grad,
@@ -215,7 +216,8 @@ def glu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tenso
     h_u = constrain(x @ wu, ("batch", None, "ff"), ctx)
     a = F.silu(h_g) if act == "swiglu" else F.gelu(h_g, approximate="tanh")
     out = (a * h_u) @ wo
-    return constrain(out, ("batch", None, None), ctx)
+    # its gradient too, so that wo's backward products run on the ff shard
+    return constrain_cotangent(constrain(out, ("batch", None, None), ctx))
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,

@@ -30,8 +30,11 @@ reference:
   - E divisible by the model axis otherwise: `_routed_local` on this
     rank's E / tp experts (from expert e0) over its data shard of the
     batch, then an all-reduce over the model axis;
-  - else the global `_routed_local` on every rank: the reference routes over
-    the global batch there, so the capacity counts every token.
+  - else `_routed_global`: the reference routes over the global batch
+    there, so the capacity counts every token; each rank gathers the
+    tokens and runs its shard of the experts' ff (the data axis, as the
+    parameters are stored), and the partial sums are reduce-scattered back
+    to the rows.
 The router's top k runs on each rank's own tokens (a per-token function)
 and the auxiliary loss sums over the ranks.  The bodies train: their
 collectives are the differentiable ones of `distributed/collectives.py`
@@ -61,6 +64,7 @@ from repro_torch.distributed.sharding import (
     constrain,
     from_local,
     local_grad,
+    spec_for,
     to_spec,
 )
 from repro_torch.models.config import ModelConfig
@@ -81,7 +85,8 @@ def _routed_local(x, ids, gates, wg, wu, wo, *, k: int, n_experts: int, capacity
     """Routed-expert compute.  x (B,S,D); ids/gates (B,S,k); wg/wu (E,D,F),
     wo (E,F,D): experts e0 .. e0 + E - 1 of `n_experts`.  `reduce` maps the
     float32 (N, D) sum before its cast to x's dtype (the model axis's
-    all-reduce)."""
+    all-reduce, or `_routed_global`'s sum over the ff shards onto this
+    rank's rows)."""
     B, S, D = x.shape
     N = B * S
     E = wg.shape[0]
@@ -115,7 +120,7 @@ def _routed_local(x, ids, gates, wg, wu, wo, *, k: int, n_experts: int, capacity
         out.index_add_(0, seg_tok[e], ys.float() * w)
     if reduce is not None:
         out = reduce(out)
-    return out.reshape(B, S, D).to(x.dtype)
+    return out.reshape(-1, S, D).to(x.dtype)
 
 
 def _glu(xs, wg, wu, wo, act):
@@ -262,6 +267,54 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: ModelConfig,
     return constrain(routed, ("batch", None, None), ctx), aux
 
 
+def _routed_global(xs, xl, ids, gates, params, ctx: ShardingCtx, **kw):
+    """The arm without expert parallelism (E does not divide the model
+    axis, or one model rank), the reference's GSPMD `_routed_local`: the
+    dispatch runs over the global tokens (the capacity counts every token
+    and the stable sort orders them all, as there), each rank on its shard
+    of the experts' ff.  xs (B, S, D) is x on its batch rows, xl its local
+    tensor (the one the router read: autograd then adds x's gradients in
+    the order of one device) and ids/gates this rank's rows' routing;
+    returns this rank's rows of the routed sum.
+
+    The expert weights keep their parameters' placements (`experts`, with
+    the ff on `fsdp`: the data axis).  On each mesh dim of more than one
+    rank: where the rows are sharded, the tokens, ids and gates are
+    gathered (backward: a reduce-scatter) and the output is
+    reduce-scattered back to the rows where the ff is sharded too (the sum
+    over the ff shards; backward: an all-gather), or cut to the rank's rows
+    where it is not; where only the ff is sharded, the replicated tokens
+    and gates enter through `copy_to` and the output leaves through
+    `all_reduce_sum`.  Each weight's local gradient is then its own
+    shard's, summed over the rows' mesh dims that do not shard it
+    (`local_grad` on xs)."""
+    mesh = xs.device_mesh
+    wd = [to_spec(params[n], spec_for(dims, ctx, params[n].shape), mesh) for n, dims in (
+        ("e_wg", ("experts", None, "fsdp")), ("e_wu", ("experts", None, "fsdp")),
+        ("e_wo", ("experts", "fsdp", None)))]
+    w = [local_grad(t, xs) for t in wd]
+    rows = [m for m, p in enumerate(xs.placements) if p.is_shard()]  # major to minor
+    ff = {m for m, p in enumerate(wd[0].placements) if p.is_shard()}
+    for m in ff.difference(rows):
+        xl, gates = coll.copy_to(xl, mesh.get_group(m)), coll.copy_to(gates, mesh.get_group(m))
+    for m in reversed(rows):  # minor first: the gathered rows end in mesh order
+        g = mesh.get_group(m)
+        xl, ids, gates = coll.all_gather(xl, g), coll.all_gather(ids, g), coll.all_gather(gates, g)
+
+    def reduce(o):  # (N, D) float32, the global tokens in batch order
+        for m in ff.difference(rows):
+            o = coll.all_reduce_sum(o, mesh.get_group(m))
+        for m in rows:  # major first
+            if m in ff:
+                o = coll.reduce_scatter(o, mesh.get_group(m))
+            else:
+                n = o.shape[0] // mesh.size(m)
+                o = o.narrow(0, mesh.get_local_rank(m) * n, n)
+        return o
+
+    return _routed_local(xl, ids, gates, *w, reduce=reduce, **kw)
+
+
 def _aux(ids, probs, cfg: ModelConfig, groups=(), n_tokens: int = 0):
     """Switch-style load-balance loss; with `groups`, these are this rank's
     tokens of `n_tokens`, and the groups' ranks hold the others."""
@@ -293,12 +346,10 @@ def _moe_ffn_mesh(x, params, cfg: ModelConfig, ctx: ShardingCtx):
     dp_spec = ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0]
     if use_2d:
         x_spec = (wide, None, None)
-    elif ep:
+    else:
         # a batch the data axis does not divide stays whole on every row,
         # where the reference's shard_map refuses it (ROADMAP C)
         x_spec = (dp_spec if B % ctx.dp == 0 else None, None, None)
-    else:
-        x_spec = (None, None, None)
     xs = to_spec(x, x_spec, mesh)
     xl = xs.to_local()
     router = local_grad(to_spec(params["router"], (None, None), mesh), xs)
@@ -326,9 +377,7 @@ def _moe_ffn_mesh(x, params, cfg: ModelConfig, ctx: ShardingCtx):
                             *w, n_experts=E, e0=e0,
                             reduce=lambda o: coll.all_reduce_sum(o, model_group), **kw)
     else:
-        w = [local_grad(to_spec(params[n], (None, None, None), mesh), xs)
-             for n in ("e_wg", "e_wu", "e_wo")]
-        out = _routed_local(xl, ids, gates, *w, n_experts=E, **kw)
+        out = _routed_global(xs, xl, ids, gates, params, ctx, n_experts=E, **kw)
     routed = from_local(out, mesh, xs.placements, xs.shape)
     if cfg.moe_shared:
         routed = routed + glu_mlp(x, params["shared_wg"], params["shared_wu"],

@@ -282,5 +282,6 @@ def ssm_decode_step(
         y, new_conv, state = (from_local(t, mesh, rows.placements, (proj.shape[0],
                                                                    *t.shape[1:]))
                               for t in (y, new_conv, state))
-    out = y @ p["out_proj"]
+    # whole on its rows, as ssm_forward's output and attn_decode's are
+    out = constrain(y @ p["out_proj"], ("batch", None, None), ctx)
     return out, (new_conv, state)

@@ -175,7 +175,10 @@ def attn_decode(h, p, cfg, ctx, pos: int, kcache, vcache, *, prefix=""):
     q, k, v = _proj_qkv(x, p, cfg, positions, ctx, prefix)
     o = _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos, ring=False)
     out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p[prefix + "wo"]
-    return h + out, kcache, vcache
+    # made whole on its rows here, as attn_train's output is: a partial sum
+    # over the model axis left in the residual stream would take the next
+    # products' weights (the MLP's, the next q, k and v, the head) whole
+    return h + constrain(out, ("batch", None, None), ctx), kcache, vcache
 
 
 def mlp_block(h, p, cfg, ctx, prefix=""):
@@ -357,7 +360,8 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
         B = h.shape[0]
         q = _split_heads(x @ lp["x_wq"], B, 1, cfg.n_heads, cfg.head_dim)
         o = attention(q, cache["ck"], cache["cv"], ctx, causal=False, scale=cfg.attn_scale)
-        h = h + o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"]
+        h = h + constrain(o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"],
+                          ("batch", None, None), ctx)
         h = mlp_block(h, lp, cfg, ctx)
         return h, cache
     raise ValueError(kind)

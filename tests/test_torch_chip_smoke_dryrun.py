@@ -30,6 +30,20 @@ def test_dryrun_phase_stops_at_a_failed_cell(tmp_path):
         chip_smoke.dryrun_phase(str(tmp_path), (("no-such-arch", "decode_32k", "ok"),))
 
 
+def test_dryrun_phase_holds_a_cell_to_its_bound(tmp_path, capsys):
+    """A cell of `bounds` within its factor of the reference's count is
+    logged; one over it stops the phase."""
+    cell = ((LM, "decode_32k", "ok"),)
+    [rec] = chip_smoke.dryrun_phase(str(tmp_path), cell,
+                                    {(LM, "decode_32k"): (1e30, 1.02)})
+    assert "x the reference's 1.0000e+30 FLOPs a device (at most 1.02x)" in \
+        capsys.readouterr().out
+    with pytest.raises(AssertionError, match="FLOPs a device, .* over 1.02x"):
+        chip_smoke.dryrun_phase(str(tmp_path), cell, {(LM, "decode_32k"): (rec["flops"] / 1.03,
+                                                                           1.02)})
+    assert chip_smoke.DRYRUN_BOUNDS[LM, "train_4k"] == (1.0105e14, 1.02)
+
+
 def test_dryrun_phase_stops_at_a_cell_of_another_status(tmp_path):
     with pytest.raises(AssertionError, match="status skipped, not ok"):
         chip_smoke.dryrun_phase(str(tmp_path), ((LM, "long_500k", "ok"),))

@@ -45,6 +45,10 @@ SLOTS, MAX_LEN = 4, 64
 PREFILL_LEN, PREFILL_CACHE = 24, 32
 MOE_B, MOE_S = 4, 16
 SMALL = {"dtype": "float32", "n_layers": 2}  # the smoke configs cut from 3 layers to 2
+# moe_ffn without expert parallelism, (rows, expert ff): the rows and the ff
+# both sharded on the data axis, the rows alone (45 does not divide it), the
+# ff alone (3 rows do not)
+MOE_GLOBAL = ((MOE_B, 48), (MOE_B, 45), (3, 48))
 
 REFERENCE = r'''
 import dataclasses, os, pickle, time
@@ -192,6 +196,41 @@ def _layer_on_mesh(cfg, lp, ctx):
                                  src_data_rank=None) for k, v in lp.items()}
 
 
+def _moe_without_ep(inp, mesh, ctx, config):
+    """moe_ffn's arm without expert parallelism (5 experts do not divide the
+    model axis) under `ctx`, and one device's, which routes the same global
+    tokens: the output, the Switch loss and the gradients of x and of every
+    parameter, for each case of `MOE_GLOBAL` (the first layer of the
+    float32 smoke model cut to 5 experts, its expert ff to `ff` and its
+    batch to `rows`)."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import as_dtensor, local_ctx
+    from repro_torch.models import moe
+
+    spec, lp, x = inp["moe", "float32", 0]
+    res = {}
+    for rows, ff in MOE_GLOBAL:
+        cfg = dataclasses.replace(config(spec), moe_experts=5, moe_d_ff=ff)
+        cut = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in (
+            ("router", lp["router"][:, :5]), ("e_wg", lp["e_wg"][:5, :, :ff]),
+            ("e_wu", lp["e_wu"][:5, :, :ff]), ("e_wo", lp["e_wo"][:5, :ff]))}
+        for label in ("mesh", "one"):
+            xt = torch.from_numpy(x[:rows]).requires_grad_(True)
+            if label == "mesh":
+                p = {k: v.requires_grad_() for k, v in _layer_on_mesh(cfg, cut, ctx).items()}
+                y, aux = moe.moe_ffn(as_dtensor(xt, mesh), p, cfg, ctx)
+                total = (y.float() ** 2).sum().full_tensor() + aux
+            else:
+                p = {k: v.clone().requires_grad_(True) for k, v in cut.items()}
+                y, aux = moe.moe_ffn(xt, p, cfg, local_ctx())
+                total = (y.float() ** 2).sum() + aux
+            grads = torch.autograd.grad(total, [xt, *p.values()])
+            res[rows, ff, label] = [_full(y).detach().numpy(), float(aux)] + [
+                _full(g).numpy() for g in grads]
+    return res
+
+
 def _cases(d):
     import dataclasses
 
@@ -257,6 +296,7 @@ def _cases(d):
     lp = _layer_on_mesh(cfg, params_from_reference(lp, device="cpu"), ctx)
     moe.RESIDENT_BYTES = 0
     out["moe rows"] = _full(moe.moe_ffn(torch.from_numpy(x), lp, cfg, ctx)[0]).numpy()
+    out["moe global"] = _moe_without_ep(inp, mesh, tp, config)
     out["row index"] = (moe._row_index("data", mesh), dist.get_rank(moe._row_group("data", mesh)),
                         mesh.get_local_rank("data"))
 
@@ -456,6 +496,17 @@ def test_moe_ffn_with_shared_experts_matches_the_references_ep(mesh_results, str
     want, want_aux = ref["moe", strategy, "bfloat16", 2]
     _bf16_close(got, want)
     assert aux == pytest.approx(want_aux, rel=1e-2)
+
+
+@pytest.mark.parametrize("rows,ff", MOE_GLOBAL)
+def test_moe_ffn_without_ep_matches_one_device(mesh_results, rows, ff):
+    """5 experts on the 2x2 mesh (`moe._routed_global`): the dispatch over
+    the global tokens on each rank's shard of the experts' ff; the output,
+    the Switch loss and every gradient against one device, float32."""
+    ranks, _, _ = mesh_results
+    res = _same_on_every_rank(ranks, "moe global")
+    for got, want in zip(res[rows, ff, "mesh"], res[rows, ff, "one"]):
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
 def test_moe_2d_row_sharded_arm_matches_the_resident_one(mesh_results):

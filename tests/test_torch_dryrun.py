@@ -9,7 +9,9 @@ ratio pinned in `PARTED` with the products that part them (ROADMAP C.5).
 Training: status ok and the FLOPs ratio pinned (`TRAIN_PARTED`).  Every
 cell: `memory.output_bytes` equal but for XLA's output tuple table
 (`OUT_LEAVES`), and the collective bytes by kind pinned on both sides
-(`COLLECTIVES`) with the collectives that part them."""
+(`COLLECTIVES`) with the collectives that part them.  The port's products,
+listed by site in its subprocess (`_LISTING`), show that the sites C.5
+repaired run on rank 0's share."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+from collections import defaultdict
 
 import pytest
 
@@ -29,33 +32,26 @@ CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
 TRAIN = ("qwen3-1.7b", "train_4k")
 
 # port flops / reference flops of the cells where the two part by more than
-# 2% (ROADMAP C.5), and the products that part them:
-#  - deepseek's routed experts (`moe._routed_local`): the port's (491520,
-#    64) @ (64, 48) gate and up and (491520, 48) @ (48, 64) down run with
-#    the expert's ff whole on rank 0, the reference's with it sharded over
-#    the model axis, (491520, 64) @ (64, 3) and (3, 64); the router's
-#    (1048576, 64) @ (64, 8) runs on the whole batch's rows;
-#  - a decode's head (`layers.lm_head_logits`): the port's (128, 4) @ (4,
-#    2048) on all 128 rows (the contraction's shard of a `Partial` input),
-#    the reference's (8, 64) @ (64, 128) on rank 0's 8 rows and vocab
-#    shard; mamba2's SSD in_proj likewise, (128, 4) @ (4, 292) against (8,
-#    64) @ (64, 19).
-# The attention products agree (2 x 5.154e10 in qwen3's and deepseek's
-# prefill on both sides).
+# 2% (ROADMAP C.5), and the products that part them.  mamba2's decode step
+# runs its SSD mixer (`ssm._decode_mixer`) on each rank's 8 batch rows with
+# every head and channel, on all 16 model ranks alike: the readout (8, 1,
+# 128) @ K 16 and the depthwise conv (160, 8, 1) @ K 4, 129,024 FLOPs over
+# 3 layers where the reference, `inner` sharded over the model axis, counts
+# 8,064.  That layout is the port's (DTensor cannot reshard in_proj's output
+# across the `inner` shards; ROADMAP C); the rest of the cell agrees: the
+# head (8, 64) @ (64, 128), in_proj (8, 64) @ (64, 19) and out_proj.
 PARTED = {
-    ("qwen3-1.7b", "decode_32k"): 15773696.0 / 12824576.0,
-    ("deepseek-moe-16b", "prefill_32k"): 251138179072.0 / 114739412992.0,
-    ("deepseek-moe-16b", "decode_32k"): 34977792.0 / 14011392.0,
-    ("mamba2-370m", "decode_32k"): 2868224.0 / 222080.0,
+    ("mamba2-370m", "decode_32k"): 343040.0 / 222080.0,
 }
 
-# the training cell, parted by the backward of each MLP's down projection
-# (`wo`): the gradient reaching it is `Partial` on the model axis, and
-# DTensor runs both of its products at the whole d_ff of 128 on rank 0,
-# (65536, 128) @ K 64 and (128, 64) @ K 65536, 2 x 3.221e9 over 3 layers,
-# where the reference runs them at its 8-wide shard (ROADMAP C.5; 1.80x at
-# full size)
-TRAIN_PARTED = 53652750336.0 / 46103003136.0
+# the training cell, parted by the backward of each attention's output
+# projection (`transformer._out_proj`): the smoke config's 4 heads do not
+# divide the 16 model ranks, and both of its products run at the whole
+# H x hd of 64, (65536, 64) @ K 64 and (64, 64) @ K 65536, 2 x 1.611e9 over
+# 3 layers; the reference runs its own q and o products whole in places
+# (ROADMAP C.5).  The MLP's down projection runs its backward on the rank's
+# ff shard of 8 (`test_repaired_products_run_on_rank_0s_share`).
+TRAIN_PARTED = 47612952576.0 / 46103003136.0
 
 # XLA's `output_size_in_bytes` counts the output tuple's table, 8 bytes a
 # leaf, besides the leaves themselves: the logits and the stacked caches
@@ -72,45 +68,60 @@ OUT_LEAVES = {
 # rank 0's collective bytes by kind, (port, reference).  They part because
 # the two partitioners place the same step differently, the largest first:
 #  - XLA splits the sequence-parallel attention's head dim across ranks
-#    and all-reduces the float32 scores, (2, 1, 2, 1024, 32768) a q chunk: 1.031e11 of qwen3's prefill all-reduce bytes, 5.154e10 of
-#    deepseek's (with 4.027e9 of its routed experts' (491520, 64) output),
-#    6.442e9 of the training step's (forward and backward); the port attends
-#    each rank's q rows against the whole k and v with no collective;
+#    and all-reduces the float32 scores, (2, 1, 2, 1024, 32768) a q chunk:
+#    1.031e11 of qwen3's prefill all-reduce bytes, 5.154e10 of deepseek's
+#    (with 4.027e9 of its routed experts' (491520, 64) output), 6.442e9 of
+#    the training step's (forward and backward); the port attends each
+#    rank's q rows against the whole k and v with no collective;
 #  - the reference's host devices move float32 where the port moves bf16
 #    (the CPU compiler widens bf16 products and their collectives);
 #  - only XLA issues `collective-permute` (slices such as the rotary
 #    halves, the SSM's splits) and `all-to-all` (concatenations, gathers);
-#    only DTensor `reduce-scatter` (the vocab-sharded head's logits);
+#    only the port `reduce-scatter` (the vocab-sharded head's logits, the
+#    MoE's expert sums);
 #  - the port's largest all-gathers: the embedding made whole on D
 #    (`embed_lookup`'s constrain, 1.342e8 in both prefills), deepseek's
-#    tokens entering the experts (`_moe_ffn_mesh`, 2.684e8), the training
-#    loss's float32 logits (`softmax_xent`, 5.367e8), and in decode the
-#    SSM states placed as the step's rows (`ssm._placed_as_rows`) and the
-#    MLP's weights.
+#    tokens gathered for the dispatch over the global batch
+#    (`moe._routed_global`, 2.684e8, and 5.033e7 of their expert ids and
+#    gates), the training loss's float32 logits (`softmax_xent`, 5.367e8),
+#    and in decode the SSM states placed as the step's rows
+#    (`ssm._placed_as_rows`).
+# The repair of ROADMAP C.5 moved bytes between kinds: the training MLP's
+# cotangent is all-reduced at its output (`sharding.constrain_cotangent`:
+# all-reduce 1.347e8 -> 1.851e8) where DTensor had gathered the down
+# projection's weight and hidden state whole for its backward (all-gather
+# 9.731e8 -> 9.227e8, reduce-scatter 1.102e7 -> 3.149e6); a decode's
+# attention and SSM outputs are all-reduced over the model axis where they
+# arise, so the MLP's weights and the head are no longer gathered (qwen3's
+# decode all-gather 196,608 -> 53,248, reduce-scatter 35,584 -> 0);
+# deepseek's experts sum their ff shards with a reduce-scatter onto the
+# rows (3.355e7 in prefill).  The port's own bodies' collectives count too
+# (`dryrun._INPLACE`): flash-decode's softmax statistics (13,824 all-reduce
+# bytes of qwen3's decode) and the MoE's gathers.
 COLLECTIVES = {
     ("qwen3-1.7b", "prefill_32k"): {
         "all-gather": (213927424, 255994880), "all-reduce": (117440512, 103183024128),
         "reduce-scatter": (512, 0), "collective-permute": (0, 11798528),
         "all-to-all": (0, 393216)},
     ("qwen3-1.7b", "decode_32k"): {
-        "all-gather": (196608, 80896), "all-reduce": (90112, 67456),
-        "reduce-scatter": (35584, 0), "collective-permute": (0, 1472), "all-to-all": (0, 368)},
+        "all-gather": (53248, 80896), "all-reduce": (28160, 67456),
+        "collective-permute": (0, 1472), "all-to-all": (0, 368)},
     ("deepseek-moe-16b", "prefill_32k"): {
-        "all-gather": (507826432, 335692288), "all-reduce": (117440512, 55767465984),
-        "reduce-scatter": (512, 0), "collective-permute": (0, 15730944),
+        "all-gather": (557863168, 335692288), "all-reduce": (117440768, 55767465984),
+        "reduce-scatter": (33554944, 0), "collective-permute": (0, 15730944),
         "all-to-all": (0, 1572864)},
     ("deepseek-moe-16b", "decode_32k"): {
-        "all-gather": (536320, 96768), "all-reduce": (73728, 591360),
-        "reduce-scatter": (35520, 0), "collective-permute": (0, 2208), "all-to-all": (0, 512)},
+        "all-gather": (98048, 96768), "all-reduce": (28416, 591360),
+        "reduce-scatter": (4096, 0), "collective-permute": (0, 2208), "all-to-all": (0, 512)},
     ("mamba2-370m", "decode_32k"): {
-        "all-gather": (312448, 72448), "all-reduce": (45312, 17344),
-        "reduce-scatter": (44160, 0), "collective-permute": (0, 25088), "all-to-all": (0, 704)},
+        "all-gather": (277888, 72448), "all-reduce": (8192, 17344),
+        "collective-permute": (0, 25088), "all-to-all": (0, 704)},
     ("hymba-1.5b", "decode_32k"): {
-        "all-gather": (250368, 139776), "all-reduce": (59392, 107776),
+        "all-gather": (250368, 139776), "all-reduce": (45056, 107776),
         "collective-permute": (0, 24736), "all-to-all": (0, 1216)},
     TRAIN: {
-        "all-gather": (973081600, 808753536), "all-reduce": (134746088, 6834185600),
-        "reduce-scatter": (11016544, 0), "collective-permute": (0, 19271680),
+        "all-gather": (922700800, 808753536), "all-reduce": (185077736, 6834185600),
+        "reduce-scatter": (3149152, 0), "collective-permute": (0, 19271680),
         "all-to-all": (0, 491520)},
 }
 
@@ -120,13 +131,57 @@ sys.path.insert(0, {benchmarks!r})
 from {pkg}.launch import dryrun
 from {pkg} import configs
 dryrun.get_config = configs.get_smoke_config
-print(json.dumps([dryrun.lower_cell(arch, shape, False) for arch, shape in {cells!r}]))
+{listing}
+records = [dryrun.lower_cell(arch, shape, False) for arch, shape in {cells!r}]
+{listed}
+print(json.dumps(records))
+"""
+
+# the port's side also lists each cell's counted products by site: the
+# function and source line of the innermost `repro_torch/models` frame
+# (for a backward product, that of the forward op that made its autograd
+# node), the output shape and the contraction's length, with their FLOPs,
+# on the line before the records
+_LISTING = r"""
+import traceback, torch
+from collections import defaultdict
+torch.autograd.set_detect_anomaly(True, check_nan=False)  # a node keeps its forward's stack
+LISTED, CELL = defaultdict(float), [None]
+
+def _site():
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        frames = [f for f in node.metadata.get("traceback_", []) if "repro_torch/models" in f]
+        if not frames:
+            return "backward", "?", "?"
+        head, _, code = frames[-1].strip().partition("\n")
+        return "backward", head.rpartition(", in ")[2], code.strip()
+    for fs in reversed(traceback.extract_stack()):
+        if "repro_torch/models" in fs.filename:
+            return "forward", fs.name, (fs.line or "").strip()
+    return "forward", "?", "?"
+
+_product, _lower = dryrun.LocalCounter._product, dryrun.lower_cell
+
+def _listed(self, out, k):
+    LISTED[(CELL[0],) + _site() + (tuple(out.shape), k)] += 2.0 * out.numel() * k
+    return _product(self, out, k)
+
+def _lower_listed(arch, shape, *args):
+    CELL[0] = arch + " " + shape
+    return _lower(arch, shape, *args)
+
+dryrun.LocalCounter._product, dryrun.lower_cell = _listed, _lower_listed
 """
 
 
 def _code(pkg: str) -> str:
+    port = pkg == "repro_torch"
     return _CODE.format(pkg=pkg, cells=list(CELLS) + [TRAIN],
-                        benchmarks=os.path.join(REPO, "benchmarks"))
+                        benchmarks=os.path.join(REPO, "benchmarks"),
+                        listing=_LISTING if port else "",
+                        listed="print(json.dumps([list(k) + [v] for k, v in LISTED.items()]))"
+                        if port else "")
 
 
 def _port(args, timeout: int = 600) -> subprocess.CompletedProcess:
@@ -141,9 +196,13 @@ def records():
                      .splitlines()[-1])
     proc = _port(["-c", _code("repro_torch")])
     assert proc.returncode == 0, proc.stderr[-4000:]
-    port = json.loads(proc.stdout.splitlines()[-1])
+    lines = proc.stdout.splitlines()
+    port = json.loads(lines[-1])
+    products = defaultdict(list)  # (arch, shape) -> [(pass, function, line, shape, k, flops)]
+    for cell, *site, shape, k, flops in json.loads(lines[-2]):
+        products[tuple(cell.split())].append((*site, tuple(shape), k, flops))
     keys = list(CELLS) + [TRAIN]
-    return ({k: r for k, r in zip(keys, ref)}, {k: r for k, r in zip(keys, port)})
+    return ({k: r for k, r in zip(keys, ref)}, {k: r for k, r in zip(keys, port)}, products)
 
 
 def _same_outputs_and_collectives(ref, port, cell):
@@ -179,6 +238,56 @@ def test_training_cell_traces(records):
     # count, and the packed batch; its outputs the same trees and the stats
     assert port["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
     _same_outputs_and_collectives(ref, port, TRAIN)
+
+
+def _at(products, cell, pass_, function, code):
+    """(output shape, contraction, FLOPs) of each product of `cell` whose
+    site is `function` at a source line holding `code`; at least one."""
+    got = [(shape, k, flops) for p, f, line, shape, k, flops in products[cell]
+           if p == pass_ and f == function and code in line]
+    assert got, (cell, pass_, function, code, sorted({(p, f, line) for p, f, line, *_
+                                                     in products[cell]}))
+    return got
+
+
+def test_repaired_products_run_on_rank_0s_share(records):
+    """The sites that ROADMAP C.5 repaired, from the port's products listed
+    by site: none runs at its cell's whole d_ff, expert ff, vocabulary or
+    batch on the 16x16 mesh, and each runs rank 0's share of its FLOPs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.specs import SHAPES
+
+    products, tp, dp = records[2], 16, 16
+    qwen, ds = get_smoke_config("qwen3-1.7b"), get_smoke_config("deepseek-moe-16b")
+    # training: both backward products of the MLP's down projection on the ff shard
+    for shape, k, _ in _at(products, TRAIN, "backward", "glu_mlp", "@ wo"):
+        dims = (*shape, k)
+        assert qwen.d_ff not in dims and qwen.d_ff // tp in dims, (shape, k)
+    for name in ("prefill_32k", "decode_32k"):
+        cell = ("deepseek-moe-16b", name)
+        tokens = SHAPES[name]["batch"] * (SHAPES[name]["seq"] if name == "prefill_32k" else 1)
+        # the routed experts' three products on the ff shard of the data axis,
+        # over the capacity segments of the global tokens
+        for code in ("xs @ wg[e]", "xs @ wu[e]", "(a * hu) @ wo[e]"):
+            for shape, k, _ in _at(products, cell, "forward", "_routed_local", code):
+                dims = (*shape, k)
+                assert ds.moe_d_ff not in dims and ds.moe_d_ff // dp in dims, (code, shape, k)
+        # the router on rank 0's rows
+        for shape, k, _ in _at(products, cell, "forward", "route", "@ router"):
+            assert shape == (tokens // dp, ds.moe_experts) and k == ds.d_model, (shape, k)
+    for cell in CELLS:
+        cfg, B = get_smoke_config(cell[0]), SHAPES[cell[1]]["batch"]
+        vocab, D = cfg.vocab_padded, cfg.d_model
+        [(shape, k, flops)] = _at(products, cell, "forward", "lm_head_logits", "h @ w")
+        assert vocab not in (*shape, k) and flops == 2 * (B // dp) * (vocab // tp) * D, \
+            (cell, shape, k)
+        if cell[1] == "decode_32k":  # rank 0's rows, the vocab shard
+            assert shape == (B // dp, vocab // tp) and k == D, (cell, shape, k)
+    # mamba2's in_proj on rank 0's rows of a decode step
+    B = SHAPES["decode_32k"]["batch"]
+    for shape, k, _ in _at(products, ("mamba2-370m", "decode_32k"), "forward",
+                           "ssm_decode_step", '@ p["in_proj"]'):
+        assert shape[0] == B // dp, (shape, k)
 
 
 def test_records_keep_the_references_keys(records):

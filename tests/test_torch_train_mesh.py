@@ -61,9 +61,10 @@ SEED = 1
 SMALL = {"dtype": "float32", "n_layers": 2}  # the smoke configs cut from 3 layers to 2
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.01)  # test_system.py's
 # (name, strategy): head-parallel and ZeRO attention, the sequence-parallel
-# arm (n_kv 1), EP through _routed_local (tp) and _routed_2d (fsdp_ep)
+# arm (n_kv 1), EP through _routed_local (tp) and _routed_2d (fsdp_ep), and
+# 5 experts without EP (`moe._routed_global`, the ff on the data axis)
 GRAD_CASES = [("qwen3", "tp"), ("qwen3", "fsdp"), ("qwen3_kv1", "tp"), ("deepseek", "tp"),
-              ("deepseek", "fsdp_ep")]
+              ("deepseek", "fsdp_ep"), ("deepseek_e5", "tp")]
 # where the reference's mesh step agrees with its own one-device step
 STEP_CASES = [("qwen3", "tp"), ("qwen3", "fsdp"), ("qwen3_kv1", "tp"), ("deepseek", "fsdp_ep")]
 TRAIN_STEPS, RESUME_AT = 3, 1
@@ -175,6 +176,7 @@ def _inputs(d):
     inp = {"qwen3": draw(("qwen3-1.7b", SMALL)),
            "qwen3_kv1": draw(("qwen3-1.7b", dict(SMALL, n_kv=1))),
            "deepseek": draw(("deepseek-moe-16b", SMALL)),
+           "deepseek_e5": draw(("deepseek-moe-16b", dict(SMALL, moe_experts=5))),
            "tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
            # 5 rows a rank: the intra dim's reduce-scatter pads to 6
            "hier": rng.integers(-50, 50, (RANKS * 5, 6)).astype(np.float32),
@@ -322,7 +324,7 @@ def _cases(d):
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardingCtx, shard_params
-    from repro_torch.models import model
+    from repro_torch.models import layers, model
     from repro_torch.models.model import param_dims, params_from_reference
     from repro_torch.train import loop
     from repro_torch.train.checkpoint import CheckpointManager, _flatten
@@ -345,7 +347,10 @@ def _cases(d):
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     batch = {"tokens": torch.from_numpy(inp["tokens"])}
 
-    # gradients: _grads + shard_grads under the mesh, gathered
+    # gradients: _grads + shard_grads under the mesh, gathered; the
+    # placements of each gradient that leaves a GLU MLP's output constraint
+    # for its down projection, partial or not on each mesh dim
+    constrain_cotangent = layers.constrain_cotangent
     for name, strategy in GRAD_CASES:
         spec, params_np = inp[name]
         cfg = config(spec)
@@ -353,11 +358,23 @@ def _cases(d):
         params = shard_params(params_from_reference(params_np, device="cpu"), cfg, ctx)
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        loss, _ = model.forward_train(params, batch, cfg, ctx)
-        grads = loop.shard_grads(loop._grads(params, loss), cfg, ctx)
+        cotangents = []
+
+        def spy(x):
+            if x.requires_grad:
+                x.register_hook(lambda g: cotangents.append([q.is_partial() for q in g.placements]))
+            return constrain_cotangent(x)
+
+        layers.constrain_cotangent = spy
+        try:
+            loss, _ = model.forward_train(params, batch, cfg, ctx)
+            grads = loop.shard_grads(loop._grads(params, loss), cfg, ctx)
+        finally:
+            layers.constrain_cotangent = constrain_cotangent
         out["grads", name, strategy] = (float(loss.full_tensor()), _tree_np(grads),
                                         _placements(grads, param_dims(cfg), ctx),
                                         str(loss.placements))
+        out["mlp cotangents", name, strategy] = cotangents
 
     # steps: the mesh step against the no-mesh step, from the same parameters
     for name, strategy in STEP_CASES + [("qwen3 mb2", "tp"), ("qwen3 adafactor", "tp")]:
@@ -611,6 +628,29 @@ def test_gradients_match_the_reference_under_the_same_mesh(mesh_results, name, s
     assert len(got_l) == len(want_l)
     worst = max(_rel(g, w) for g, w in zip(got_l, want_l))
     assert worst <= GRAD_REL, worst
+
+
+@pytest.mark.parametrize("name", ["qwen3", "deepseek"])
+def test_mlp_cotangent_reaches_wo_reduced_on_the_model_axis(mesh_results, name):
+    """Under tp the gradient that reaches a GLU MLP's down projection (the
+    dense MLPs, and deepseek's shared experts) is reduced on the model axis
+    at the MLP's output (`sharding.constrain_cotangent`, as the transpose
+    of the reference's constraint), never `Partial` there, so wo's products
+    run on the rank's ff shard; the gradients of wo and wg equal the
+    reference's under the same mesh."""
+    ranks, ref, _ = mesh_results
+    model_dim = 1  # the (data, model) mesh
+    cotangents = _same_on_every_rank(ranks, ("mlp cotangents", name, "tp"))
+    assert cotangents and not any(partial[model_dim] for partial in cotangents), cotangents
+    _, grads, _, _ = ranks[0]["grads", name, "tp"]
+    _, want, _ = ref["grads", name, "tp"]
+    checked = 0
+    for got_seg, want_seg in zip(grads["segments"], want["segments"]):
+        for key in ("wo2", "wg", "shared_wo", "shared_wg"):
+            if key in want_seg:
+                assert _rel(got_seg[key], want_seg[key]) <= GRAD_REL, key
+                checked += 1
+    assert checked >= 2
 
 
 @pytest.mark.parametrize("name,strategy", STEP_CASES)
