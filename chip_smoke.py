@@ -239,7 +239,7 @@ E. the enc-dec and VLM families at full width, one model at a time, each
    compounds past 2^-5 from 16 layers on, printed beside it); prefill
    ms per request, whisper's encoder ms alone, decode ms per tick, tokens/s,
    peak device memory and one decode tick's idle share from torch.profiler;
-   (c) at float32, TF32 off, whisper uncut and llava at 2 layers: a
+   (c) at float32, TF32 off, whisper uncut and llava at 1 layer: a
    256-token prefill (whisper over 1,500 random frames) and 8 decode steps
    on the card against the CPU, the logits within 1e-3; (d) one training
    step on the card against the CPU at (c)'s configs (whisper B 2 x 448
@@ -289,13 +289,16 @@ D. serving under a device mesh: NCCL initialized at world size 1 on a
 R. the multi-pod dry run: `python -m repro_torch.launch.dryrun`, a cell a
    subprocess (its `fake` process group is global to its process), all
    started together: qwen3-1.7b x decode_32k and x train_4k on the 16x16 mesh, and
-   x long_500k, which a full-attention arch skips: each record's status,
-   per-device FLOPs, collective bytes, argument bytes and trace seconds,
-   with the card's name and power limit (a dry run computes nothing on the
-   card, so the phase prints no card time); train_4k's per-device FLOPs
-   at most 1.02x the reference's count (ROADMAP C.5); a nonzero exit, a
-   failed cell, a cell of another status or over its bound stops the
-   script;
+   x long_500k, which a full-attention arch skips; mamba2-370m x decode_32k
+   (its SSD mixer on each model rank's 2 of 32 heads) and deepseek-moe-16b
+   x decode_32k (its caches read in the layout they are placed in): each
+   record's status, per-device FLOPs, collective bytes, argument bytes and
+   trace seconds, with the card's name and power limit (a dry run computes
+   nothing on the card, so the phase prints no card time); qwen3's train_4k
+   and mamba2's decode at most 1.02x the reference's per-device FLOPs
+   (ROADMAP C.5), deepseek's decode at most 6.214e9 all-gather bytes a
+   device (C.6); a nonzero exit, a failed cell, a cell of another status or
+   over its bound stops the script;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
    phases 9, T, M, E and D, must be > 0; phase D's as `launches_dist`);
@@ -2813,7 +2816,9 @@ EV_CHECK_AT = {"whisper-base": 448, "llava-next-34b": FAMILY_PROMPTS[0]}  # (b) 
 # would move the logits by their own size in either dtype
 EV_DECODE_F32 = {"llava-next-34b": 16}
 EV_GAP_DEPTHS = (1, 2, 4, 8, 16, 24)
-# (c) and (d): whisper uncut, llava at CHECK_LAYERS; (d) B x S tokens
+# (c) and (d): whisper uncut, llava at one layer of full width (at two, its
+# float32 training step on the host took most of the phase); (d) B x S tokens
+EV_CHECK_LAYERS = {"llava-next-34b": 1}
 EV_STEP_BATCH = {"whisper-base": (2, 448), "llava-next-34b": (1, 128)}
 # (e): whisper-base trained in bf16 on one fixed batch of B x S tokens
 EV_TRAIN_B, EV_TRAIN_S, EV_TRAIN_STEPS = 8, 448, 4
@@ -2979,10 +2984,9 @@ def ev_decode_f32(arch: str, seed: int, seq: torch.Tensor, device) -> None:
 def ev_against_cpu(arch: str, seed: int, rng, device):
     """(c) a 256-token prefill and 8 decode steps, then (d) one training
     step, on the card against the CPU at float32 (TF32 off): whisper uncut,
-    llava at CHECK_LAYERS layers."""
+    llava at EV_CHECK_LAYERS."""
     t0 = time.perf_counter()
-    cfg2 = dataclasses.replace(ev_config(arch, None if arch == "whisper-base" else CHECK_LAYERS),
-                               dtype="float32")
+    cfg2 = dataclasses.replace(ev_config(arch, EV_CHECK_LAYERS.get(arch)), dtype="float32")
     card = model.init_params(cfg2, seed, device=device)
     host = tree_map(lambda p: p.to("cpu", copy=True), card)
     seq = rng.integers(0, cfg2.vocab, (1, CHECK_LEN + CHECK_STEPS)).astype(np.int32)
@@ -3708,24 +3712,38 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
 # phase R: the multi-pod dry run
 # ---------------------------------------------------------------------------
 
-# (arch, shape, the status the cell must come back with)
+# (arch, shape, the status the cell must come back with).  mamba2-370m x
+# train_4k is left out: its trace (48 layers of 16 SSD chunks, forward and
+# backward) takes longer than the phase's budget of 60 s (PERF.md section 6)
+SSM_ARCH, MOE_ARCH = FAMILY_ARCHS[0], FAMILY_ARCHS[2]
 DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "ok"), (LM_ARCH, "train_4k", "ok"),
-                (LM_ARCH, "long_500k", "skipped"))
+                (LM_ARCH, "long_500k", "skipped"), (SSM_ARCH, "decode_32k", "ok"),
+                (MOE_ARCH, "decode_32k", "ok"))
 DRYRUN_TIMEOUT_S = 300
-# the reference's per-device FLOPs of qwen3-1.7b x train_4k on the 16x16 mesh:
-# the JAX package's dry run (`repro.launch.dryrun`, trip-aware HLO count) at
-# 512 host devices, as PERF.md section 6 records it
+# the reference's per-device FLOPs on the 16x16 mesh: the JAX package's dry
+# run (`repro.launch.dryrun`, trip-aware HLO count) at 512 host devices, as
+# PERF.md section 6 records them: qwen3-1.7b x train_4k, and mamba2-370m x
+# decode_32k (jax 0.9 on the CPU)
 TRAIN_4K_REFERENCE_FLOPS = 1.0105e14
+SSM_DECODE_REFERENCE_FLOPS = 3.81599744e8
 # (arch, shape) -> (the reference's per-device FLOPs, the most the port may
-# count over it): each product on rank 0's share (ROADMAP C.5)
-DRYRUN_BOUNDS = {(LM_ARCH, "train_4k"): (TRAIN_4K_REFERENCE_FLOPS, 1.02)}
+# count over it): each product on rank 0's share (ROADMAP C.5; mamba2's SSD
+# mixer on the rank's 2 of 32 heads, the conv over B and C whole)
+DRYRUN_BOUNDS = {(LM_ARCH, "train_4k"): (TRAIN_4K_REFERENCE_FLOPS, 1.02),
+                 (SSM_ARCH, "decode_32k"): (SSM_DECODE_REFERENCE_FLOPS, 1.02)}
+# (arch, shape) -> the most all-gather bytes a device: deepseek-moe-16b's
+# decode reads its caches in the layout they are placed in (ROADMAP C.6),
+# 10x below the 6.214e10 that resharding them every step moved (PERF.md)
+DRYRUN_GATHERS = {(MOE_ARCH, "decode_32k"): 6.214e10 / 10}
 
 
-def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS, bounds=DRYRUN_BOUNDS) -> list:
+def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS, bounds=DRYRUN_BOUNDS,
+                 gathers=DRYRUN_GATHERS) -> list:
     """Phase R: each cell through the dry run's command line, in a
     subprocess of its own, all started together (each traces on one host
     core); a cell of `bounds` must count at most its factor times the
-    reference's per-device FLOPs.  Returns the records."""
+    reference's per-device FLOPs, and one of `gathers` at most its
+    all-gather bytes.  Returns the records."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     procs = []
@@ -3768,6 +3786,13 @@ def dryrun_phase(tmpdir: str, cells=DRYRUN_CELLS, bounds=DRYRUN_BOUNDS) -> list:
                 raise AssertionError(f"dry run {arch} x {shape}: {rec['flops']:.4e} FLOPs a "
                                      f"device, {ratio:.4f}x the reference's {ref:.4e}, over "
                                      f"{most}x")
+        if (arch, shape) in gathers:
+            got, most = rec["collectives"].get("all-gather", 0.0), gathers[arch, shape]
+            log(f"      {arch} x {shape}: {got:.4e} all-gather bytes a device (at most "
+                f"{most:.4e})")
+            if got > most:
+                raise AssertionError(f"dry run {arch} x {shape}: {got:.4e} all-gather bytes a "
+                                     f"device, over {most:.4e}")
         records.append(rec)
     log(f"      {len(cells)} subprocesses, started together, in {seconds:.1f} s")
     return records
@@ -3984,8 +4009,8 @@ def main(argv=None) -> int:
 
     # phase R
     t0 = time.perf_counter()
-    log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH} on the 16x16 "
-        "mesh over a fake process group, nothing computed")
+    log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH}, {SSM_ARCH} and "
+        f"{MOE_ARCH} on the 16x16 mesh over a fake process group, nothing computed")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
         dryrun_phase(d)
     log(f"      phase R took {time.perf_counter() - t0:.1f} s; the script so far "

@@ -283,9 +283,11 @@ def constrain_cotangent(x: torch.Tensor) -> torch.Tensor:
     the value.  DTensor's own redistribution passes a `Partial` gradient
     back unreduced wherever its forward input was `Partial`.
 
-    The constraint that takes it is the one at a GLU MLP's output
-    (`layers.glu_mlp`: the dense MLP and the MoE's shared experts).  Its
-    forward reduces the down projection's partial sums over the ff shards;
+    The constraints that take it are those at a GLU MLP's output
+    (`layers.glu_mlp`: the dense MLP and the MoE's shared experts) and at
+    the SSD mixer's (`ssm.ssm_forward`, whose out_proj sums the model
+    ranks' own heads).  Its forward reduces the down projection's partial
+    sums over the ff shards;
     in training the gradient reaching it is `Partial` on the model axis.
     The head's backward starts that partial sum (dh = dlogits w^T, a
     contraction over the vocab shards), the products at each layer's
@@ -332,13 +334,15 @@ def shard_params(params, cfg, ctx: ShardingCtx):
     return walk(params, param_dims(cfg))
 
 
-def local_grad(t: DTensor, x: DTensor) -> torch.Tensor:
+def local_grad(t: DTensor, x: DTensor, also: Sequence[int] = ()) -> torch.Tensor:
     """t's local tensor, for a body that runs on x's local shards.  Its
     gradient is declared `Partial` on each mesh dim where t is replicated
     but x is sharded (each rank's own tokens add their share to the
-    gradient), and as t's own placements on the others."""
-    grad = [Partial() if isinstance(p, Replicate) and q.is_shard() else p
-            for p, q in zip(t.placements, x.placements)]
+    gradient) or that `also` names (each rank reads t for its own share of
+    the work there, as the SSD mixer's heads), and as t's own placements on
+    the others."""
+    grad = [Partial() if isinstance(p, Replicate) and (q.is_shard() or m in also) else p
+            for m, (p, q) in enumerate(zip(t.placements, x.placements))]
     return t.to_local(grad_placements=grad)
 
 

@@ -20,7 +20,9 @@ mesh a stand-in is a DTensor with `sharding.sharding_for`'s placements, its
 local tensor rank's fake shard (the reference's `ShapeDtypeStruct` with a
 `NamedSharding`); without a mesh it is a plain fake tensor.
 `cache_specs_from_eval` runs the port's `prefill` on stand-ins to infer the
-decode caches' shapes, the counterpart of `jax.eval_shape`.
+decode caches' shapes, the counterpart of `jax.eval_shape`, and keeps the
+layout that the prefill hands the decode step, where the reference places
+them by a heuristic (`cache_sharding_dims`).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatc
 from repro_torch.distributed.sharding import ShardingCtx, sharding_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import packed_token_shape, param_shapes
-from repro_torch.train.optimizer import tree_map
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -187,8 +188,11 @@ def batch_specs(cfg: ModelConfig, shape_name: str, ctx: ShardingCtx,
 
 
 def cache_sharding_dims(shape: Tuple[int, ...], ctx: ShardingCtx):
-    """Heuristic logical dims for cache leaves (L, B, ...): batch on dp,
-    largest remaining tp-divisible axis on model."""
+    """The reference's heuristic logical dims for cache leaves (L, B, ...):
+    batch on dp, largest remaining tp-divisible axis on model.  The dry run
+    no longer places its caches by it (`cache_specs_from_eval` keeps the
+    decode step's layout); it stays for the comparison with the reference's
+    specs (tests/test_torch_specs.py)."""
     dims: list = [None] * len(shape)
     if len(shape) >= 2:
         dims[1] = "batch"
@@ -204,10 +208,18 @@ def cache_sharding_dims(shape: Tuple[int, ...], ctx: ShardingCtx):
 
 
 def cache_specs_from_eval(cfg: ModelConfig, shape_name: str, ctx: ShardingCtx):
-    """The decode caches' stand-ins: shapes and dtypes from the port's
-    `prefill` run on stand-ins (nothing is computed or allocated), each
-    leaf then placed by `cache_sharding_dims`.  The tree is `prefill`'s: a
-    list of one dict a segment (`{}` for an enc-dec model's encoder).
+    """The decode caches' stand-ins: the caches of the port's `prefill` run
+    on stand-ins (nothing is computed or allocated), each leaf in the
+    shape, dtype and placements that the prefill gives it, which are the
+    decode step's
+    layout as the serving engine keeps it: keys and values (rings, `ck` and
+    `cv` too) by `layers.attn_dims(H, KV, 1)` (`transformer._cache`, with
+    its fallback to the batch where that layout names `model` twice), the
+    SSM's state by its rows and, where the model axis divides the heads,
+    its heads, the conv state by its rows (`ssm._on_rows`).  The reference
+    places them by `cache_sharding_dims` instead, and a head-parallel step
+    then reshards them every token (ROADMAP C.6).  The tree is `prefill`'s:
+    a list of one dict a segment (`{}` for an enc-dec model's encoder).
 
     The prompt is `EVAL_PROMPT` tokens (S if shorter) into caches of
     `cache_len=S` slots: no cache leaf's shape depends on the prompt's
@@ -228,9 +240,4 @@ def cache_specs_from_eval(cfg: ModelConfig, shape_name: str, ctx: ShardingCtx):
         pspecs = param_specs(cfg, ctx)
         with torch.no_grad():
             _, caches = prefill(pspecs, batch, cfg, ctx, cache_len=S)
-
-    def attach(leaf):
-        dims = cache_sharding_dims(tuple(leaf.shape), ctx)
-        return stand_in(tuple(leaf.shape), leaf.dtype, dims, ctx)
-
-    return tree_map(attach, caches)
+    return caches

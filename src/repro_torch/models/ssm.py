@@ -17,12 +17,25 @@ after 56 steps of a 256-step chunk), and inf * 0 is NaN.
 
 Under a mesh the reference constrains `in_proj`'s output on `inner` and
 lets GSPMD carry the rest.  Here the mixer (the cut into z, x, B, C and dt,
-the conv, the scan and the gated norm) is the body of a `shard_map`: its
-input is gathered whole on its last dim, since the cut's offsets straddle
-the `inner` shards, and each rank runs the body on its own batch rows with
-every head, the replicated leaves read through `sharding.local_grad`.  A
-decode step runs it on the rows of the caches' shards that the engine
-placed.
+the conv, the scan and the gated norm) is the body of a `shard_map` over
+each rank's batch rows: its input is gathered whole on its last dim first
+(`sharding.gather_dim`; the cut's offsets straddle the `inner` shards), the
+replicated leaves read through `sharding.local_grad`.  Under the `tp`
+strategy, where the model axis has more than one rank and divides the
+heads, model rank r then takes its own block of heads out of the gathered
+projection (`_Share`): its channels of z and x, its heads of dt, and B and
+C whole, the leaves sliced alike.  It runs the conv on its x channels plus
+B and C, the scan and the state update on its heads alone, and the gated
+norm over the whole d_inner with its sum of squares all-reduced over the
+model axis; `y @ out_proj`'s local rows (stored ("inner", "d")) are its
+partial sum, reduced by the output's constraint as the reference's is.  The
+SSM state is placed by its rows and its heads on the model axis; the conv
+state, a shift of the whole [conv state, conv input], by its rows alone.
+Elsewhere (`fsdp`, whose rows already spread over the model axis; a model
+axis of one rank; heads that the model axis does not divide, as hymba's 25
+at 16) every model rank of a row runs every head, and both states are placed
+by their rows.  A decode step runs the body on the rows of the caches'
+shards that the engine placed.
 
 Layer params:
   in_proj (D, 2*di + 2*N + H)   -> [z, x, B, C, dt]
@@ -34,17 +47,20 @@ Layer params:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.collectives import all_reduce_sum, copy_to
 from repro_torch.distributed.sharding import (
     ShardingCtx,
     as_dtensor,
     constrain,
+    constrain_cotangent,
     from_local,
     gather_dim,
     local_grad,
@@ -65,20 +81,25 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     return torch.split(proj, [di, di, N, N, H], dim=-1)
 
 
+def _history(x: torch.Tensor, state: Optional[torch.Tensor], W: int) -> torch.Tensor:
+    """[state, x] along the sequence: the conv's input with its W-1 steps of
+    history (zeros without a state)."""
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    return torch.cat([state, x], dim=1)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None):
     """x (B,S,C), w (W,C) depthwise causal; state (B,W-1,C) carries history.
     Returns (y, new_state); y accumulates in x's dtype, tap by tap."""
     W = w.shape[0]
-    if state is None:
-        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    xp = torch.cat([state, x], dim=1)
+    xp = _history(x, state, W)
     y = torch.zeros_like(x)
     S = x.shape[1]
     for i in range(W):  # static tiny loop (W=4)
         y = y + xp[:, i:i + S, :] * w[i][None, None, :]
-    new_state = xp[:, -(W - 1):, :] if W > 1 else state
-    return y + b[None, None, :], new_state
+    return y + b[None, None, :], xp[:, xp.shape[1] - (W - 1):, :]
 
 
 def ssd_scan(
@@ -136,21 +157,85 @@ def ssd_scan(
 _LEAVES = ("conv_w", "conv_b", "A_log", "D_skip", "dt_bias", "norm_y")  # replicated
 
 
-def _mixer(proj, p, cfg: ModelConfig, dtype, conv_state=None, ssm_state=None):
+@dataclasses.dataclass(frozen=True)
+class _Share:
+    """A model rank's own block of the SSM heads: block `r` of `n` along
+    the model axis (mesh dim `m`, whose ranks form `group`).  Head block r
+    is channel block r of d_inner (`di`), so one cut serves both."""
+
+    r: int
+    n: int
+    m: int
+    group: Any
+    di: int
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """Block r of t's last dim (its heads, or its channels)."""
+        w = t.shape[-1] // self.n
+        return t[..., self.r * w:(self.r + 1) * w]
+
+    def conv(self, t: torch.Tensor) -> torch.Tensor:
+        """The conv's channels [x, B, C] cut to the rank's x channels, B and
+        C whole."""
+        return torch.cat([self.own(t[..., :self.di]), t[..., self.di:]], dim=-1)
+
+    def leaves(self, p: dict) -> dict:
+        return {k: self.conv(v) if k.startswith("conv") else self.own(v) for k, v in p.items()}
+
+
+def _share(cfg: ModelConfig, ctx: ShardingCtx) -> Optional[_Share]:
+    """This rank's block of heads under the `tp` strategy, where the model
+    axis has more than one rank and divides the heads; else None, the
+    whole-heads arm."""
+    n = ctx.tp
+    if ctx.strategy != "tp" or n == 1 or cfg.ssm_heads % n:
+        return None
+    mesh = ctx.mesh
+    return _Share(r=mesh.get_local_rank(ctx.tp_axis), n=n,
+                  m=list(mesh.mesh_dim_names).index(ctx.tp_axis),
+                  group=mesh.get_group(ctx.tp_axis), di=cfg.d_inner)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float,
+                share: Optional[_Share] = None) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) over d_inner.  With a share, y and z are the
+    rank's channels: the mean takes every rank's float32 sum of squares,
+    all-reduced over the model axis (a replicated sum that each rank uses
+    for its own channels: `copy_to` adds the ranks' gradients of it)."""
+    if share is None:
+        return rmsnorm(y * F.silu(z), w, eps)
+    dt = y.dtype
+    xf = (y * F.silu(z)).float()
+    ss = copy_to(all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True), share.group),
+                 share.group)
+    return (xf * torch.rsqrt(ss / share.di + eps) * w.float()).to(dt)
+
+
+def _mixer(proj, p, cfg: ModelConfig, dtype, conv_state=None, ssm_state=None,
+           share: Optional[_Share] = None):
     """The SSD mixer on plain tensors: proj (B,S,2di+2N+H) cut into z, x, B,
     C and dt, the causal conv, the chunked scan and the gated norm.  Returns
-    (y (B,S,di) in `dtype`, conv state, float32 SSM state)."""
+    (y (B,S,di) in `dtype`, conv state, float32 SSM state).  With a share,
+    `p`'s leaves are the rank's (`_Share.leaves`) and `ssm_state` its heads:
+    y and the SSM state are the rank's channels and heads, the conv state
+    whole."""
     B, S = proj.shape[:2]
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    Pd = cfg.ssm_head_dim
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     z, xin, Bc, Cc, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
+    if share is None:
+        conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
+    else:  # the conv on the rank's x channels, B and C; its history whole
+        xp = _history(conv_in, conv_state, cfg.conv_width)
+        new_conv = xp[:, xp.shape[1] - (cfg.conv_width - 1):]
+        conv_out, _ = _causal_conv(share.conv(conv_in), p["conv_w"], p["conv_b"],
+                                   None if conv_state is None else share.conv(conv_state))
+        z, dt = share.own(z), share.own(dt)
     conv_out = F.silu(conv_out)
-    xin, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
+    xin, Bc, Cc = torch.split(conv_out, [conv_out.shape[-1] - 2 * N, N, N], dim=-1)
     dtp = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    xh = xin.reshape(B, S, H, Pd)
+    xh = xin.reshape(B, S, -1, Pd)
     # ragged tail: pad to a chunk multiple with dt=0 steps (decay=exp(0)=1,
     # update=dt*x=0 -> exactly zero-effect on state and outputs)
     Q = min(cfg.ssm_chunk, S)
@@ -165,36 +250,37 @@ def _mixer(proj, p, cfg: ModelConfig, dtype, conv_state=None, ssm_state=None):
         y = y[:, :S]
         xh = xh[:, :S]
     y = y + xh.float() * p["D_skip"].float()[None, None, :, None]
-    y = y.reshape(B, S, di).to(dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_y"], cfg.norm_eps)
-    return y, new_conv, state.float()
+    y = y.reshape(B, S, -1).to(dtype)
+    return _gated_norm(y, z, p["norm_y"], cfg.norm_eps, share), new_conv, state.float()
 
 
-def _decode_mixer(proj, p, cfg: ModelConfig, dtype, conv_state, ssm_state):
+def _decode_mixer(proj, p, cfg: ModelConfig, dtype, conv_state, ssm_state,
+                  share: Optional[_Share] = None):
     """One recurrent step of the mixer on plain tensors: proj (B,1,...),
     conv_state (B,W-1,di+2N), ssm_state (B,H,P,N) float32.  Returns (y
-    (B,1,di) in `dtype`, conv state, SSM state), the states new tensors."""
+    (B,1,di) in `dtype`, conv state, SSM state), the states new tensors;
+    with a share as `_mixer`'s."""
     B = proj.shape[0]
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    Pd = cfg.ssm_head_dim
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     z, xin, Bc, Cc, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)  # (B,1,C)
     xp = torch.cat([conv_state, conv_in], dim=1)  # (B,W,C)
+    new_conv = xp[:, 1:, :]
+    if share is not None:  # the rank's x channels, B and C; its heads
+        xp, z, dt = share.conv(xp), share.own(z), share.own(dt)
     y = torch.einsum("bwc,wc->bc", xp.float(), p["conv_w"].float())
     y = F.silu(y + p["conv_b"].float())[:, None, :].to(dtype)
-    new_conv = xp[:, 1:, :]
-    xin, Bc, Cc = torch.split(y, [di, N, N], dim=-1)
+    xin, Bc, Cc = torch.split(y, [y.shape[-1] - 2 * N, N, N], dim=-1)
     dtp = _softplus(dt.float() + p["dt_bias"].float())  # (B,1,H)
     A = -torch.exp(p["A_log"].float())
     a = torch.exp(A[None, :] * dtp[:, 0])  # (B,H)
-    xh = xin.reshape(B, H, Pd).float() * dtp[:, 0, :, None]
+    xh = xin.reshape(B, -1, Pd).float() * dtp[:, 0, :, None]
     upd = torch.einsum("bn,bhp->bhpn", Bc[:, 0].float(), xh)
     state = ssm_state * a[:, :, None, None] + upd
     yh = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
-    yh = yh + xin.reshape(B, H, Pd).float() * p["D_skip"].float()[None, :, None]
-    yf = yh.reshape(B, 1, di).to(dtype)
-    yf = rmsnorm(yf * F.silu(z), p["norm_y"], cfg.norm_eps)
-    return yf, new_conv, state
+    yh = yh + xin.reshape(B, -1, Pd).float() * p["D_skip"].float()[None, :, None]
+    yf = yh.reshape(B, 1, -1).to(dtype)
+    return _gated_norm(yf, z, p["norm_y"], cfg.norm_eps, share), new_conv, state
 
 
 def _rows(proj: torch.Tensor, like_rows: Optional[torch.Tensor] = None) -> DTensor:
@@ -211,22 +297,51 @@ def _rows(proj: torch.Tensor, like_rows: Optional[torch.Tensor] = None) -> DTens
     return proj if list(proj.placements) == place else proj.redistribute(mesh, place)
 
 
-def _placed_as_rows(state: torch.Tensor, rows: DTensor) -> DTensor:
-    """A state placed as `rows` are: its batch rows sharded alike, every
-    other dim whole (a cache sharded on another dim too, as the dry run's
-    specs place one, is gathered there first)."""
-    state = as_dtensor(state, rows.device_mesh)
-    place = tuple(rows.placements)
-    return state if tuple(state.placements) == place else state.redistribute(
-        rows.device_mesh, place)
+def _placements(rows: Sequence, share: Optional[_Share], dim: int) -> tuple:
+    """`rows` (the body's rows' placements), and with a share of the heads
+    tensor dim `dim` (heads, or channels) sharded over the model axis too:
+    the layout of the body's y (dim 2) and of the SSM state (dim 1), a
+    prefill's and a decode step's alike."""
+    place = list(rows)
+    if share is not None:
+        place[share.m] = Shard(dim)
+    return tuple(place)
 
 
-def _body_leaves(p: dict, rows: DTensor) -> dict:
-    """The replicated leaves as a body over `rows`' local shards reads them,
-    their gradients `Partial` on the mesh dims that shard the rows
-    (`sharding.local_grad`)."""
-    mesh = rows.device_mesh
-    return {k: local_grad(to_spec(p[k], (None,) * p[k].ndim, mesh), rows) for k in _LEAVES}
+def _placed(t: torch.Tensor, mesh, place) -> torch.Tensor:
+    """t's local tensor in `place` (a state that another layout placed, as
+    a cache restored elsewhere, is redistributed first)."""
+    t = as_dtensor(t, mesh)
+    if tuple(t.placements) != tuple(place):
+        t = t.redistribute(mesh, place)
+    return t.to_local()
+
+
+def _on_rows(mixer, proj, p: dict, cfg: ModelConfig, ctx: ShardingCtx, dtype,
+             conv_state, ssm_state):
+    """`mixer` as the body of a `shard_map` over proj's rows (placed as
+    `conv_state`'s where there is one): the rows and the replicated leaves
+    read for the rank's own share, their gradients `Partial` on the mesh
+    dims that shard the rows (`sharding.local_grad`) and, with a share of
+    the heads, on the model axis.  Returns (y, conv state, SSM state) as
+    DTensors."""
+    mesh = ctx.mesh
+    rows = _rows(proj, conv_state)
+    share = _share(cfg, ctx)
+    also = () if share is None else (share.m,)
+    leaves = {k: local_grad(to_spec(p[k], (None,) * p[k].ndim, mesh), rows, also)
+              for k in _LEAVES}
+    if share is not None:
+        leaves = share.leaves(leaves)
+    y_place, s_place = (_placements(rows.placements, share, d) for d in (2, 1))
+    y, new_conv, state = mixer(
+        local_grad(rows, rows, also), leaves, cfg, dtype,
+        None if conv_state is None else _placed(conv_state, mesh, rows.placements),
+        None if ssm_state is None else _placed(ssm_state, mesh, s_place), share=share)
+    B = proj.shape[0]
+    return (from_local(y, mesh, y_place, (B, y.shape[1], cfg.d_inner)),
+            from_local(new_conv, mesh, rows.placements, (B, *new_conv.shape[1:])),
+            from_local(state, mesh, s_place, (B, cfg.ssm_heads, *state.shape[2:])))
 
 
 def ssm_forward(
@@ -239,21 +354,17 @@ def ssm_forward(
     return_state: bool = False,
 ):
     """Full-sequence SSM branch (train / prefill).  Under a mesh the mixer
-    is the body of a `shard_map`: each rank runs it on its own batch rows,
-    with every head (the model ranks of a row repeat it)."""
+    is the body of a `shard_map` over each rank's batch rows, on the rank's
+    own heads where the model axis divides them (module docstring)."""
     proj = constrain(h @ p["in_proj"], ("batch", None, "inner"), ctx)
     if not ctx.enabled:
         y, new_conv, state = _mixer(proj, p, cfg, h.dtype, conv_state, ssm_state)
     else:
-        rows = _rows(proj, conv_state)
-        states = [None if t is None else as_dtensor(t, ctx.mesh).to_local()
-                  for t in (conv_state, ssm_state)]
-        y, new_conv, state = _mixer(rows.to_local(), _body_leaves(p, rows), cfg, h.dtype,
-                                    *states)
-        y, new_conv, state = (from_local(t, ctx.mesh, rows.placements, (proj.shape[0],
-                                                                       *t.shape[1:]))
-                              for t in (y, new_conv, state))
-    out = constrain(y @ p["out_proj"], ("batch", None, None), ctx)
+        y, new_conv, state = _on_rows(_mixer, proj, p, cfg, ctx, h.dtype, conv_state, ssm_state)
+    # with a share of the heads, y's channels times out_proj's local rows:
+    # a partial sum over the model axis, reduced here, and its gradient too,
+    # so that out_proj's backward products run on the rank's channels
+    out = constrain_cotangent(constrain(y @ p["out_proj"], ("batch", None, None), ctx))
     if return_state:
         return out, (new_conv, state)
     return out
@@ -269,19 +380,14 @@ def ssm_decode_step(
 ):
     """O(1) recurrent step.  Returns (out (B,1,D), (conv_state, ssm_state)),
     both states new tensors.  Under a mesh each rank steps its own slots:
-    the rows that its shards of the caches hold."""
+    the rows that its shards of the caches hold (and, where the model axis
+    divides the heads, its own heads of them)."""
     proj = h @ p["in_proj"]
     if not ctx.enabled:
         y, new_conv, state = _decode_mixer(proj, p, cfg, h.dtype, conv_state, ssm_state)
-    else:
-        mesh = ctx.mesh
-        rows = _rows(proj, conv_state)  # the engine places both states by their slots
-        y, new_conv, state = _decode_mixer(rows.to_local(), _body_leaves(p, rows), cfg, h.dtype,
-                                           _placed_as_rows(conv_state, rows).to_local(),
-                                           _placed_as_rows(ssm_state, rows).to_local())
-        y, new_conv, state = (from_local(t, mesh, rows.placements, (proj.shape[0],
-                                                                   *t.shape[1:]))
-                              for t in (y, new_conv, state))
+    else:  # the engine places both states by their slots
+        y, new_conv, state = _on_rows(_decode_mixer, proj, p, cfg, ctx, h.dtype, conv_state,
+                                      ssm_state)
     # whole on its rows, as ssm_forward's output and attn_decode's are
     out = constrain(y @ p["out_proj"], ("batch", None, None), ctx)
     return out, (new_conv, state)

@@ -42,6 +42,19 @@ def test_dryrun_phase_holds_a_cell_to_its_bound(tmp_path, capsys):
         chip_smoke.dryrun_phase(str(tmp_path), cell, {(LM, "decode_32k"): (rec["flops"] / 1.03,
                                                                            1.02)})
     assert chip_smoke.DRYRUN_BOUNDS[LM, "train_4k"] == (1.0105e14, 1.02)
+    assert chip_smoke.DRYRUN_BOUNDS["mamba2-370m", "decode_32k"] == (3.81599744e8, 1.02)
+
+
+def test_dryrun_phase_holds_a_cell_to_its_all_gather_bound(tmp_path, capsys):
+    """A cell of `gathers` within its all-gather bytes is logged; one over
+    them stops the phase (deepseek-moe-16b's decode, ROADMAP C.6)."""
+    cell = ((LM, "decode_32k", "ok"),)
+    [rec] = chip_smoke.dryrun_phase(str(tmp_path), cell, {}, {(LM, "decode_32k"): 1e30})
+    assert "all-gather bytes a device (at most 1.0000e+30)" in capsys.readouterr().out
+    assert rec["collectives"]["all-gather"] > 0
+    with pytest.raises(AssertionError, match="all-gather bytes a device, over"):
+        chip_smoke.dryrun_phase(str(tmp_path), cell, {}, {(LM, "decode_32k"): 1.0})
+    assert chip_smoke.DRYRUN_GATHERS == {("deepseek-moe-16b", "decode_32k"): 6.214e9}
 
 
 def test_dryrun_phase_stops_at_a_cell_of_another_status(tmp_path):

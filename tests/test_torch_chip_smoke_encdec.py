@@ -53,7 +53,7 @@ def test_encdec_vlm_phase_rehearsal(encdec_vlm_on_cpu, capsys):
                  "(b) float32 at full width, 1 layers: decode at 48 against the 49-token",
                  "(c) 2 layers, float32, a 32-token prefill over 48 random frames",
                  "(d) 2 layers, float32, one step on 1 x 24 tokens with 48 random frames",
-                 "(d) 2 layers, float32, one step on 1 x 24 tokens after 16 random vision",
+                 "(d) 1 layers, float32, one step on 1 x 24 tokens after 16 random vision",
                  "'enc_final_ln'", "'vis_proj'",
                  "(e) 4 AdamW steps in float32 on one batch of 2 x 32 tokens"):
         assert part in out, part

@@ -1,21 +1,26 @@
 """The port's dry run (`launch/dryrun.py`) against the reference's, on smoke
 configs on the 16x16 mesh.  Each side runs in a subprocess of its own (the
 reference on 512 placeholder host devices, the port as rank 0 of torch's
-`fake` process group), with `get_config` patched to `get_smoke_config`.
+`fake` process group), with `get_config` patched to `get_smoke_config` and
+to two variants of it (`VARIANTS`: mamba2 with 16 SSM heads, deepseek with
+16 heads and 16 KV heads).
 
-Prefill and decode: the same status, `memory.argument_bytes` equal, and
-per-device `flops` within 2% of the reference's trip-aware count, or the
-ratio pinned in `PARTED` with the products that part them (ROADMAP C.5).
-Training: status ok and the FLOPs ratio pinned (`TRAIN_PARTED`).  Every
-cell: `memory.output_bytes` equal but for XLA's output tuple table
-(`OUT_LEAVES`), and the collective bytes by kind pinned on both sides
-(`COLLECTIVES`) with the collectives that part them.  The port's products,
-listed by site in its subprocess (`_LISTING`), show that the sites C.5
-repaired run on rank 0's share."""
+Prefill and decode: the same status, `memory.argument_bytes` equal but where
+the two place the SSM's decode caches differently (`ARG_PARTED`, ROADMAP
+C.6), and per-device `flops` within 2% of the reference's trip-aware count,
+or the ratio pinned in `PARTED` with the products that part them (ROADMAP
+C.5).  Training: status ok and the FLOPs ratio pinned (`TRAIN_PARTED`).
+Every cell: `memory.output_bytes` equal but for XLA's output tuple table
+(`OUT_LEAVES`) and the caches a decode returns, and the collective bytes by
+kind pinned on both sides (`COLLECTIVES`) with the collectives that part
+them.  The port's products, listed by site in its subprocess (`_LISTING`),
+show that the sites C.5 repaired run on rank 0's share, the SSD mixer's on
+its own heads."""
 
 from __future__ import annotations
 
 import tests.torch_threads  # noqa: F401 (one torch thread a test process)
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,32 +31,85 @@ import pytest
 
 from tests.util import REPO, run_with_devices
 
+# variants of the smoke configs, resolved by both sides' patched `get_config`:
+# mamba2 with 16 SSM heads of 8 (d_inner 128 unchanged), which the 16 model
+# ranks divide, and deepseek with its full config's 16 heads and 16 KV heads
+# (the head-parallel attention, whose decode reads its caches in their
+# layout: ROADMAP C.6)
+MAMBA16, DEEPSEEK16 = "mamba2-370m/16-heads", "deepseek-moe-16b/16-heads"
+VARIANTS = {MAMBA16: ("mamba2-370m", dict(ssm_heads=16, ssm_head_dim=8)),
+            DEEPSEEK16: ("deepseek-moe-16b", dict(n_heads=16, n_kv=16))}
 CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
          ("deepseek-moe-16b", "prefill_32k"), ("deepseek-moe-16b", "decode_32k"),
-         ("mamba2-370m", "decode_32k"), ("hymba-1.5b", "decode_32k"))
+         ("mamba2-370m", "decode_32k"), ("hymba-1.5b", "decode_32k"),
+         (MAMBA16, "decode_32k"), (DEEPSEEK16, "decode_32k"))
 TRAIN = ("qwen3-1.7b", "train_4k")
+TRAINS = (TRAIN, (MAMBA16, "train_4k"))
+
+
+def _config(arch: str):
+    """The port's smoke config of `arch`, or of a variant's base."""
+    from repro_torch.configs import get_smoke_config
+
+    base, changes = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(get_smoke_config(base), **changes)
 
 # port flops / reference flops of the cells where the two part by more than
-# 2% (ROADMAP C.5), and the products that part them.  mamba2's decode step
-# runs its SSD mixer (`ssm._decode_mixer`) on each rank's 8 batch rows with
+# 2% (ROADMAP C.5), and the products that part them.  mamba2's 4 SSM heads
+# do not divide the 16 model ranks: the whole-heads arm.  Its decode step
+# runs the SSD mixer (`ssm._decode_mixer`) on each rank's 8 batch rows with
 # every head and channel, on all 16 model ranks alike: the readout (8, 1,
 # 128) @ K 16 and the depthwise conv (160, 8, 1) @ K 4, 129,024 FLOPs over
 # 3 layers where the reference, `inner` sharded over the model axis, counts
-# 8,064.  That layout is the port's (DTensor cannot reshard in_proj's output
-# across the `inner` shards; ROADMAP C); the rest of the cell agrees: the
-# head (8, 64) @ (64, 128), in_proj (8, 64) @ (64, 19) and out_proj.
+# 8,064; the rest of the cell agrees: the head (8, 64) @ (64, 128), in_proj
+# (8, 64) @ (64, 19) and out_proj.  With 16 heads each rank steps its own
+# head (`ssm._Share`), and what remains is the depthwise conv over B and C,
+# 32 of the rank's 40 conv channels, computed whole on every rank: (40, 8,
+# 1) @ K 4, 7,680 FLOPs over 3 layers where the reference's 10 channels a
+# rank count 1,920, the whole of the 5,760 that part the two.
 PARTED = {
     ("mamba2-370m", "decode_32k"): 343040.0 / 222080.0,
+    (MAMBA16, "decode_32k"): 227840.0 / 222080.0,
 }
+PARTED_MOST = {(MAMBA16, "decode_32k"): 1.03}  # from 1.545x with every head on each rank
 
-# the training cell, parted by the backward of each attention's output
-# projection (`transformer._out_proj`): the smoke config's 4 heads do not
-# divide the 16 model ranks, and both of its products run at the whole
+# the training cells.  qwen3's is parted by the backward of each attention's
+# output projection (`transformer._out_proj`): the smoke config's 4 heads do
+# not divide the 16 model ranks, and both of its products run at the whole
 # H x hd of 64, (65536, 64) @ K 64 and (64, 64) @ K 65536, 2 x 1.611e9 over
 # 3 layers; the reference runs its own q and o products whole in places
 # (ROADMAP C.5).  The MLP's down projection runs its backward on the rank's
-# ff shard of 8 (`test_repaired_products_run_on_rank_0s_share`).
-TRAIN_PARTED = 47612952576.0 / 46103003136.0
+# ff shard of 8 (`test_repaired_products_run_on_rank_0s_share`).  mamba2's
+# 16 heads scan one a rank (`test_ssd_products_run_on_the_ranks_heads`); the
+# C . B product of each chunk (`ssd_scan`'s cb, (16, 32, 32) @ K 16) has no
+# head dim and runs whole on every rank, 6.040e8 FLOPs over 3 layers forward
+# and backward: at 1/16 of that the two would agree within 0.09%.  out_proj's
+# backward runs on the rank's channels because the output's constraint
+# reduces its cotangent (`sharding.constrain_cotangent`).
+TRAIN_PARTED = {
+    TRAIN: 47612952576.0 / 46103003136.0,
+    (MAMBA16, "train_4k"): 6465650688.0 / 5894307840.0,
+}
+TRAIN_MOST = {(MAMBA16, "train_4k"): 1.10}  # from 3.656x with every head on each rank
+
+# rank 0's argument bytes of a decode cell less the reference's, where the
+# two place the SSM's caches differently (ROADMAP C.6): the port keeps them
+# in its step's layout, the reference by its heuristic (`specs.
+# cache_sharding_dims`: the largest dim that 16 divides over `model`).  The
+# conv state (L, 8 rows, 3, di + 2N) bf16 is placed by its rows alone (its
+# new value is a shift of the whole), where the reference shards di + 2N:
+# 16x the reference's bytes, mamba2's 23,040 against 1,440 (+21,600), each
+# of hymba's 4 layers' 6,912 against 432.  The SSM state (L, 8, H, P, N)
+# float32 is placed by its rows and, where 16 divides the heads, its heads,
+# as the reference's of the 16-head variant (H its largest dim); with 4
+# heads by its rows alone, where the reference shards P: mamba2's 196,608
+# against 12,288 (+184,320), each of hymba's layers' 32,768 against 2,048.
+# A decode step returns its caches, so its output bytes part alike.
+ARG_PARTED = {
+    ("mamba2-370m", "decode_32k"): 21600 + 184320,
+    ("hymba-1.5b", "decode_32k"): 4 * (6480 + 30720),
+    (MAMBA16, "decode_32k"): 21600,
+}
 
 # XLA's `output_size_in_bytes` counts the output tuple's table, 8 bytes a
 # leaf, besides the leaves themselves: the logits and the stacked caches
@@ -62,7 +120,8 @@ OUT_LEAVES = {
     ("qwen3-1.7b", "prefill_32k"): 3, ("qwen3-1.7b", "decode_32k"): 3,
     ("deepseek-moe-16b", "prefill_32k"): 5, ("deepseek-moe-16b", "decode_32k"): 5,
     ("mamba2-370m", "decode_32k"): 3, ("hymba-1.5b", "decode_32k"): 13,
-    TRAIN: 43,
+    (MAMBA16, "decode_32k"): 3, (DEEPSEEK16, "decode_32k"): 5,
+    TRAIN: 43, (MAMBA16, "train_4k"): 37,
 }
 
 # rank 0's collective bytes by kind, (port, reference).  They part because
@@ -83,9 +142,10 @@ OUT_LEAVES = {
 #    (`embed_lookup`'s constrain, 1.342e8 in both prefills), deepseek's
 #    tokens gathered for the dispatch over the global batch
 #    (`moe._routed_global`, 2.684e8, and 5.033e7 of their expert ids and
-#    gates), the training loss's float32 logits (`softmax_xent`, 5.367e8),
-#    and in decode the SSM states placed as the step's rows
-#    (`ssm._placed_as_rows`).
+#    gates), the training loss's float32 logits (`softmax_xent`, 5.367e8;
+#    mamba2's 16-head step too, beside its embedding made whole forward and
+#    backward, 2 x 1.342e8, and in_proj's output gathered whole on its
+#    last dim for the mixer's cut, `ssm._rows`, 1.195e8).
 # The repair of ROADMAP C.5 moved bytes between kinds: the training MLP's
 # cotangent is all-reduced at its output (`sharding.constrain_cotangent`:
 # all-reduce 1.347e8 -> 1.851e8) where DTensor had gathered the down
@@ -97,7 +157,21 @@ OUT_LEAVES = {
 # deepseek's experts sum their ff shards with a reduce-scatter onto the
 # rows (3.355e7 in prefill).  The port's own bodies' collectives count too
 # (`dryrun._INPLACE`): flash-decode's softmax statistics (13,824 all-reduce
-# bytes of qwen3's decode) and the MoE's gathers.
+# bytes of qwen3's decode), the MoE's gathers, and the SSD mixer's sum of
+# squares for its gated norm where each rank runs its own heads
+# (`ssm._gated_norm`: 192 bytes of the 16-head mamba2's decode, 3.146e6 of
+# its training step, forward and backward).
+# The repair of ROADMAP C.6 took out the all-gathers of a decode step's
+# caches, which the dry run had placed by the reference's heuristic and the
+# step read in its own layout: the SSM states of mamba2 and hymba, gathered
+# to their rows (all-gather 277,888 -> 58,240 and 250,368 -> 91,648), and
+# the 16-head deepseek's keys and values, resharded from their slots onto
+# their heads (805,438,208 -> 107,264, its MoE's gathers alone; the
+# reference's are 110,592 all-gather and 6,291,584 all-to-all bytes).  The
+# 16-head mamba2's training step all-reduces out_proj's partial sums over
+# the model axis, forward and backward (`sharding.constrain_cotangent`,
+# 2 x 5.033e7), and reduce-scatters the gradient of in_proj's gathered
+# output (7.471e6).
 COLLECTIVES = {
     ("qwen3-1.7b", "prefill_32k"): {
         "all-gather": (213927424, 255994880), "all-reduce": (117440512, 103183024128),
@@ -113,12 +187,22 @@ COLLECTIVES = {
     ("deepseek-moe-16b", "decode_32k"): {
         "all-gather": (98048, 96768), "all-reduce": (28416, 591360),
         "reduce-scatter": (4096, 0), "collective-permute": (0, 2208), "all-to-all": (0, 512)},
-    ("mamba2-370m", "decode_32k"): {
-        "all-gather": (277888, 72448), "all-reduce": (8192, 17344),
+    ("mamba2-370m", "decode_32k"): {  # all-gather 277,888 before C.6: the SSM states
+        "all-gather": (58240, 72448), "all-reduce": (8192, 17344),
         "collective-permute": (0, 25088), "all-to-all": (0, 704)},
-    ("hymba-1.5b", "decode_32k"): {
-        "all-gather": (250368, 139776), "all-reduce": (45056, 107776),
+    ("hymba-1.5b", "decode_32k"): {  # all-gather 250,368 before C.6: the SSM states
+        "all-gather": (91648, 139776), "all-reduce": (45056, 107776),
         "collective-permute": (0, 24736), "all-to-all": (0, 1216)},
+    (MAMBA16, "decode_32k"): {  # the gated norm's sums of squares: 192 all-reduce bytes
+        "all-gather": (58240, 72448), "all-reduce": (8384, 16576),
+        "collective-permute": (0, 23840), "all-to-all": (0, 128)},
+    (DEEPSEEK16, "decode_32k"): {  # all-gather 805,438,208 before C.6: the caches resharded
+        "all-gather": (107264, 110592), "all-reduce": (14592, 565248),
+        "reduce-scatter": (4096, 0), "collective-permute": (0, 288), "all-to-all": (0, 6291584)},
+    (MAMBA16, "train_4k"): {
+        "all-gather": (928960768, 67227584), "all-reduce": (137913896, 339730240),
+        "reduce-scatter": (7472776, 0), "collective-permute": (0, 256380928),
+        "all-to-all": (0, 3833856)},
     TRAIN: {
         "all-gather": (922700800, 808753536), "all-reduce": (185077736, 6834185600),
         "reduce-scatter": (3149152, 0), "collective-permute": (0, 19271680),
@@ -126,11 +210,17 @@ COLLECTIVES = {
 }
 
 _CODE = r"""
-import json, sys
+import dataclasses, json, sys
 sys.path.insert(0, {benchmarks!r})
 from {pkg}.launch import dryrun
 from {pkg} import configs
-dryrun.get_config = configs.get_smoke_config
+VARIANTS = {variants!r}
+
+def get_config(arch):
+    base, changes = VARIANTS.get(arch, (arch, {{}}))
+    return dataclasses.replace(configs.get_smoke_config(base), **changes)
+
+dryrun.get_config = get_config
 {listing}
 records = [dryrun.lower_cell(arch, shape, False) for arch, shape in {cells!r}]
 {listed}
@@ -177,7 +267,7 @@ dryrun.LocalCounter._product, dryrun.lower_cell = _listed, _lower_listed
 
 def _code(pkg: str) -> str:
     port = pkg == "repro_torch"
-    return _CODE.format(pkg=pkg, cells=list(CELLS) + [TRAIN],
+    return _CODE.format(pkg=pkg, cells=list(CELLS) + list(TRAINS), variants=VARIANTS,
                         benchmarks=os.path.join(REPO, "benchmarks"),
                         listing=_LISTING if port else "",
                         listed="print(json.dumps([list(k) + [v] for k, v in LISTED.items()]))"
@@ -192,22 +282,31 @@ def _port(args, timeout: int = 600) -> subprocess.CompletedProcess:
 
 @pytest.fixture(scope="module")
 def records():
-    ref = json.loads(run_with_devices(_code("repro"), n_devices=512, timeout=600)
-                     .splitlines()[-1])
-    proc = _port(["-c", _code("repro_torch")])
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    lines = proc.stdout.splitlines()
+    # the port's side runs while the reference's does
+    port_side = subprocess.Popen(
+        [sys.executable, "-c", _code("repro_torch")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    try:
+        ref = json.loads(run_with_devices(_code("repro"), n_devices=512, timeout=600)
+                         .splitlines()[-1])
+        stdout, stderr = port_side.communicate(timeout=600)
+    finally:
+        port_side.kill()
+        port_side.wait()
+    assert port_side.returncode == 0, stderr[-4000:]
+    lines = stdout.splitlines()
     port = json.loads(lines[-1])
     products = defaultdict(list)  # (arch, shape) -> [(pass, function, line, shape, k, flops)]
     for cell, *site, shape, k, flops in json.loads(lines[-2]):
         products[tuple(cell.split())].append((*site, tuple(shape), k, flops))
-    keys = list(CELLS) + [TRAIN]
+    keys = list(CELLS) + list(TRAINS)
     return ({k: r for k, r in zip(keys, ref)}, {k: r for k, r in zip(keys, port)}, products)
 
 
 def _same_outputs_and_collectives(ref, port, cell):
     assert port["memory"]["output_bytes"] + 8 * OUT_LEAVES[cell] == \
-        ref["memory"]["output_bytes"]
+        ref["memory"]["output_bytes"] + ARG_PARTED.get(cell, 0)
     kinds = set(port["collectives"]) | set(ref["collectives"])
     got = {k: (port["collectives"].get(k, 0.0), ref["collectives"].get(k, 0.0)) for k in kinds}
     assert got == COLLECTIVES[cell]
@@ -220,24 +319,39 @@ def test_prefill_and_decode_cells_against_the_reference(records, cell):
     assert port["status"] == ref["status"] == "ok"
     assert (port["arch"], port["shape"], port["mesh"], port["strategy"]) == \
         (ref["arch"], ref["shape"], ref["mesh"], ref["strategy"])
-    assert port["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
+    assert port["memory"]["argument_bytes"] == \
+        ref["memory"]["argument_bytes"] + ARG_PARTED.get(cell, 0)
     ratio = port["flops"] / ref["flops"]
     if cell in PARTED:
         assert ratio == pytest.approx(PARTED[cell], rel=1e-9), ratio
+        assert ratio <= PARTED_MOST.get(cell, ratio), ratio
     else:
         assert ratio == pytest.approx(1.0, rel=0.02), ratio
     _same_outputs_and_collectives(ref, port, cell)
 
 
-def test_training_cell_traces(records):
-    ref, port = records[0][TRAIN], records[1][TRAIN]
+def _training_cell(records, cell):
+    ref, port = records[0][cell], records[1][cell]
     assert port["status"] == ref["status"] == "ok"
-    assert port["flops"] / ref["flops"] == pytest.approx(TRAIN_PARTED, rel=1e-9)
+    ratio = port["flops"] / ref["flops"]
+    assert ratio == pytest.approx(TRAIN_PARTED[cell], rel=1e-9), ratio
+    assert ratio <= TRAIN_MOST.get(cell, ratio), ratio
     assert port["dot_bytes"] > 0
     # the step's inputs: parameters, AdamW's two bf16 moments and the step
     # count, and the packed batch; its outputs the same trees and the stats
     assert port["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
-    _same_outputs_and_collectives(ref, port, TRAIN)
+    _same_outputs_and_collectives(ref, port, cell)
+
+
+def test_training_cell_traces(records):
+    _training_cell(records, TRAIN)
+
+
+def test_ssm_training_cell_runs_each_ranks_heads(records):
+    """The 16-head mamba2 variant's training step, at most 1.10x the
+    reference's per-device FLOPs (3.656x with every head on each model
+    rank)."""
+    _training_cell(records, (MAMBA16, "train_4k"))
 
 
 def _at(products, cell, pass_, function, code):
@@ -276,7 +390,7 @@ def test_repaired_products_run_on_rank_0s_share(records):
         for shape, k, _ in _at(products, cell, "forward", "route", "@ router"):
             assert shape == (tokens // dp, ds.moe_experts) and k == ds.d_model, (shape, k)
     for cell in CELLS:
-        cfg, B = get_smoke_config(cell[0]), SHAPES[cell[1]]["batch"]
+        cfg, B = _config(cell[0]), SHAPES[cell[1]]["batch"]
         vocab, D = cfg.vocab_padded, cfg.d_model
         [(shape, k, flops)] = _at(products, cell, "forward", "lm_head_logits", "h @ w")
         assert vocab not in (*shape, k) and flops == 2 * (B // dp) * (vocab // tp) * D, \
@@ -290,10 +404,49 @@ def test_repaired_products_run_on_rank_0s_share(records):
         assert shape[0] == B // dp, (shape, k)
 
 
+def test_ssd_products_run_on_the_ranks_heads(records):
+    """ROADMAP C.5's remainder, from the port's products listed by site:
+    with 16 SSM heads on the 16 model ranks, the SSD mixer runs rank 0's
+    rows on its own head, forward and backward; with mamba2's 4 it runs
+    every head (the whole-heads arm)."""
+    from repro_torch.launch.specs import SHAPES
+
+    products, tp, dp = records[2], 16, 16
+    cfg = _config(MAMBA16)
+    H, N, di, Q = cfg.ssm_heads, cfg.ssm_state, cfg.d_inner, cfg.ssm_chunk
+    train, decode = (MAMBA16, "train_4k"), (MAMBA16, "decode_32k")
+    rows = SHAPES["train_4k"]["batch"] // dp
+    for pass_ in ("forward", "backward"):
+        # the scan's products batched over rank 0's rows and its H/tp heads
+        for code in ("y_intra =", "y_inter =", "s_new ="):
+            for shape, k, _ in _at(products, train, pass_, "ssd_scan", code):
+                assert shape[0] == rows * H // tp, (pass_, code, shape, k)
+        # out_proj on the rank's channels (its rows of out_proj)
+        for shape, k, _ in _at(products, train, pass_, "ssm_forward", '@ p["out_proj"]'):
+            assert di not in (*shape, k) and di // tp in (*shape, k), (pass_, shape, k)
+    # C . B has no head dim: whole on every rank (TRAIN_PARTED)
+    for shape, k, _ in _at(products, train, "forward", "ssd_scan", "cb ="):
+        assert shape == (rows, Q, Q) and k == N, (shape, k)
+    rows = SHAPES["decode_32k"]["batch"] // dp
+    # the decode step's conv on the rank's x channels, B and C; its readout
+    # and out_proj on its head's channels
+    [(shape, k, _)] = _at(products, decode, "forward", "_decode_mixer", '"bwc,wc->bc"')
+    assert shape == (di // tp + 2 * N, rows, 1) and k == cfg.conv_width, (shape, k)
+    [(shape, k, _)] = _at(products, decode, "forward", "_decode_mixer", '"bn,bhpn->bhp"')
+    assert shape == (rows, 1, di // tp) and k == N, (shape, k)
+    [(shape, k, _)] = _at(products, decode, "forward", "ssm_decode_step", '@ p["out_proj"]')
+    assert shape == (rows, cfg.d_model) and k == di // tp, (shape, k)
+    # 4 heads do not divide 16: every channel on each rank (PARTED)
+    four = _config("mamba2-370m")
+    [(shape, k, _)] = _at(products, ("mamba2-370m", "decode_32k"), "forward", "_decode_mixer",
+                          '"bwc,wc->bc"')
+    assert shape == (four.d_inner + 2 * four.ssm_state, rows, 1), (shape, k)
+
+
 def test_records_keep_the_references_keys(records):
     """Every key of the reference's record; those with no torch counterpart
     hold None (module docstring)."""
-    for cell in list(CELLS) + [TRAIN]:
+    for cell in list(CELLS) + list(TRAINS):
         ref, port = records[0][cell], records[1][cell]
         assert set(port) == set(ref) and set(port["memory"]) == set(ref["memory"])
         assert port["compile_s"] is None and port["xla_flops_raw"] is None

@@ -358,14 +358,17 @@ def test_prefill_logits_under_the_mesh_match_the_reference(mesh_results, name):
 # each cache leaf of the engine, (L, slots, ...): the slots over `data`, and
 # the keys and values in the decode step's layout, `attn_dims(H, KV, 1)`:
 # the KV heads over `model` in the head-parallel arm, the slots over `model`
-# (flash-decode) where the heads do not divide; the SSM's conv and state by
-# their slots alone
+# (flash-decode) where the heads do not divide; the SSM's conv state by its
+# slots alone, and its state (L, slots, H, P, N) by its slots and, where
+# the model axis divides the SSM heads (mamba2's and hymba's 4 on 2), its
+# heads over `model` (`ssm._share`; hymba_seq's 5 keep the slots alone)
 _SLOTS = "(Shard(dim=1), Replicate())"
 _HEADS = "(Shard(dim=1), Shard(dim=3))"
 _FLASH = "(Shard(dim=1), Shard(dim=2))"
+_SSM_HEADS = "(Shard(dim=1), Shard(dim=2))"
 CACHE_PLACEMENTS = {
-    "mamba2": [{"conv": _SLOTS, "state": _SLOTS}],
-    "hymba": [{"k": _HEADS, "v": _HEADS, "conv": _SLOTS, "state": _SLOTS}] * 2,
+    "mamba2": [{"conv": _SLOTS, "state": _SSM_HEADS}],
+    "hymba": [{"k": _HEADS, "v": _HEADS, "conv": _SLOTS, "state": _SSM_HEADS}] * 2,
     "hymba_seq": [{"k": _FLASH, "v": _FLASH, "conv": _SLOTS, "state": _SLOTS}] * 2,
     "whisper": [{}, {"k": _HEADS, "v": _HEADS, "ck": _HEADS, "cv": _HEADS}],
     "llava": [{"k": _HEADS, "v": _HEADS}],

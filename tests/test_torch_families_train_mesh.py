@@ -18,6 +18,9 @@ hymba's window of 32), with whisper's 4 x 48 frames and llava's 4 x 16
 vision embeddings.  The join has a timeout, so a collective that deadlocks
 fails the fixture.
 
+The SSD mixer's heads on each rank are spied through `ssm.ssd_scan` and
+`ssm._decode_mixer`.
+
 Tolerances, those of tests/test_torch_train_mesh.py: gradients by relative
 L2 per leaf within 1e-5; losses within 2e-5 absolute and the gradient norm
 within 1e-5 relative; the parameters after one AdamW step within 1e-4 of the
@@ -48,6 +51,7 @@ GRAD_REL = 1e-5
 LOSS_ATOL = 2e-5
 NORM_REL = 1e-5
 PARAM_ATOL = 1e-4
+ATOL = 1e-5  # the prefill and decode logits under the mesh against no mesh
 B, S = 4, 40
 SEED = 1
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.01)  # test_system.py's
@@ -161,9 +165,12 @@ def _wait_for_inputs(d):
         time.sleep(0.05)
 
 
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _np(t):
-    t = t.full_tensor() if hasattr(t, "full_tensor") else t
-    return t.detach().numpy()
+    return _full(t).detach().numpy()
 
 
 def _tree_np(tree):
@@ -201,7 +208,7 @@ def _cases(d):
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardingCtx, shard_params
-    from repro_torch.models import model
+    from repro_torch.models import model, ssm
     from repro_torch.models.model import param_dims, params_from_reference
     from repro_torch.train import loop
     from repro_torch.train.checkpoint import CheckpointManager, _flatten
@@ -221,18 +228,57 @@ def _cases(d):
     def batch_of(name):
         return {k: torch.from_numpy(v) for k, v in inp["batch", name].items()}
 
-    # gradients: _grads + shard_grads under the mesh, gathered
-    for name, strategy in GRAD_CASES:
-        spec, params_np = inp[name]
-        cfg, ctx = config(spec), ctxs[strategy]
-        params = shard_params(params_from_reference(params_np, device="cpu"), cfg, ctx)
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
-        loss, _ = model.forward_train(params, batch_of(name), cfg, ctx)
-        grads = loop.shard_grads(loop._grads(params, loss), cfg, ctx)
-        out["grads", name, strategy] = (float(loss.full_tensor()), _tree_np(grads),
-                                        _placements(grads, param_dims(cfg), ctx),
-                                        str(loss.placements))
+    # the heads each rank's SSD mixer runs: the scan's (B, S, H, P) input
+    # and a decode step's (B, H, P, N) state, as `ssm` passes them
+    seen = []
+    scan, step = ssm.ssd_scan, ssm._decode_mixer
+
+    def spied_scan(xh, *args, **kwargs):
+        seen.append(("scan", xh.shape[2]))
+        return scan(xh, *args, **kwargs)
+
+    def spied_step(proj, p, cfg, dtype, conv_state, ssm_state, share=None):
+        seen.append(("step", ssm_state.shape[1]))
+        return step(proj, p, cfg, dtype, conv_state, ssm_state, share=share)
+
+    ssm.ssd_scan, ssm._decode_mixer = spied_scan, spied_step
+    try:
+        # gradients: _grads + shard_grads under the mesh, gathered
+        for name, strategy in GRAD_CASES:
+            spec, params_np = inp[name]
+            cfg, ctx = config(spec), ctxs[strategy]
+            params = shard_params(params_from_reference(params_np, device="cpu"), cfg, ctx)
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            seen.clear()
+            loss, _ = model.forward_train(params, batch_of(name), cfg, ctx)
+            grads = loop.shard_grads(loop._grads(params, loss), cfg, ctx)
+            out["grads", name, strategy] = (float(loss.full_tensor()), _tree_np(grads),
+                                            _placements(grads, param_dims(cfg), ctx),
+                                            str(loss.placements))
+            out["heads", name, strategy] = sorted(set(seen))
+
+        # mamba2 served under tp: a prefill and one decode step on its caches,
+        # against the same without a mesh
+        spec, params_np = inp["mamba2"]
+        cfg, tokens = config(spec), batch_of("mamba2")["tokens"]
+        params = params_from_reference(params_np, device="cpu")
+        served = {}
+        with torch.no_grad():
+            for label, ctx in (("tp", ctxs["tp"]), ("none", None)):
+                p = params if ctx is None else shard_params(params, cfg, ctx)
+                seen.clear()
+                logits, caches = model.prefill(p, {"tokens": tokens}, cfg, ctx, cache_len=S + 1)
+                prefill_heads = sorted(set(seen))
+                seen.clear()
+                nxt = torch.argmax(_full(logits), dim=-1).to(torch.int32)[:, None]
+                step_logits, caches = model.decode_step(p, nxt, caches, S, cfg, ctx)
+                served[label] = (prefill_heads, sorted(set(seen)), _np(logits),
+                                 _np(step_logits), str(getattr(caches[0]["state"], "placements",
+                                                               None)))
+        out["served heads", "mamba2"] = served
+    finally:
+        ssm.ssd_scan, ssm._decode_mixer = scan, step
 
     # steps: the mesh step against the no-mesh step, from the same parameters
     optcfg = OptConfig(**OPT)
@@ -411,3 +457,50 @@ def test_hybrid_checkpoint_saved_under_tp_restores_under_fsdp_bit_for_bit(mesh_r
         assert got["step"] == 1 and got["equal"] and got["keys"] and got["placements"] == []
         # the stacked (L, D, ...) projections: D over data, heads or inner over model
         assert "(Shard(dim=1), Shard(dim=2))" in got["sharded"]
+
+
+def _ssm_leaves(tree, prefix: str = "") -> dict:
+    """{path: leaf} of the SSD mixer's replicated leaves that each rank
+    slices to its own heads (a hybrid's carry the `s_` prefix)."""
+    names = {p + n for p in ("", "s_") for n in ("A_log", "D_skip", "dt_bias", "norm_y",
+                                                   "conv_w", "conv_b")}
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in names:
+                out[f"{prefix}/{k}"] = v
+            else:
+                out.update(_ssm_leaves(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_ssm_leaves(v, f"{prefix}/{i}"))
+    return out
+
+
+def test_ssd_mixer_runs_each_ranks_own_heads_under_tp(mesh_results):
+    """Under 2x2 tp each model rank's SSD mixer runs its 2 of the 4 heads
+    (ROADMAP C.5): mamba2's and hymba's training step, mamba2's prefill and
+    its decode step, whose logits match the port's without a mesh within
+    1e-5 and whose SSM state is placed by its rows and heads; hymba_seq's 5
+    heads, which 2 does not divide, and fsdp run every head.  The gradients
+    of the leaves each rank slices to its heads, summed over the model axis,
+    match the reference's under the same mesh leaf by leaf."""
+    ranks, ref = mesh_results
+    want = {("mamba2", "tp"): 2, ("hymba", "tp"): 2, ("hymba_seq", "tp"): 5,
+            ("mamba2", "fsdp"): 4, ("hymba", "fsdp"): 4}
+    for r in ranks:
+        for (name, strategy), heads in want.items():
+            assert r["heads", name, strategy] == [("scan", heads)], (name, strategy)
+        served = r["served heads", "mamba2"]
+        assert served["tp"][:2] == ([("scan", 2)], [("step", 2)])
+        assert served["none"][:2] == ([("scan", 4)], [("step", 4)])
+        for got, base in zip(served["tp"][2:4], served["none"][2:4]):
+            np.testing.assert_allclose(got, base, atol=ATOL, rtol=ATOL)
+        assert served["tp"][4] == "(Shard(dim=1), Shard(dim=2))"  # (L, B, H, P, N)
+    for name in ("mamba2", "hymba"):
+        _, grads, _, _ = _same_on_every_rank(ranks, ("grads", name, "tp"))
+        _, want_grads, _ = ref["grads", name, "tp"]
+        got, expected = _ssm_leaves(grads), _ssm_leaves(want_grads)
+        assert sorted(got) == sorted(expected) and len(got) >= 6
+        for path in expected:
+            assert _rel(got[path], expected[path]) <= GRAD_REL, (name, path)

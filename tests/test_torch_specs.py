@@ -4,8 +4,10 @@
 the reference's, with the reference's PartitionSpec mapped through the port's
 `placements_for`; `cell_supported` equal for every cell; and the decode
 caches that `cache_specs_from_eval` infers equal to the reference's
-`eval_shape` ones (smoke configs: the port infers them by running its
-prefill on stand-ins, layer by layer).
+`eval_shape` ones in shape and dtype (smoke configs: the port infers them by
+running its prefill on stand-ins, layer by layer).  Their placements: the
+reference's heuristic ones equal the port's `cache_sharding_dims`, and the
+port's leaves are in the decode step's layout instead (ROADMAP C.6).
 
 Each side runs in a subprocess of its own: the reference on 512
 placeholder host devices, the port as rank 0 of torch's `fake` process
@@ -23,7 +25,8 @@ from types import SimpleNamespace
 import pytest
 
 from repro_torch.configs import list_archs
-from repro_torch.distributed.sharding import placements_for
+from repro_torch.distributed.sharding import ShardingCtx, placements_for
+from repro_torch.launch import specs as S
 from tests.util import REPO, run_with_devices
 
 MESHES = {"none": None, "tp": (False, "tp"), "fsdp": (False, "fsdp"), "pod": (True, "tp")}
@@ -157,8 +160,36 @@ def test_param_and_batch_specs_equal_the_reference(sides, arch, mesh):
         _same(ref[key], port[key], mesh)
 
 
+def _placements(dims, shape, ctx):
+    """The placements of a cache leaf with logical `dims` under `ctx` (on a
+    stand-in mesh), reprs as the sides record them."""
+    from repro_torch.distributed.sharding import spec_for
+
+    spec = spec_for(dims, ctx, shape, activation=True)
+    return [repr(p) for p in placements_for(spec, ctx.mesh, shape)]
+
+
+def _step_dims(arch: str, path: str, ctx):
+    """The decode step's logical dims of a cache leaf (L, B, ...) named by
+    its path: keys and values by `attn_dims(H, KV, 1)`, the SSM's conv state
+    by its rows, its state by its rows and, where the model axis divides the
+    SSM heads, its heads."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import attn_dims
+
+    cfg, leaf = get_smoke_config(arch), path.rpartition("/")[2]
+    if leaf == "conv":
+        return (None, "batch", None, None)
+    if leaf == "state":
+        return (None, "batch", "heads" if cfg.ssm_heads % ctx.tp == 0 else None, None, None)
+    return (None, *attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1])
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_cell_supported_and_cache_specs_equal_the_reference(sides, arch):
+    """Under a mesh the reference's cache placements are its heuristic's,
+    which the port keeps as `cache_sharding_dims`; the port's own leaves
+    are in the decode step's layout (ROADMAP C.6)."""
     ref, port = sides
     decode_cells = 0
     for shape in SHAPE_NAMES:
@@ -167,9 +198,22 @@ def test_cell_supported_and_cache_specs_equal_the_reference(sides, arch):
         for mesh in CACHE_MESHES:
             key = f"cache|{arch}|{shape}|{mesh}"
             assert (key in port) == (key in ref), key
-            if key in ref:
+            if key not in ref:
+                continue
+            decode_cells += 1
+            if MESHES[mesh] is None:
                 _same(ref[key], port[key], mesh)
-                decode_cells += 1
+                continue
+            assert sorted(port[key]) == sorted(ref[key])
+            names, sizes = AXES[MESHES[mesh][0]]
+            ctx = ShardingCtx(mesh=SimpleNamespace(mesh_dim_names=names, shape=sizes),
+                              strategy=MESHES[mesh][1])
+            for path, leaf in ref[key].items():
+                shp, dtype, spec = _want(leaf, mesh)
+                assert port[key][path][:2] == [shp, dtype], path
+                assert spec == _placements(S.cache_sharding_dims(tuple(shp), ctx), shp, ctx), path
+                assert port[key][path][2] == _placements(_step_dims(arch, path, ctx), shp,
+                                                         ctx), path
     assert decode_cells >= len(CACHE_MESHES)  # decode_32k at least
 
 
