@@ -16,13 +16,14 @@ Phases, in order; any failure exits non-zero:
    compaction) and over a stack of 92 row groups (1,472 or 5,888 blocks),
    plus the edge cases (k = 1, 31, 32, a dictionary too large for shared
    memory, DELTA wraparound, the fused_scan dictionary arm, 128-run RLE
-   windows, all/none/last-row compaction masks, 2^10- and 2^17-byte filters;
+   windows and 128 runs that end at 384, all/none/last-row compaction
+   masks, 2^10- and 2^17-byte filters;
    for the batch and aggregate kernels: pages of different dictionary sizes
    and a size of 0, per-block empty ranges, 1, 3 and 128 groups, group ids
    out of range, a 128-group window that no row falls in, all-masked blocks,
    int32 at +-2^31, float +-inf and NaN, int32 masks, k = 1, 6, 32; for
-   the grid-stride walks of fused_scan, fused_scan_batch, fused_agg and
-   filter_compact, 5,000 blocks, more than one wave of CTAs, and 1,473, not
+   the grid-stride walks of fused_scan, fused_scan_batch, fused_agg,
+   filter_compact and rle_decode, 5,000 blocks, more than one wave of CTAs, and 1,473, not
    a multiple of the grid, with ragged per-block ranges and empty ones
    (1, 0) for fused_scan_batch); each
    timed with CUDA events (median of single launches, each after a 256 MiB
@@ -33,7 +34,9 @@ Phases, in order; any failure exits non-zero:
    include l_shipdate's k=12 dictionary of 2,557 entries; for
    dict_decode_batch, torch.take of the flattened page dictionaries at
    page * Dmax + the clipped code, and a case in the bucket shape phase 7
-   launches most: k = 4, float32, 184 pages of 11 and 9 entries);
+   launches most: k = 4, float32, 184 pages of 11 and 9 entries; for
+   rle_decode on the writer's pages, torch.repeat_interleave of the runs by
+   their lengths, the expansion alone);
 4. generate TPC-H SF1 (the generator's sf=10: 6,000,000 lineitem rows) twice
    into temporary directories: unsorted, and sorted (lineitem on l_shipdate,
    whose pages are then RLE in every row group);
@@ -198,7 +201,7 @@ M. the decoder-only MoE, SSM and hybrid families at full width, one model at
    4,096-token prompt through `prefill` bit-packed at `token_bits(cfg)` (16,
    15, 17 and 18 bits) and as tokens, the logits and every cache leaf
    bit-identical, bitunpack launched once and nothing else; (b) a 4-slot
-   ServeEngine drains prompts of 1,024, 2,048, 3,072 and 4,096 tokens with 16
+   ServeEngine drains prompts of 1,024, 2,048, 3,072 and 4,096 tokens with 8
    new tokens each (hymba's longer three wrap its 1,024-slot rings), a
    second engine gives the same tokens, decode at 1,024 agrees with the
    1,025-token prefill within 2^-5 relative L2 (the decode's history that
@@ -266,26 +269,27 @@ D. serving under a device mesh: NCCL initialized at world size 1 on a
    once on the rank's own shard of the words, and nothing else in the
    phase, the logits equal to the tokens prefill's under the mesh; (c) the
    serve launcher, `launch.serve.main` on qwen3-1.7b at full width on the
-   card, 16 requests: requests, tokens, tokens/s and ticks; (e)-(i) training
-   under the mesh (qwen3-1.7b and deepseek-moe-16b against no mesh, the
+   card, 16 requests: requests, tokens, tokens/s and ticks; (e)-(i)
+   training under the mesh (qwen3-1.7b and deepseek-moe-16b at 2 layers
+   of full width against no mesh, B 1 x 4,096 packed tokens a step, the
    collectives, a checkpoint re-meshed, the train launcher's mesh); (j)
-   mamba2-370m, hymba-1.5b and whisper-base uncut and llava-next-34b cut to
-   2 of 60 layers at full width, each served by a 4-slot engine under the
-   mesh and without it (phase M's prompts of 1,024-4,096 tokens, whose
-   longer three wrap hymba's 1,024-slot rings; whisper's 64-448 over 1,500
-   zero frames; 16 new tokens each): the same tokens and ticks, a packed
+   whisper-base uncut and mamba2-370m, hymba-1.5b and llava-next-34b cut
+   to 2 layers at full width (on one rank depth changes nothing of what
+   the mesh checks), each served by a 4-slot engine under the mesh and
+   without it (phase M's prompts of 1,024-4,096 tokens, whose longer
+   three wrap hymba's 1,024-slot rings; whisper's 64-448 over 1,500 zero
+   frames; 16 new tokens each): the same tokens and ticks, a packed
    4,096-token prefill under the mesh (whisper: 448 tokens over random
-   frames) against the tokens prefill without it within 1e-3 relative L2,
-   its largest difference printed, prefill ms, decode ms per tick, busy ms,
-   idle share and peak GB for both, whisper's encoder ms; (k) the same
-   models trained (mamba2 at 4 of 48 layers, hymba at 3 of 32, llava at 2)
-   with remat, 3 AdamW steps under the mesh and without it, bit for bit in
-   losses, grad norms and parameters, the second step's ms (and the
-   first's) and the third's idle share for both: B 1 x 4,096 packed
-   tokens (llava after its 576 vision embeddings), whisper 8 x 448 tokens
-   over 8 x 1,500 frames; (l) bitunpack counted over the window: one a
-   packed prefill, one a packed step, nothing else; (d) the process
-   group destroyed;
+   frames) against the tokens prefill without it within 1e-3 relative
+   L2, its largest difference printed, prefill ms, decode ms per tick,
+   busy ms, idle share and peak GB for both, whisper's encoder ms; (k)
+   the same models at the same depths trained with remat, 3 AdamW steps
+   under the mesh and without it, bit for bit in losses, grad norms and
+   parameters, the second step's ms (and the first's) and the third's
+   idle share for both: B 1 x 4,096 packed tokens (llava after its 576
+   vision embeddings), whisper 8 x 448 tokens over 8 x 1,500 frames; (l)
+   bitunpack counted over the window: one a packed prefill, one a packed
+   step, nothing else; (d) the process group destroyed;
 R. the multi-pod dry run: `python -m repro_torch.launch.dryrun`, a cell a
    subprocess (its `fake` process group is global to its process), all
    started together: qwen3-1.7b x decode_32k and x train_4k on the 16x16 mesh, and
@@ -402,8 +406,13 @@ WALK_BLOCKS = (5000, 1473)  # more than one wave of CTAs; not a multiple of the 
 #                   row offset's add
 #   fused_scan      two compares, the mask byte, the survivor count; with a
 #                   dictionary also its clip and the entry's address
-#   rle_decode      per search step (7) the index add, the compare and the
-#                   conditional add; the value's address
+#   rle_decode      by the rank table (a warp a block), per lane and block
+#                   the walk, fetch and addresses 25, the scatter's 4 ends
+#                   at 10 each and the lane total and 5-step scan 18, 4 a
+#                   table word and 2 a value; by search (8 tiles a block, a
+#                   CTA a block), per thread the block's and its own
+#                   addresses 6 and 22 a value (csrc/rle_decode.cu's note):
+#                   rle_ops
 #   filter_compact  the mask test, the ballot, the lane mask's and, the
 #                   popcount, the slot's add and the store's address, the
 #                   zero-fill compare and the survivor's branch
@@ -424,7 +433,8 @@ EXTRA_OPS_PER_VALUE = {"bitunpack": 0, "dict_decode": 3, "delta_decode": 3 + 5 *
                        "fused_scan_batch": 3, "fused_agg": 7}
 GROUPED_AGG_OPS_PER_VALUE = 3
 GROUPED_AGG_OPS_PER_COUNTED = {"float32": 6, "int32": 7}
-RLE_OPS_PER_VALUE = 7 * 3 + 1
+RLE_OPS_TABLE_LANE, RLE_OPS_PER_WORD = 25 + 58, 4 + 4 * 2
+RLE_OPS_SEARCH_THREAD, RLE_OPS_SEARCH = 6, 22
 COMPACT_OPS_PER_VALUE = 8
 
 
@@ -434,6 +444,17 @@ def ops_per_value(name: str, k: int) -> int:
 
 def bloom_ops_per_key(n_hashes: int) -> int:
     return 21 + 5 * n_hashes
+
+
+def rle_ops(nb: int, sms: int) -> int:
+    """rle_decode's integer issue slots for `nb` blocks as the wrapper
+    launches them on a card of `sms` SMs: 32 lanes a block, each with 8
+    table words of 4 values, or 256 threads a block, each with 4 values
+    searched (8 tiles a block)."""
+    split, _ = rle_decode.launch_shape(nb, sms)
+    lane = (RLE_OPS_SEARCH_THREAD + 4 * RLE_OPS_SEARCH if split == 8 else
+            RLE_OPS_TABLE_LANE + RLE_OPS_PER_WORD * 8)
+    return nb * split * 32 * lane
 
 
 T0 = time.perf_counter()
@@ -625,23 +646,35 @@ def kernel_cases(rng):
     # rle_decode: sorted l_shipdate at SF1, 2,346 rows a day, is one or two
     # runs per block; the writer's own encoder makes those pages.  Then
     # random windows of up to 128 runs (positions on a run's end included),
-    # exactly 128 runs, one run per block, float32 runs.
+    # exactly 128 runs, one run per block, float32 runs.  On the writer's
+    # pages, whose runs end at 1,024, one PyTorch call computes the same:
+    # repeat_interleave of the runs by their lengths, the ends differenced
+    # within each block before timing (the expansion alone; a yardstick the
+    # port never calls).
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def rle_pages(values):
         bufs = rle_encode(values)
         return (torch.from_numpy(bufs["rle_values"]).cuda(),
                 torch.from_numpy(bufs["rle_ends"]).cuda())
 
-    def rle_case(label, nb, vals, ends):
+    def rle_case(label, nb, vals, ends, library=None):
         case(cases, "rle_decode", label, nb,
              lambda: rle_decode.rle_decode(vals, ends),
              lambda: ref.rle_decode(vals, ends),
-             nb * (512 + 512 + 4096), nb * 1024 * RLE_OPS_PER_VALUE)
+             nb * (512 + 512 + 4096), rle_ops(nb, sms), library=library)
+
+    def expansion(nb, vals, ends):
+        flat = vals.reshape(-1)
+        lengths = torch.diff(ends.long(), dim=1, prepend=ends.new_zeros(nb, 1).long()).reshape(-1)
+        return lambda: torch.repeat_interleave(flat, lengths, output_size=nb * 1024)
 
     for label, nb in [("path: sorted dates, 1-2 runs a block", RLE_PATH_BLOCKS),
                       ("stack: sorted dates", RLE_STACK_BLOCKS)]:
         days = nb * 1024 // 2346 + 1
         dates = np.sort(rng.integers(0, days, nb * 1024)).astype(np.int32)
-        rle_case(label, nb, *rle_pages(dates))
+        vals, ends = rle_pages(dates)
+        rle_case(label, nb, vals, ends, library=expansion(nb, vals, ends))
 
     def random_windows(nb, dtype, runs=None):
         if runs is None:
@@ -890,6 +923,38 @@ def kernel_cases(rng):
         fused_agg_case(f"walk: {nb} blocks k=6, bool mask", nb, 6)
     for nb in WALK_BLOCKS:
         compact_case(f"walk: {nb} blocks, 30% kept", nb, ints(nb), bern(nb, 0.3))
+
+    # rle_decode's grid-stride walk through the rank table, after every older
+    # case for the same reason: a warp a block at both, more tiles than warps
+    # at 5,000, a last CTA with idle warps at 1,473.  Of every 14 rows the
+    # first 6 take the windows a rank table can get wrong, so that each meets
+    # the walk at many places: 128 runs to 1,024; one run; 31 runs, then the
+    # writer's padding; 128 runs ending at 384 (the clip re-reads run 127 for
+    # the rest); every end 0 (every position takes run 127); runs of 64
+    # between 7 empty ones
+    edges = [np.arange(1, 129) * 8, np.full(128, 1024), np.minimum(np.arange(1, 129) * 34, 1024),
+             np.arange(1, 129) * 3, np.zeros(128), np.repeat(np.arange(0, 1024, 64), 8)]
+
+    def walk_windows(nb, dtype):
+        vals, ends = random_windows(nb, dtype)
+        ends = ends.cpu().numpy()
+        for k, row in enumerate(edges):
+            ends[k::14] = row
+        return vals, torch.from_numpy(ends).cuda()
+
+    for nb, dtype in zip(WALK_BLOCKS, ("int32", "float32")):
+        rle_case(f"walk: {nb} blocks, random and edge windows {dtype}", nb,
+                 *walk_windows(nb, dtype))
+    # the same clip at the path's 64 blocks, where a CTA searches a block
+    short = np.broadcast_to(np.arange(1, 129, dtype=np.int32) * 3, (RLE_PATH_BLOCKS, 128))
+    rle_case("128 runs ending at 384 (the clip)", RLE_PATH_BLOCKS,
+             random_windows(RLE_PATH_BLOCKS, "int32")[0],
+             torch.from_numpy(np.ascontiguousarray(short)).cuda())
+    # the writer's pages of 14 row groups (896 blocks), the batched stack of
+    # sorted q6's and q14's dates: a walk of under a block a warp, near the
+    # wrapper's choice between the walk and the search
+    dates = np.sort(rng.integers(0, 896 * 1024 // 2346 + 1, 896 * 1024)).astype(np.int32)
+    rle_case("14 row groups: sorted dates", 896, *rle_pages(dates))
     return cases
 
 
@@ -2517,7 +2582,7 @@ def training_phase(seed: int, tmpdir: str, device: str = "cuda") -> dict:
 FAMILY_ARCHS = ("mamba2-370m", "hymba-1.5b", "deepseek-moe-16b", "llama4-maverick-400b")
 FAMILY_LAYERS = {"llama4-maverick-400b": 2}
 FAMILY_PROMPTS = (1024, 2048, 3072, 4096)  # hymba's three longer ones wrap its 1,024-slot rings
-FAMILY_NEW_TOKENS = 16
+FAMILY_NEW_TOKENS = 8  # (b): a request's new tokens; its checks need no more
 FAMILY_SLOTS = 4
 FAMILY_MAX_LEN = 4160
 CHECK_STEPS = 8  # (c): decode steps after the 256-token prefill, card against CPU
@@ -3142,10 +3207,10 @@ MESH_SHAPE = (1, 1)  # (data, model) on the one card
 MESH_NEW_TOKENS = 16
 MESH_REL_TOL = 1e-3  # (a) prefill logits under the mesh against without, relative L2
 SERVE_ARGS = ["--arch", LM_ARCH, "--requests", "16"]  # (c), the launcher's other options its own
-# (e): phase T (a)'s batches, B 2 x S 4,096 packed, MESH_STEPS timed steps and
-# one more under torch.profiler, each under the mesh and without it
+# (e): packed batches of MESH_TRAIN_BATCH x 4,096 tokens, MESH_STEPS timed
+# steps and one more under torch.profiler, each under the mesh and without it
 MESH_STEPS = 3
-MESH_MOE_ARCH, MESH_MOE_LAYERS = "deepseek-moe-16b", 2  # (f): 1 dense + 1 MoE of 28 layers
+MESH_MOE_ARCH = "deepseek-moe-16b"  # (f): at 2 layers, 1 dense + 1 MoE of 28
 # (e), (f): one rank runs the plain path's kernels in its order, so bit for
 # bit is expected; an op that differs is named, and the run held to phase T
 # (d)'s bounds: losses within 1e-3 relative, each parameter leaf within 1e-3
@@ -3159,20 +3224,23 @@ MESH_RESUME_OPT = dict(OPT, moments_dtype="bfloat16")
 MESH_RESUME_AT, MESH_RESUME_TO = 2, 4
 TRAIN_MESH_ARGS = ["--arch", LM_ARCH, "--mesh", "single"]  # (i)
 # (j)-(k): the SSM, hybrid, enc-dec and VLM families under the mesh against
-# without it; llava-next-34b cut to 2 of its 60 layers at full width (60
-# layers are ~68 GB of bf16 weights, twice over with the unsharded copy's
-# first-use buffers); in (k) hymba cut to 3 of 32 layers (`family_config`
-# keeps the first global, the rest windowed) and mamba2 to 4 of 48: its SSD
-# chunk loop launches ~60,000 kernels a 48-layer step, which torch.profiler
-# took ~110 s to trace on an H100 80GB HBM3
+# without it
 MESH_ARCHS = ("mamba2-370m", "hymba-1.5b", "whisper-base", "llava-next-34b")
-MESH_SERVE_LAYERS = {"llava-next-34b": 2}
-MESH_TRAIN_LAYERS = {"mamba2-370m": 4, "hymba-1.5b": 3, "llava-next-34b": 2}
+# (e), (f), (j) and (k): on one rank what they check, DTensor's dispatch of
+# every op and bit-for-bit equality with no mesh, is the same at any depth,
+# so every model they train, and those (j) serves, runs 2 layers at full
+# width (`family_config` keeps hymba's first layer global and the second
+# windowed, whose 1,024-slot ring the longer prompts still wrap; llava's 60
+# layers are ~68 GB of bf16 weights); whisper-base runs its 6 + 6, and (a)-(c)
+# serve qwen3-1.7b uncut
+MESH_LAYERS = dict.fromkeys((LM_ARCH, "deepseek-moe-16b", "mamba2-370m", "hymba-1.5b",
+                             "llava-next-34b"), 2)
 # the first step (DTensor's first dispatch of each op, cuBLAS's first
 # shapes) and the second timed alone, the third under torch.profiler
 MESH_TRAIN_STEPS = 3
-# (k): packed batches of B x PACKED_LEN tokens where the family takes them in
-# 4,096-token blocks; whisper's text context is 448 tokens, so it trains on
+# (e), (f) and (k): packed batches of B x PACKED_LEN tokens where the family
+# takes them in 4,096-token blocks (phase T (a) trains qwen3 on 2 of them
+# without a mesh); whisper's text context is 448 tokens, so it trains on
 # phase E (e)'s 8 x 448 tokens (not a block multiple: as tokens) over 8 x
 # 1,500 frames
 MESH_TRAIN_BATCH = 1
@@ -3320,25 +3388,28 @@ def same_runs(mesh: dict, none: dict, label: str) -> str:
 
 
 def mesh_training(ctx, seed: int, device, card: str) -> int:
-    """Phase D (e) and (f): qwen3-1.7b at full width and deepseek-moe-16b at
-    2 layers trained under the mesh and without it, their numbers printed
-    beside `card` (the card's name and power limit).  Returns the bitunpack
-    launches they made."""
+    """Phase D (e) and (f): qwen3-1.7b and deepseek-moe-16b at MESH_LAYERS'
+    depth and full width trained under the mesh and without it, their
+    numbers printed beside `card` (the card's name and power limit).
+    Returns the bitunpack launches they made."""
     optcfg = OptConfig(**OPT)
-    cfg = dataclasses.replace(get_config(LM_ARCH), remat=True)
-    src = PackedBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, device)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LAYERS[LM_ARCH], remat=True)
+    src = PackedBatches(cfg, MESH_TRAIN_BATCH, PACKED_LEN, seed, device)
     batches = [src.next_batch() for _ in range(MESH_STEPS + 1)]
     t0 = time.perf_counter()
     runs = {label: train_run(cfg, optcfg, c, batches, seed, device)
             for label, c in (("mesh", ctx), ("none", None))}
     verdict = same_runs(runs["mesh"], runs["none"], "(e)")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"      (e) {cfg.arch_id} at full width, {cfg.dtype}, remat, AdamW, B {TRAIN_BATCH} x S "
-        f"{TRAIN_SEQ} packed at k={model.token_bits(cfg)}, {len(batches)} steps from seed {seed} "
-        f"under the mesh and without it: losses and grad norms {runs['mesh']['metrics']}; "
+    tokens = MESH_TRAIN_BATCH * PACKED_LEN
+    cut = "" if cfg.n_layers == get_config(LM_ARCH).n_layers else \
+        f" cut to {cfg.n_layers} of {get_config(LM_ARCH).n_layers} layers"
+    log(f"      (e) {cfg.arch_id}{cut} at full width, {cfg.dtype}, remat, AdamW, B "
+        f"{MESH_TRAIN_BATCH} x S {PACKED_LEN} packed at k={model.token_bits(cfg)}, "
+        f"{len(batches)} steps from seed {seed} under the mesh and without it: losses and grad "
+        f"norms {runs['mesh']['metrics']}; "
         f"the losses and the {len(runs['mesh']['names'])} parameter leaves after the steps "
         f"{verdict}; {time.perf_counter() - t0:.1f} s")
-    flops = train_flops(cfg, runs["mesh"]["n_params"], tokens, TRAIN_BATCH, TRAIN_SEQ)
+    flops = train_flops(cfg, runs["mesh"]["n_params"], tokens, MESH_TRAIN_BATCH, PACKED_LEN)
     for label, run in runs.items():
         if any(n != 1 for n in run["launches"]):
             raise AssertionError(f"(e) {label}: bitunpack launches per step {run['launches']}")
@@ -3356,16 +3427,17 @@ def mesh_training(ctx, seed: int, device, card: str) -> int:
 
     # (f) the MoE family: the mesh moe_ffn's backward on the card
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), n_layers=MESH_MOE_LAYERS, remat=True)
-    batches = [PackedBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, device).next_batch()]
+    cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), n_layers=MESH_LAYERS[MESH_MOE_ARCH],
+                              remat=True)
+    batches = [PackedBatches(cfg, MESH_TRAIN_BATCH, PACKED_LEN, seed, device).next_batch()]
     runs = {label: train_run(cfg, optcfg, c, batches, seed, device)
             for label, c in (("mesh", ctx), ("none", None))}
     verdict = same_runs(runs["mesh"], runs["none"], "(f)")
-    log(f"      (f) {cfg.arch_id} cut to {MESH_MOE_LAYERS} of 28 layers (1 dense + 1 MoE of "
+    log(f"      (f) {cfg.arch_id} cut to {cfg.n_layers} of 28 layers (1 dense + 1 MoE of "
         f"{cfg.moe_experts} experts, top {cfg.moe_top_k}, {cfg.moe_shared} shared), "
-        f"{cfg.dtype}, one step of B {TRAIN_BATCH} x S {TRAIN_SEQ} packed under the mesh and "
-        f"without it: loss and grad norm {runs['mesh']['metrics']}, parameters {verdict}; busy_ms "
-        f"{runs['mesh']['busy'][0]:.3f} / {runs['none']['busy'][0]:.3f}; peak GB "
+        f"{cfg.dtype}, one step of B {MESH_TRAIN_BATCH} x S {PACKED_LEN} packed under the mesh "
+        f"and without it: loss and grad norm {runs['mesh']['metrics']}, parameters {verdict}; "
+        f"busy_ms {runs['mesh']['busy'][0]:.3f} / {runs['none']['busy'][0]:.3f}; peak GB "
         f"{runs['mesh']['peak'] / 1e9:.2f}; bitunpack launches "
         f"{runs['mesh']['launches']} / {runs['none']['launches']}; "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
@@ -3469,7 +3541,7 @@ def mesh_family_serving(arch: str, ctx, seed: int, device, card: str) -> int:
     prefill without it; prefill ms, decode tick ms, busy ms, idle share and
     peak GB for both (whisper's encoder ms too).  Returns the bitunpack
     launches it made."""
-    cfg = family_config(arch, MESH_SERVE_LAYERS.get(arch))
+    cfg = family_config(arch, MESH_LAYERS.get(arch))
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     params = model.init_params(cfg, seed, device=device)
@@ -3544,7 +3616,7 @@ def mesh_family_training(arch: str, ctx, seed: int, device, card: str) -> int:
     parameters), step ms and idle share for both.  Returns the bitunpack
     launches it made."""
     optcfg = OptConfig(**OPT)
-    cfg = dataclasses.replace(family_config(arch, MESH_TRAIN_LAYERS.get(arch)), remat=True)
+    cfg = dataclasses.replace(family_config(arch, MESH_LAYERS.get(arch)), remat=True)
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     if cfg.is_encdec:
@@ -3845,6 +3917,14 @@ def kernels_line(records: dict, by_order: dict, once: dict) -> list:
                 variant="dict_decode's walk, each CTA taking a run of consecutive blocks, "
                 "each block's page and size loaded ahead, __ldg lookups; 128 threads a block "
                 "(a thread a lane) where Dmax <= 32, 512 (8 rows a thread) above")
+        elif name == "rle_decode":
+            kernels[-1].update(
+                library="torch.repeat_interleave of the runs by their lengths on the writer's "
+                "pages (the expansion alone; a yardstick, never called by the port)",
+                variant="1, 2 or 4 tiles a block: a warp a tile, a grid-stride walk of 8-warp "
+                "CTAs (2 an SM), windows fetched 2 tiles ahead by cp.async, a byte rank table "
+                "by shared atomics and a byte-wise prefix; 8 tiles a block (under 2 blocks an "
+                "SM): a CTA a block, the 7-step search")
         elif name in ("fused_scan", "fused_scan_batch"):
             kernels[-1].update(
                 variant="grid-stride walk: 512 threads a block, 8 rows a thread, the mask "
@@ -3864,7 +3944,8 @@ def main(argv=None) -> int:
     # phase 1
     print(card_line(), flush=True)  # the card's name and power limit, as nvidia-smi gives them
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; host: "
+        f"{os.cpu_count()} cores, torch on {torch.get_num_threads()} threads")
 
     # phase 2
     t0 = time.perf_counter()

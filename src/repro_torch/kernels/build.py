@@ -46,7 +46,7 @@ SIGNATURES = {
     "rt_dict_decode": (_P, _P, _I, _P, _I, _I),
     "rt_delta_decode": (_P, _P, _P, _I, _I),
     "rt_fused_scan": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I),
-    "rt_rle_decode": (_P, _P, _P, _I),
+    "rt_rle_decode": (_P, _P, _P, _I, _I, _I),
     "rt_filter_compact": (_P, _P, _P, _P, _I),
     "rt_bloom_probe": (_P, _P, _I, _I, _P, _I),
     "rt_dict_decode_batch": (_P, _P, _I, _I, _P, _P, _P, _I, _I),

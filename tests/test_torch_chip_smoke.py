@@ -65,6 +65,20 @@ def test_bounds_count_the_same_work_as_before_the_redesigns():
     assert round(compact_bytes * 1e6, 2) == 16.21 and compact_bytes > compact_ops
 
 
+def test_rle_bound_counts_the_redesigned_kernel():
+    """rle_decode's bound stays the bytes' at the stack (9.00 us) and the
+    walk sizes; its integer slots are 5.59 a value by the rank table at the
+    stack (a tile a block on 132 SMs) and 23.5 by search at the 64-block
+    path (8 tiles a block)."""
+    nb = chip_smoke.RLE_STACK_BLOCKS
+    assert chip_smoke.rle_ops(nb, 132) == nb * 1024 * 5.59375
+    assert chip_smoke.rle_ops(64, 132) == 64 * 1024 * 23.5
+    for nb in (chip_smoke.RLE_STACK_BLOCKS, *chip_smoke.WALK_BLOCKS):
+        rle_bytes = nb * (512 + 512 + 4096) / chip_smoke.HBM_BYTES_PER_S
+        assert rle_bytes > 4 * chip_smoke.rle_ops(nb, 132) / chip_smoke.INT32_OPS_PER_S
+    assert round(chip_smoke.RLE_STACK_BLOCKS * 5120 / chip_smoke.HBM_BYTES_PER_S * 1e6, 2) == 9.0
+
+
 @pytest.mark.parametrize("key,want", [
     ("void (anonymous namespace)::dict_decode_batch_kernel<4, 2>((anonymous namespace)::Args)",
      ("dict_decode_batch_kernel", "<4, 2>")),

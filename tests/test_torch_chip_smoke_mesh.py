@@ -42,7 +42,6 @@ def mesh_on_cpu(monkeypatch, on_cpu, plain_launches):  # noqa: F811
     monkeypatch.setattr(chip_smoke, "LM_MAX_LEN", 64)
     monkeypatch.setattr(chip_smoke, "MESH_NEW_TOKENS", 8)
     monkeypatch.setattr(chip_smoke, "SERVE_ARGS", chip_smoke.SERVE_ARGS + ["--smoke"])
-    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 1)
     monkeypatch.setattr(chip_smoke, "MESH_STEPS", 1)
     monkeypatch.setattr(chip_smoke, "MESH_RESUME_AT", 1)
     monkeypatch.setattr(chip_smoke, "MESH_RESUME_TO", 2)

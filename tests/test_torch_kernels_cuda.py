@@ -7,7 +7,10 @@ and `flash_attention` within a stated tolerance of `ref.mha`.  The
 file imports no JAX, so it runs where only torch is installed.
 """
 
-import tests.torch_threads  # noqa: F401 (one torch thread a test process)
+# one torch thread a test process; imported from this directory, which pytest
+# puts on the path, since a `tests` package that another distribution
+# installs would shadow `tests.torch_threads` on a card's machine
+import torch_threads  # noqa: F401
 import dataclasses
 
 import numpy as np
@@ -26,7 +29,7 @@ from repro_torch.kernels import dict_decode as cu_dict
 from repro_torch.kernels import filter_compact as cu_compact
 from repro_torch.kernels import flash_attention as cu_flash
 from repro_torch.kernels import fused_scan as cu_fused
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import rle_decode as cu_rle
 from repro_torch.lakeformat.encodings import bitpack_encode
 from repro_torch.lakeformat.reader import LakeReader
@@ -152,12 +155,16 @@ def test_fused_scan_dictionary_arm(dev, d_len, k, dtype, lo, hi):
 
 
 def _rle_pages(rng, nblk, dtype):
-    """Nondecreasing ends: random, exactly 128 runs, one run, padded."""
+    """Nondecreasing ends: random, exactly 128 runs, one run, padded, and
+    (from 6 blocks) all empty, and runs between empty ones."""
     ends = np.sort(rng.integers(0, 1025, (nblk, 128)), axis=1).astype(np.int32)
     ends[0] = np.arange(1, 129) * 8  # 128 runs, the last ending on 1024
     ends[1] = 1024
     ends[2, 30:] = 1024
     ends[3] = np.arange(1, 129) * 3  # 128 runs ending at 384: the clip re-reads run 127
+    if nblk > 5:
+        ends[4] = 0  # every run empty: every position takes run 127
+        ends[5] = np.repeat(np.arange(0, 1024, 64), 8)  # runs of 64 between 7 empty ones
     if dtype == torch.float32:
         v = torch.from_numpy(rng.standard_normal((nblk, 128)).astype(np.float32))
     else:
@@ -165,14 +172,45 @@ def _rle_pages(rng, nblk, dtype):
     return v, torch.from_numpy(ends)
 
 
-@pytest.mark.parametrize("nblk", [4, 65, 5888])
+def _offset(t: torch.Tensor, offset: int, dev) -> torch.Tensor:
+    """`t` on the card as a view `offset` elements past a 16-byte boundary."""
+    flat = torch.cat([torch.zeros(offset, dtype=t.dtype), t.reshape(-1)]).to(dev)
+    view = flat[offset:].view(t.shape)
+    assert (view.data_ptr() % 16 != 0) == bool(offset)
+    return view
+
+
+# 64 and 527 blocks: a CTA a block, the search (64 the path); 528, 1,473
+# and 5,000: a warp a block, the rank table's walk, a count that is not a
+# multiple of the grid and (5,000) more blocks than its warps; offset 1:
+# views 4 bytes past a 16-byte boundary, which the wrapper copies to aligned
+# tensors for the kernel's 16-byte copies
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nblk", [4, 64, 65, 527, 528, 1473, 5000, 5888])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_rle_decode(dev, nblk, dtype):
+def test_rle_decode(dev, nblk, dtype, offset):
     rng = np.random.default_rng(nblk)
-    v, e = (t.to(dev) for t in _rle_pages(rng, nblk, dtype))
+    v, e = (_offset(t, offset, dev) for t in _rle_pages(rng, nblk, dtype))
     got = cu_rle.rle_decode(v, e)
     torch.cuda.synchronize()
     assert _same(got, ref.rle_decode(v, e))
+
+
+def test_rle_decode_walks_on_a_small_grid(dev, monkeypatch):
+    """The rank table's walk on a grid of 3 CTAs, so that every warp walks
+    several blocks through its ring of windows, the last ones ragged; 8
+    tiles a block take a CTA a block and refuse any other grid, and the
+    kernel has no other tiling."""
+    rng = np.random.default_rng(1)
+    v, e = (t.to(dev) for t in _rle_pages(rng, 301, torch.int32))
+    monkeypatch.setattr(cu_rle, "launch_shape", lambda nblk, sms: (1, 3))
+    got = cu_rle.rle_decode(v, e)
+    torch.cuda.synchronize()
+    assert _same(got, ref.rle_decode(v, e))
+    for shape in ((8, 3), (2, 3)):
+        monkeypatch.setattr(cu_rle, "launch_shape", lambda nblk, sms, shape=shape: shape)
+        with pytest.raises(build.KernelError):
+            cu_rle.rle_decode(v, e)
 
 
 # 1,473 and 5,000 blocks: more than one wave of the grid-stride walk, and a

@@ -32,6 +32,7 @@ from repro_torch.kernels import filter_compact as cu_compact
 from repro_torch.kernels import fused_scan as cu_fused
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rle_decode as cu_rle
+from repro_torch.lakeformat.encodings import rle_encode
 
 NBS = (1, 3, 17)
 
@@ -158,6 +159,91 @@ def test_rle_decode_rank_lookup(nb, dtype):
             vals, ends = _rand_rle(rng, nb, dtype)
             want = jops.rle_decode(jnp.asarray(vals), jnp.asarray(ends), backend="ref")
             _eq(ref.rle_decode(torch.from_numpy(vals), torch.from_numpy(ends)), want)
+
+
+def _edge_windows(kind, dtype):
+    """Five blocks of one edge window: repeated ends (zero-length runs between
+    runs, and at the start), every end 0, a single run (the writer's padding
+    after it), or a single run that stops short of 1,024."""
+    rng = np.random.default_rng(len(kind) * 7 + len(dtype))
+    ends = np.zeros((5, 128), np.int32)
+    for b in range(5):
+        if kind == "zero-length runs":
+            ends[b] = np.sort(rng.choice([0, 1, 17, 512, 1000, 1023, 1024], 128))
+        elif kind == "ends of 0":
+            ends[b, :rng.integers(1, 129)] = 0
+            ends[b, ends[b] != 0] = 0 if b % 2 else 1024
+        elif kind == "a single run":
+            ends[b] = 1024
+        else:  # a single run that stops short
+            ends[b] = rng.integers(0, 1024)
+    vals = (rng.standard_normal((5, 128)).astype(np.float32) if dtype == "float32"
+            else rng.integers(-2**31, 2**31, (5, 128)).astype(np.int32))
+    return vals, ends
+
+
+@pytest.mark.parametrize("kind", ["zero-length runs", "ends of 0", "a single run",
+                                  "a single short run"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_rle_decode_edge_windows(kind, dtype):
+    """The plain version against the reference on the windows a kernel's
+    rank count can get wrong: runs of no length (several runs on one end,
+    every end 0: then each position re-reads run 127), one run a block."""
+    vals, ends = _edge_windows(kind, dtype)
+    with jax.disable_jit():
+        want = jops.rle_decode(jnp.asarray(vals), jnp.asarray(ends), backend="ref")
+    got = ref.rle_decode(torch.from_numpy(vals), torch.from_numpy(ends))
+    _eq(got, want)
+    if kind == "ends of 0":
+        assert torch.equal(got[1], torch.from_numpy(vals[1, 127:]).expand(1024))
+
+
+@pytest.mark.parametrize("days", [1, 3, 40])
+def test_repeat_interleave_expands_the_writers_pages(days):
+    """chip_smoke's yardstick for rle_decode: on the writer's pages of sorted
+    dates (runs that end at 1,024, padded with empty runs),
+    torch.repeat_interleave of the runs by the ends differenced within each
+    block equals the plain version and the reference."""
+    rng = np.random.default_rng(days)
+    dates = np.sort(rng.integers(0, days, 9 * 1024 - 300)).astype(np.int32)
+    bufs = rle_encode(dates)
+    vals, ends = torch.from_numpy(bufs["rle_values"]), torch.from_numpy(bufs["rle_ends"])
+    nb = vals.shape[0]
+    lengths = torch.diff(ends.long(), dim=1, prepend=ends.new_zeros(nb, 1).long())
+    got = torch.repeat_interleave(vals.reshape(-1), lengths.reshape(-1), output_size=nb * 1024)
+    assert torch.equal(got.view(nb, 1024), ref.rle_decode(vals, ends))
+    with jax.disable_jit():
+        _eq(got.view(nb, 1024), jops.rle_decode(jnp.asarray(bufs["rle_values"]),
+                                               jnp.asarray(bufs["rle_ends"]), backend="ref"))
+    assert torch.equal(got[:dates.size], torch.from_numpy(dates))
+
+
+@pytest.mark.parametrize("nblk,sms,want", [
+    (64, 132, (8, 64)),      # the path: a CTA a block, a warp an eighth
+    (196, 132, (8, 196)),
+    (512, 132, (8, 512)),
+    (527, 132, (8, 527)),    # the last count that searches on an H100
+    (528, 132, (1, 66)),     # the first that walks: half a CTA's warps an SM
+    (1473, 132, (1, 185)),   # a warp a block, the last CTA's warps ragged
+    (5000, 132, (1, 264)),   # the walk: 2,112 warps over 5,000 blocks
+    (5888, 132, (1, 264)),
+    (1, 132, (8, 1)),
+    (4, 1, (1, 1)),
+])
+def test_rle_launch_shape(nblk, sms, want):
+    """The rank table's walk (a warp a block) once the blocks give every SM
+    half a CTA's warps, on a grid of at most 2 CTAs an SM; the search (a CTA
+    a block) below."""
+    assert cu_rle.launch_shape(nblk, sms) == want
+
+
+def test_rle_launch_shape_gives_eight_tiles_a_cta_a_block():
+    """The kernel takes 8 tiles a block only on a grid of one CTA a block:
+    the wrapper gives that grid whatever the block count and the card."""
+    for sms in (1, 16, 132):
+        for nblk in range(1, 4 * sms + 10):
+            split, ctas = cu_rle.launch_shape(nblk, sms)
+            assert ctas >= 1 and (split != 8 or ctas == nblk), (nblk, sms)
 
 
 def _rand_compact(rng, nblk, dtype):
