@@ -294,15 +294,16 @@ R. the multi-pod dry run: `python -m repro_torch.launch.dryrun`, a cell a
    subprocess (its `fake` process group is global to its process), all
    started together: qwen3-1.7b x decode_32k and x train_4k on the 16x16 mesh, and
    x long_500k, which a full-attention arch skips; mamba2-370m x decode_32k
-   (its SSD mixer on each model rank's 2 of 32 heads) and deepseek-moe-16b
-   x decode_32k (its caches read in the layout they are placed in): each
-   record's status, per-device FLOPs, collective bytes, argument bytes and
-   trace seconds, with the card's name and power limit (a dry run computes
-   nothing on the card, so the phase prints no card time); qwen3's train_4k
-   and mamba2's decode at most 1.02x the reference's per-device FLOPs
-   (ROADMAP C.5), deepseek's decode at most 6.214e9 all-gather bytes a
-   device (C.6); a nonzero exit, a failed cell, a cell of another status or
-   over its bound stops the script;
+   (its SSD mixer on each model rank's 2 of 32 heads), hymba-1.5b x
+   decode_32k (its in_proj on each model rank's columns) and
+   deepseek-moe-16b x decode_32k (its caches read in the layout they are
+   placed in): each record's status, per-device FLOPs, collective bytes,
+   argument bytes and trace seconds, with the card's name and power limit (a
+   dry run computes nothing on the card, so the phase prints no card time);
+   qwen3's train_4k, mamba2's decode and hymba's decode at most 1.02x the
+   reference's per-device FLOPs (ROADMAP C.5, C.7), deepseek's decode at
+   most 6.214e9 all-gather bytes a device (C.6); a nonzero exit, a failed
+   cell, a cell of another status or over its bound stops the script;
 10. print one JSON line with every kernel's record (its launches, summed over
    the counted windows of phases 5, 7, O, S and F on both file orders and of
    phases 9, T, M, E and D, must be > 0; phase D's as `launches_dist`);
@@ -3787,22 +3788,26 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
 # (arch, shape, the status the cell must come back with).  mamba2-370m x
 # train_4k is left out: its trace (48 layers of 16 SSD chunks, forward and
 # backward) takes longer than the phase's budget of 60 s (PERF.md section 6)
-SSM_ARCH, MOE_ARCH = FAMILY_ARCHS[0], FAMILY_ARCHS[2]
+SSM_ARCH, HYBRID_ARCH, MOE_ARCH = FAMILY_ARCHS[:3]
 DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "ok"), (LM_ARCH, "train_4k", "ok"),
                 (LM_ARCH, "long_500k", "skipped"), (SSM_ARCH, "decode_32k", "ok"),
-                (MOE_ARCH, "decode_32k", "ok"))
+                (HYBRID_ARCH, "decode_32k", "ok"), (MOE_ARCH, "decode_32k", "ok"))
 DRYRUN_TIMEOUT_S = 300
 # the reference's per-device FLOPs on the 16x16 mesh: the JAX package's dry
 # run (`repro.launch.dryrun`, trip-aware HLO count) at 512 host devices, as
-# PERF.md section 6 records them: qwen3-1.7b x train_4k, and mamba2-370m x
-# decode_32k (jax 0.9 on the CPU)
+# PERF.md section 6 records them: qwen3-1.7b x train_4k, mamba2-370m x
+# decode_32k and hymba-1.5b x decode_32k (jax 0.9 on the CPU)
 TRAIN_4K_REFERENCE_FLOPS = 1.0105e14
 SSM_DECODE_REFERENCE_FLOPS = 3.81599744e8
+HYBRID_DECODE_REFERENCE_FLOPS = 2.000900096e9
 # (arch, shape) -> (the reference's per-device FLOPs, the most the port may
 # count over it): each product on rank 0's share (ROADMAP C.5; mamba2's SSD
-# mixer on the rank's 2 of 32 heads, the conv over B and C whole)
+# mixer on the rank's 2 of 32 heads, the conv over B and C whole; C.7:
+# hymba's in_proj on the rank's columns, 3.49x before, its SSD mixer on
+# every one of its 25 heads, which 16 does not divide)
 DRYRUN_BOUNDS = {(LM_ARCH, "train_4k"): (TRAIN_4K_REFERENCE_FLOPS, 1.02),
-                 (SSM_ARCH, "decode_32k"): (SSM_DECODE_REFERENCE_FLOPS, 1.02)}
+                 (SSM_ARCH, "decode_32k"): (SSM_DECODE_REFERENCE_FLOPS, 1.02),
+                 (HYBRID_ARCH, "decode_32k"): (HYBRID_DECODE_REFERENCE_FLOPS, 1.02)}
 # (arch, shape) -> the most all-gather bytes a device: deepseek-moe-16b's
 # decode reads its caches in the layout they are placed in (ROADMAP C.6),
 # 10x below the 6.214e10 that resharding them every step moved (PERF.md)
@@ -4090,8 +4095,9 @@ def main(argv=None) -> int:
 
     # phase R
     t0 = time.perf_counter()
-    log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH}, {SSM_ARCH} and "
-        f"{MOE_ARCH} on the 16x16 mesh over a fake process group, nothing computed")
+    log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH}, {SSM_ARCH}, "
+        f"{HYBRID_ARCH} and {MOE_ARCH} on the 16x16 mesh over a fake process group, nothing "
+        "computed")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
         dryrun_phase(d)
     log(f"      phase R took {time.perf_counter() - t0:.1f} s; the script so far "

@@ -35,7 +35,9 @@ Elsewhere (`fsdp`, whose rows already spread over the model axis; a model
 axis of one rank; heads that the model axis does not divide, as hymba's 25
 at 16) every model rank of a row runs every head, and both states are placed
 by their rows.  A decode step runs the body on the rows of the caches'
-shards that the engine placed.
+shards that the engine placed, and under `tp` cuts `in_proj`'s columns over
+the model axis before its product where the parameter's spec leaves them
+whole (`_inner_cols`), so that each model rank runs its own columns.
 
 Layer params:
   in_proj (D, 2*di + 2*N + H)   -> [z, x, B, C, dt]
@@ -287,14 +289,17 @@ def _rows(proj: torch.Tensor, like_rows: Optional[torch.Tensor] = None) -> DTens
     """proj's batch rows as the mixer's body reads them: its last dim whole
     on every rank (the split's pieces straddle the `inner` shards), its
     batch sharded as `like_rows`' (a state placed by its rows, as the engine
-    places a cache's slots) or as it is."""
-    proj = gather_dim(proj, -1)
-    if like_rows is None:
-        return proj
-    mesh = proj.device_mesh
-    place = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
-             for q in as_dtensor(like_rows, mesh).placements]
-    return proj if list(proj.placements) == place else proj.redistribute(mesh, place)
+    places a cache's slots) or as it is.  The rows are placed first, the
+    columns kept where they lie, so that a partial sum over the weight's `d`
+    shards is reduced onto the rows before the columns are gathered."""
+    if like_rows is not None:
+        mesh, last = proj.device_mesh, proj.ndim - 1
+        place = [q if isinstance(q, Shard) and q.dim == 0
+                 else c if isinstance(c, Shard) and c.dim == last else Replicate()
+                 for q, c in zip(as_dtensor(like_rows, mesh).placements, proj.placements)]
+        if list(proj.placements) != place:
+            proj = proj.redistribute(mesh, place)
+    return gather_dim(proj, -1)
 
 
 def _placements(rows: Sequence, share: Optional[_Share], dim: int) -> tuple:
@@ -370,6 +375,27 @@ def ssm_forward(
     return out
 
 
+def _inner_cols(w: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """`in_proj` with its columns over the model axis under `tp`, as the
+    reference's `inner` places the product: a local slice where the
+    parameter's spec leaves them replicated there (it drops `inner` where
+    the model axis does not divide it, as hymba's 6,457 at 16).  Left so, a
+    decode step's product is placed by DTensor's cost model alone, which
+    for a large weight moves the step's few rows onto the weight's `d`
+    shards rather than gather the weight: every model rank then runs every
+    column of the whole batch.  (A prefill's rows outweigh the weight, and
+    DTensor gathers it and cuts the columns itself.)"""
+    if not isinstance(w, DTensor) or ctx.strategy != "tp":
+        return w
+    mesh = w.device_mesh
+    m = list(mesh.mesh_dim_names).index(ctx.tp_axis)
+    if mesh.size(m) == 1 or not isinstance(w.placements[m], Replicate):
+        return w
+    place = list(w.placements)
+    place[m] = Shard(w.ndim - 1)
+    return w.redistribute(mesh, place)
+
+
 def ssm_decode_step(
     h: torch.Tensor,  # (B,1,D)
     p: dict,
@@ -382,7 +408,7 @@ def ssm_decode_step(
     both states new tensors.  Under a mesh each rank steps its own slots:
     the rows that its shards of the caches hold (and, where the model axis
     divides the heads, its own heads of them)."""
-    proj = h @ p["in_proj"]
+    proj = h @ _inner_cols(p["in_proj"], ctx)
     if not ctx.enabled:
         y, new_conv, state = _decode_mixer(proj, p, cfg, h.dtype, conv_state, ssm_state)
     else:  # the engine places both states by their slots

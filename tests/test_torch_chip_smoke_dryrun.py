@@ -43,6 +43,8 @@ def test_dryrun_phase_holds_a_cell_to_its_bound(tmp_path, capsys):
                                                                            1.02)})
     assert chip_smoke.DRYRUN_BOUNDS[LM, "train_4k"] == (1.0105e14, 1.02)
     assert chip_smoke.DRYRUN_BOUNDS["mamba2-370m", "decode_32k"] == (3.81599744e8, 1.02)
+    assert chip_smoke.DRYRUN_BOUNDS["hymba-1.5b", "decode_32k"] == (2.000900096e9, 1.02)
+    assert ("hymba-1.5b", "decode_32k", "ok") in chip_smoke.DRYRUN_CELLS
 
 
 def test_dryrun_phase_holds_a_cell_to_its_all_gather_bound(tmp_path, capsys):

@@ -2,8 +2,8 @@
 configs on the 16x16 mesh.  Each side runs in a subprocess of its own (the
 reference on 512 placeholder host devices, the port as rank 0 of torch's
 `fake` process group), with `get_config` patched to `get_smoke_config` and
-to two variants of it (`VARIANTS`: mamba2 with 16 SSM heads, deepseek with
-16 heads and 16 KV heads).
+to three variants of it (`VARIANTS`: mamba2 with 16 SSM heads, deepseek with
+16 heads and 16 KV heads, hymba with 5 heads at d 640).
 
 Prefill and decode: the same status, `memory.argument_bytes` equal but where
 the two place the SSM's decode caches differently (`ARG_PARTED`, ROADMAP
@@ -14,8 +14,8 @@ Every cell: `memory.output_bytes` equal but for XLA's output tuple table
 (`OUT_LEAVES`) and the caches a decode returns, and the collective bytes by
 kind pinned on both sides (`COLLECTIVES`) with the collectives that part
 them.  The port's products, listed by site in its subprocess (`_LISTING`),
-show that the sites C.5 repaired run on rank 0's share, the SSD mixer's on
-its own heads."""
+show that the sites C.5 and C.7 repaired run on rank 0's share, the SSD
+mixer's on its own heads."""
 
 from __future__ import annotations
 
@@ -35,14 +35,28 @@ from tests.util import REPO, run_with_devices
 # mamba2 with 16 SSM heads of 8 (d_inner 128 unchanged), which the 16 model
 # ranks divide, and deepseek with its full config's 16 heads and 16 KV heads
 # (the head-parallel attention, whose decode reads its caches in their
-# layout: ROADMAP C.6)
+# layout: ROADMAP C.6).  hymba with `test_torch_families_mesh.py`'s
+# hymba_seq heads (5 heads, 1 KV head and 5 SSM heads, which 16 does not
+# divide, as the full config's 25, 5 and 25: the attention's sequence-
+# parallel arm and flash-decode, the SSM's whole-heads arm) at d 640 with
+# SSM heads of 64: an in_proj of (640, 661) whose 661 columns 16 does not
+# divide either (as the full config's 6,457), and whose 846 KB of bf16
+# outweigh the step's rows, as at full width (ROADMAP C.7).  On the parent of
+# the repair its decode counted 2.616x the reference's FLOPs (4.1425e7
+# against 1.5836e7): DTensor moved the step's 128 rows onto in_proj's `d`
+# shards rather than gather the weight, and every model rank ran all 661
+# columns, (128, 661) at K 40 over 4 layers, 2.707e7; with the columns on
+# the model axis (`ssm._inner_cols`) it runs (128, 42) at K 40, 1.015x.
 MAMBA16, DEEPSEEK16 = "mamba2-370m/16-heads", "deepseek-moe-16b/16-heads"
+HYMBA5 = "hymba-1.5b/5-heads"
 VARIANTS = {MAMBA16: ("mamba2-370m", dict(ssm_heads=16, ssm_head_dim=8)),
-            DEEPSEEK16: ("deepseek-moe-16b", dict(n_heads=16, n_kv=16))}
+            DEEPSEEK16: ("deepseek-moe-16b", dict(n_heads=16, n_kv=16)),
+            HYMBA5: ("hymba-1.5b", dict(n_heads=5, n_kv=1, ssm_heads=5, d_model=640,
+                                        ssm_head_dim=64))}
 CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
          ("deepseek-moe-16b", "prefill_32k"), ("deepseek-moe-16b", "decode_32k"),
          ("mamba2-370m", "decode_32k"), ("hymba-1.5b", "decode_32k"),
-         (MAMBA16, "decode_32k"), (DEEPSEEK16, "decode_32k"))
+         (MAMBA16, "decode_32k"), (DEEPSEEK16, "decode_32k"), (HYMBA5, "decode_32k"))
 TRAIN = ("qwen3-1.7b", "train_4k")
 TRAINS = (TRAIN, (MAMBA16, "train_4k"))
 
@@ -103,12 +117,15 @@ TRAIN_MOST = {(MAMBA16, "train_4k"): 1.10}  # from 3.656x with every head on eac
 # float32 is placed by its rows and, where 16 divides the heads, its heads,
 # as the reference's of the 16-head variant (H its largest dim); with 4
 # heads by its rows alone, where the reference shards P: mamba2's 196,608
-# against 12,288 (+184,320), each of hymba's layers' 32,768 against 2,048.
-# A decode step returns its caches, so its output bytes part alike.
+# against 12,288 (+184,320), each of hymba's layers' 32,768 against 2,048,
+# and of the 5-head hymba's 81,920 against 5,120 (its conv state 16,128
+# against 1,008).  A decode step returns its caches, so its output bytes
+# part alike.
 ARG_PARTED = {
     ("mamba2-370m", "decode_32k"): 21600 + 184320,
     ("hymba-1.5b", "decode_32k"): 4 * (6480 + 30720),
     (MAMBA16, "decode_32k"): 21600,
+    (HYMBA5, "decode_32k"): 4 * (15120 + 76800),
 }
 
 # XLA's `output_size_in_bytes` counts the output tuple's table, 8 bytes a
@@ -120,7 +137,7 @@ OUT_LEAVES = {
     ("qwen3-1.7b", "prefill_32k"): 3, ("qwen3-1.7b", "decode_32k"): 3,
     ("deepseek-moe-16b", "prefill_32k"): 5, ("deepseek-moe-16b", "decode_32k"): 5,
     ("mamba2-370m", "decode_32k"): 3, ("hymba-1.5b", "decode_32k"): 13,
-    (MAMBA16, "decode_32k"): 3, (DEEPSEEK16, "decode_32k"): 5,
+    (MAMBA16, "decode_32k"): 3, (DEEPSEEK16, "decode_32k"): 5, (HYMBA5, "decode_32k"): 13,
     TRAIN: 43, (MAMBA16, "train_4k"): 37,
 }
 
@@ -172,6 +189,19 @@ OUT_LEAVES = {
 # the model axis, forward and backward (`sharding.constrain_cotangent`,
 # 2 x 5.033e7), and reduce-scatters the gradient of in_proj's gathered
 # output (7.471e6).
+# The repair of ROADMAP C.7 puts in_proj's columns on the model axis in a
+# decode step (`ssm._inner_cols`).  Where DTensor moves the step's rows onto
+# the weight's `d` shards (the 5-head hymba), each rank now reduce-scatters
+# its partial sums of its 42 columns onto its 8 rows, then gathers the
+# columns (`ssm._rows`): reduce-scatter 44,352 -> 4,736 (4 layers x 672
+# bytes, 8 rows of 42 bf16 columns, where all 661 took 4 x 10,576; the
+# head's 2,048 unchanged) and all-gather 3,108,352 -> 3,151,360 (4 x 8 rows
+# x 672 bf16 columns, 16 uneven shards of 42).  The rest of its
+# all-gather bytes are DTensor's all-to-alls, which the fake process group
+# runs as all-gathers: the step's rows moved onto the weights' `d` shards
+# (in_proj's (128, 640), 655,360) and the model ranks' partial sums of the
+# attention's, the SSM's and the MLP's outputs placed onto the rows (3 x
+# 655,360); the other decode cells and both smoke SSM configs are unchanged.
 COLLECTIVES = {
     ("qwen3-1.7b", "prefill_32k"): {
         "all-gather": (213927424, 255994880), "all-reduce": (117440512, 103183024128),
@@ -199,6 +229,9 @@ COLLECTIVES = {
     (DEEPSEEK16, "decode_32k"): {  # all-gather 805,438,208 before C.6: the caches resharded
         "all-gather": (107264, 110592), "all-reduce": (14592, 565248),
         "reduce-scatter": (4096, 0), "collective-permute": (0, 288), "all-to-all": (0, 6291584)},
+    (HYMBA5, "decode_32k"): {  # all-gather 3,108,352 and reduce-scatter 44,352 before C.7
+        "all-gather": (3151360, 1468928), "all-reduce": (289280, 559872),
+        "reduce-scatter": (4736, 0), "collective-permute": (0, 26016), "all-to-all": (0, 1280)},
     (MAMBA16, "train_4k"): {
         "all-gather": (928960768, 67227584), "all-reduce": (137913896, 339730240),
         "reduce-scatter": (7472776, 0), "collective-permute": (0, 256380928),
@@ -396,12 +429,31 @@ def test_repaired_products_run_on_rank_0s_share(records):
         assert vocab not in (*shape, k) and flops == 2 * (B // dp) * (vocab // tp) * D, \
             (cell, shape, k)
         if cell[1] == "decode_32k":  # rank 0's rows, the vocab shard
-            assert shape == (B // dp, vocab // tp) and k == D, (cell, shape, k)
+            # (the 5-head hymba's head, its d of 640 sharded as in_proj's, runs
+            # the whole batch at rank 0's d shard: DTensor moves the step's rows
+            # onto the tied embedding's `d` shards, at the same FLOPs)
+            rows, d = (B, D // dp) if cell == (HYMBA5, "decode_32k") else (B // dp, D)
+            assert shape == (rows, vocab // tp) and k == d, (cell, shape, k)
     # mamba2's in_proj on rank 0's rows of a decode step
     B = SHAPES["decode_32k"]["batch"]
     for shape, k, _ in _at(products, ("mamba2-370m", "decode_32k"), "forward",
-                           "ssm_decode_step", '@ p["in_proj"]'):
+                           "ssm_decode_step", '@ _inner_cols(p["in_proj"]'):
         assert shape[0] == B // dp, (shape, k)
+    # every SSM and hybrid decode step's in_proj on rank 0's share (ROADMAP
+    # C.7): its 1/tp of the columns, uneven shards of ceil(C / tp), of
+    # either rank 0's rows at the whole d or the whole batch at its d shard
+    # (where DTensor moves the step's rows onto the weight's); never every
+    # column of the whole batch
+    for cell in CELLS:
+        cfg = _config(cell[0])
+        if cell[1] != "decode_32k" or not cfg.ssm_heads:
+            continue
+        D, C = cfg.d_model, 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+        got = _at(products, cell, "forward", "ssm_decode_step", '@ _inner_cols(p["in_proj"]')
+        for shape, k, _ in got:
+            assert shape[-1] == -(-C // tp) and (shape[0], k) in ((B // dp, D), (B, D // dp)), \
+                (cell, shape, k)
+        assert sum(f for *_, f in got) == cfg.n_layers * 2 * (B // dp) * -(-C // tp) * D, cell
 
 
 def test_ssd_products_run_on_the_ranks_heads(records):

@@ -185,7 +185,7 @@ def _cases(d):
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.sharding import ShardingCtx, shard_params
     from repro_torch.lakeformat.encodings import bitpack_encode
-    from repro_torch.models import model
+    from repro_torch.models import model, ssm
     from repro_torch.models.model import params_from_reference
     from repro_torch.serve.engine import ServeEngine
 
@@ -195,6 +195,17 @@ def _cases(d):
     def tensors(batch):
         return {k: torch.from_numpy(v) for k, v in batch.items()}
 
+    # in_proj as each decode step's product under tp reads it: its placements
+    # before and after `ssm._inner_cols`, and the rank's shard
+    cols, inner_cols = set(), ssm._inner_cols
+
+    def listed(w, ctx):
+        got = inner_cols(w, ctx)
+        if ctx.enabled and ctx.strategy == "tp":
+            cols.add((str(w.placements), str(got.placements), tuple(got.to_local().shape)))
+        return got
+
+    ssm._inner_cols = listed
     torch.set_num_threads(1)
     _wait_for_inputs(d)
     with open(os.path.join(d, "inputs.pkl"), "rb") as f:
@@ -207,7 +218,9 @@ def _cases(d):
         cfg = config(spec)
         params = params_from_reference(params_np, device="cpu")
         eng = ServeEngine(params, cfg, n_slots=SLOTS, max_len=MAX_LEN, ctx=tp, device="cpu")
+        cols.clear()
         out[name, "served"] = _served(eng, inp["prompts"])
+        out[name, "in_proj"] = sorted(cols)
         out[name, "cache placements"] = [{k: str(c.placements) for k, c in seg.items()}
                                          for seg in eng.caches]
         batch = tensors(inp["prefill", name])
@@ -382,6 +395,27 @@ def test_caches_are_placed_in_the_decode_steps_layout(mesh_results, name):
     them."""
     ranks, _ = mesh_results
     assert _same_on_every_rank(ranks, (name, "cache placements")) == CACHE_PLACEMENTS[name]
+
+
+# in_proj (D, C) as the engine's decode steps read it under 2x2 tp (ROADMAP
+# C.7): stored by its spec ("d", "inner"), D over `data` and C over `model`
+# where 2 divides it (mamba2's 292, hymba's 276); hymba_seq's 341 columns,
+# which the spec keeps whole on `model`, cut to the model rank's own 171 or
+# 170 for the product (`ssm._inner_cols`), so that each model rank runs its
+# own columns of the step's rows, as at full width with 6,457 on 16
+_D_COLS = "(Shard(dim=0), Shard(dim=1))"
+IN_PROJ = {
+    "mamba2": lambda m: [(_D_COLS, _D_COLS, (32, 146))],
+    "hymba": lambda m: [(_D_COLS, _D_COLS, (32, 138))],
+    "hymba_seq": lambda m: [("(Shard(dim=0), Replicate())", _D_COLS, (32, (171, 170)[m]))],
+}
+
+
+@pytest.mark.parametrize("name", list(IN_PROJ))
+def test_decode_steps_in_proj_runs_the_model_ranks_columns(mesh_results, name):
+    ranks, _ = mesh_results
+    for rank, got in enumerate(ranks):  # rank r is model rank r % 2 of the (2, 2) mesh
+        assert got[name, "in_proj"] == IN_PROJ[name](rank % 2), (rank, got[name, "in_proj"])
 
 
 @pytest.mark.parametrize("name", list(FAMILIES))
