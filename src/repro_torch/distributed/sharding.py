@@ -25,7 +25,8 @@ applies an op that DTensor has no strategy for to each rank's shard.
 `local_grad` hands a local body a parameter's shard with the gradient
 placements that the body's tokens give it (training under a mesh), and
 `constrain_cotangent` constrains a gradient as the reference's constraint
-does its cotangent (where DTensor would pass a partial sum back).  A plain
+does its cotangent (where DTensor would pass a partial sum back), and
+`constrain_rows` does both for an output projection's product.  A plain
 tensor given to `constrain` is taken as a replicated value.  The reference
 requires annotated dims to divide the axis size, so every rule is guarded:
 a non-divisible dim degrades to replicated, and `placements_for` refuses an
@@ -283,21 +284,24 @@ def constrain_cotangent(x: torch.Tensor) -> torch.Tensor:
     the value.  DTensor's own redistribution passes a `Partial` gradient
     back unreduced wherever its forward input was `Partial`.
 
-    The constraints that take it are those at a GLU MLP's output
-    (`layers.glu_mlp`: the dense MLP and the MoE's shared experts) and at
-    the SSD mixer's (`ssm.ssm_forward`, whose out_proj sums the model
-    ranks' own heads).  Its forward reduces the down projection's partial
-    sums over the ff shards;
-    in training the gradient reaching it is `Partial` on the model axis.
+    The constraints that take it are those at the output projections, each
+    through `constrain_rows`: the attention's `wo` (`transformer.attn_train`,
+    self- and cross-attention, and the hybrid layer's), the MLP's down
+    projection (`transformer.mlp_block`'s gelu `w2`; `layers.glu_mlp`: the
+    dense MLP and the MoE's shared experts) and the SSD mixer's out_proj
+    (`ssm.ssm_forward`, which sums the model ranks' own heads).  Their
+    forward reduces the projection's partial sums over the model axis (the
+    ff shards, the head shards); in training the gradient reaching them is
+    `Partial` on the model axis.
     The head's backward starts that partial sum (dh = dlogits w^T, a
     contraction over the vocab shards), the products at each layer's
     input add to it (the MLP's dx = dh_g wg^T + dh_u wu^T over the ff
     shards, the attention's over the head shards), and the norms' backward
     and the residual stream carry it from layer to layer unreduced.
-    Passed back unreduced, DTensor pairs it with the down projection's
-    gathered weight and hidden state, and both backward products of
-    (a h_u) wo run at the whole ff on every rank; reduced here, they run on
-    the rank's ff shard.  The other constraints keep DTensor's own
+    Passed back unreduced, DTensor pairs it with the projection's gathered
+    weight and input, and both backward products of (a h_u) wo run at the
+    whole ff (of o wo at the whole H hd) on every rank; reduced here, they
+    run on the rank's shard.  The other constraints keep DTensor's own
     backward: constraining the cotangents of the residual stream
     everywhere hands the q, k and v projections' head-sharded views
     gradients sharded on their last dim that do not unflatten into heads
@@ -306,6 +310,14 @@ def constrain_cotangent(x: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, DTensor) or not x.requires_grad:
         return x
     return _CotangentAs.apply(x)
+
+
+def constrain_rows(x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """An output projection's product (B, S, D) made whole on its batch
+    rows, and its gradient reduced onto the same placement
+    (`constrain_cotangent`), so that the projection's backward products run
+    on the rank's shard of its contraction."""
+    return constrain_cotangent(constrain(x, ("batch", None, None), ctx))
 
 
 def shard_params(params, cfg, ctx: ShardingCtx):

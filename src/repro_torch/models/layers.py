@@ -41,7 +41,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.distributed.sharding import (
     ShardingCtx,
     constrain,
-    constrain_cotangent,
+    constrain_rows,
     from_local,
     like,
     local_grad,
@@ -215,9 +215,7 @@ def glu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tenso
     h_g = constrain(x @ wg, ("batch", None, "ff"), ctx)
     h_u = constrain(x @ wu, ("batch", None, "ff"), ctx)
     a = F.silu(h_g) if act == "swiglu" else F.gelu(h_g, approximate="tanh")
-    out = (a * h_u) @ wo
-    # its gradient too, so that wo's backward products run on the ff shard
-    return constrain_cotangent(constrain(out, ("batch", None, None), ctx))
+    return constrain_rows((a * h_u) @ wo, ctx)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: ShardingCtx,

@@ -62,7 +62,7 @@ from repro_torch.distributed.sharding import (
     ShardingCtx,
     as_dtensor,
     constrain,
-    constrain_cotangent,
+    constrain_rows,
     from_local,
     gather_dim,
     local_grad,
@@ -369,7 +369,7 @@ def ssm_forward(
     # with a share of the heads, y's channels times out_proj's local rows:
     # a partial sum over the model axis, reduced here, and its gradient too,
     # so that out_proj's backward products run on the rank's channels
-    out = constrain_cotangent(constrain(y @ p["out_proj"], ("batch", None, None), ctx))
+    out = constrain_rows(y @ p["out_proj"], ctx)
     if return_state:
         return out, (new_conv, state)
     return out
@@ -415,5 +415,5 @@ def ssm_decode_step(
         y, new_conv, state = _on_rows(_decode_mixer, proj, p, cfg, ctx, h.dtype, conv_state,
                                       ssm_state)
     # whole on its rows, as ssm_forward's output and attn_decode's are
-    out = constrain(y @ p["out_proj"], ("batch", None, None), ctx)
+    out = constrain_rows(y @ p["out_proj"], ctx)
     return out, (new_conv, state)

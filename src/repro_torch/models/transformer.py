@@ -41,7 +41,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (
 from repro_torch.distributed.sharding import (
     DuplicateSpecError,
     constrain,
+    constrain_rows,
     from_local,
     gather_dim,
     on_shards,
@@ -138,8 +139,7 @@ def attn_train(h, p, cfg, ctx, positions, *, causal=True, window=None, prefix=""
         v = _split_heads(src @ p[prefix + "wv"], B, src.shape[1], KV, hd)
     o = attention(q, k, v, ctx, causal=causal, window=window, scale=cfg.attn_scale,
                   chunk=cfg.attn_block)
-    out = _out_proj(o, p[prefix + "wo"])
-    return h + constrain(out, ("batch", None, None), ctx), (k, v)
+    return h + constrain_rows(_out_proj(o, p[prefix + "wo"]), ctx), (k, v)
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -147,10 +147,20 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     sequence-parallel arm returns o sharded on its sequence as well as its
     batch, and the card's torch 2.11 cannot flatten the two for the
     product: the sequence is made whole first, as the residual stream
-    holds it."""
+    holds it.  Its heads, whole on each rank in that arm, are then cut as
+    `wo`'s rows are (a slice of each rank's own copy), so that the backward
+    product of `wo`'s gradient runs on the rank's rows; o's gradient comes
+    back to the whole heads, which H * hd's shards would not unflatten
+    into where the model axis does not divide H."""
     o = gather_dim(o, 1)
     B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ wo
+    o = o.reshape(B, S, H * hd)
+    if isinstance(o, DTensor) and isinstance(wo, DTensor):
+        place = [Shard(2) if isinstance(p, Replicate) and isinstance(w, Shard) and w.dim == 0
+                 else p for p, w in zip(o.placements, wo.placements)]
+        if place != list(o.placements):
+            o = o.redistribute(o.device_mesh, place)
+    return o @ wo
 
 
 def _cached_attention(q, k, v, kcache, vcache, cfg, ctx, pos: int, ring: bool):
@@ -178,14 +188,14 @@ def attn_decode(h, p, cfg, ctx, pos: int, kcache, vcache, *, prefix=""):
     # made whole on its rows here, as attn_train's output is: a partial sum
     # over the model axis left in the residual stream would take the next
     # products' weights (the MLP's, the next q, k and v, the head) whole
-    return h + constrain(out, ("batch", None, None), ctx), kcache, vcache
+    return h + constrain_rows(out, ctx), kcache, vcache
 
 
 def mlp_block(h, p, cfg, ctx, prefix=""):
     x = rmsnorm(h, p[prefix + "ln2"], cfg.norm_eps, cfg.norm_plus_one)
     if cfg.act == "gelu":  # non-gated (whisper)
-        y = F.gelu(x @ p[prefix + "w1"], approximate="tanh") @ p[prefix + "w2"]
-        y = constrain(y, ("batch", None, None), ctx)
+        y = constrain_rows(F.gelu(x @ p[prefix + "w1"], approximate="tanh") @ p[prefix + "w2"],
+                           ctx)
     else:
         y = glu_mlp(x, p[prefix + "wg"], p[prefix + "wu"], p[prefix + "wo2"], cfg.act, ctx)
     return h + y
@@ -201,7 +211,7 @@ def _hybrid_mix(h, attn_out, y, lp, cfg, ctx):
     """h plus the mean of the normed attention and SSM outputs; under a mesh
     the attention's output (a partial sum over the head shards after `wo`)
     is first made whole on its batch rows, as the SSM's is."""
-    attn_out = constrain(attn_out, ("batch", None, None), ctx)
+    attn_out = constrain_rows(attn_out, ctx)
     mix = 0.5 * (rmsnorm(attn_out, lp["na"], cfg.norm_eps) * lp["beta_a"]
                  + rmsnorm(y, lp["ns"], cfg.norm_eps) * lp["beta_s"])
     return h + constrain(mix.to(h.dtype), ("batch", None, None), ctx)
@@ -360,8 +370,7 @@ def layer_decode(kind: str, h, lp, cfg, ctx, pos: int, cache, window=None):
         B = h.shape[0]
         q = _split_heads(x @ lp["x_wq"], B, 1, cfg.n_heads, cfg.head_dim)
         o = attention(q, cache["ck"], cache["cv"], ctx, causal=False, scale=cfg.attn_scale)
-        h = h + constrain(o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"],
-                          ("batch", None, None), ctx)
+        h = h + constrain_rows(o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ lp["x_wo"], ctx)
         h = mlp_block(h, lp, cfg, ctx)
         return h, cache
     raise ValueError(kind)

@@ -348,9 +348,9 @@ def _cases(d):
     batch = {"tokens": torch.from_numpy(inp["tokens"])}
 
     # gradients: _grads + shard_grads under the mesh, gathered; the
-    # placements of each gradient that leaves a GLU MLP's output constraint
-    # for its down projection, partial or not on each mesh dim
-    constrain_cotangent = layers.constrain_cotangent
+    # placements of each gradient that reaches a GLU MLP's down projection
+    # through the output's constraint, partial or not on each mesh dim
+    constrain_rows = layers.constrain_rows
     for name, strategy in GRAD_CASES:
         spec, params_np = inp[name]
         cfg = config(spec)
@@ -360,17 +360,17 @@ def _cases(d):
             p.requires_grad_(True)
         cotangents = []
 
-        def spy(x):
+        def spy(x, ctx):
             if x.requires_grad:
                 x.register_hook(lambda g: cotangents.append([q.is_partial() for q in g.placements]))
-            return constrain_cotangent(x)
+            return constrain_rows(x, ctx)
 
-        layers.constrain_cotangent = spy
+        layers.constrain_rows = spy
         try:
             loss, _ = model.forward_train(params, batch, cfg, ctx)
             grads = loop.shard_grads(loop._grads(params, loss), cfg, ctx)
         finally:
-            layers.constrain_cotangent = constrain_cotangent
+            layers.constrain_rows = constrain_rows
         out["grads", name, strategy] = (float(loss.full_tensor()), _tree_np(grads),
                                         _placements(grads, param_dims(cfg), ctx),
                                         str(loss.placements))
@@ -634,7 +634,7 @@ def test_gradients_match_the_reference_under_the_same_mesh(mesh_results, name, s
 def test_mlp_cotangent_reaches_wo_reduced_on_the_model_axis(mesh_results, name):
     """Under tp the gradient that reaches a GLU MLP's down projection (the
     dense MLPs, and deepseek's shared experts) is reduced on the model axis
-    at the MLP's output (`sharding.constrain_cotangent`, as the transpose
+    at the MLP's output (`sharding.constrain_rows`, as the transpose
     of the reference's constraint), never `Partial` there, so wo's products
     run on the rank's ff shard; the gradients of wo and wg equal the
     reference's under the same mesh."""
