@@ -3790,31 +3790,35 @@ def mesh_phase(seed: int, device: str = "cuda") -> dict:
 # backward) takes longer than the phase's budget of 60 s (PERF.md section 6)
 SSM_ARCH, HYBRID_ARCH, MOE_ARCH = FAMILY_ARCHS[:3]
 GLU_ARCH = "gemma-7b"  # 16 heads of 256 on the 16 model ranks: the head-parallel arm
+ENCDEC_ARCH = EV_ARCHS[0]  # whisper-base: 1,500 encoder frames, which 16 does not divide
 DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "ok"), (LM_ARCH, "train_4k", "ok"),
                 (LM_ARCH, "long_500k", "skipped"), (SSM_ARCH, "decode_32k", "ok"),
                 (HYBRID_ARCH, "decode_32k", "ok"), (MOE_ARCH, "decode_32k", "ok"),
-                (GLU_ARCH, "train_4k", "ok"))
+                (GLU_ARCH, "train_4k", "ok"), (ENCDEC_ARCH, "decode_32k", "ok"))
 DRYRUN_TIMEOUT_S = 300
 # the reference's per-device FLOPs on the 16x16 mesh: the JAX package's dry
 # run (`repro.launch.dryrun`, trip-aware HLO count) at 512 host devices, as
 # PERF.md section 6 records them: qwen3-1.7b x train_4k, mamba2-370m x
-# decode_32k, hymba-1.5b x decode_32k and gemma-7b x train_4k (jax 0.9 on
-# the CPU)
+# decode_32k, hymba-1.5b x decode_32k, gemma-7b x train_4k and
+# whisper-base x decode_32k (jax 0.9 on the CPU)
 TRAIN_4K_REFERENCE_FLOPS = 1.0105e14
 SSM_DECODE_REFERENCE_FLOPS = 3.81599744e8
 HYBRID_DECODE_REFERENCE_FLOPS = 2.000900096e9
-GLU_TRAIN_REFERENCE_FLOPS = 2.8678e14
+GLU_TRAIN_REFERENCE_FLOPS = 2.86778837696512e14
+ENCDEC_DECODE_REFERENCE_FLOPS = 2.59825664e8
 # (arch, shape) -> (the reference's per-device FLOPs, the most the port may
 # count over it): each product on rank 0's share (ROADMAP C.5; mamba2's SSD
 # mixer on the rank's 2 of 32 heads, the conv over B and C whole; C.7:
 # hymba's in_proj on the rank's columns, 3.49x before, its SSD mixer on
 # every one of its 25 heads, which 16 does not divide; C.8: gemma's
 # attention output projection's backward on the rank's heads, 1.302x
-# before)
+# before; C.9: whisper's cross-attention on the rank's uneven shard of the
+# frames, 1.532x before)
 DRYRUN_BOUNDS = {(LM_ARCH, "train_4k"): (TRAIN_4K_REFERENCE_FLOPS, 1.02),
                  (SSM_ARCH, "decode_32k"): (SSM_DECODE_REFERENCE_FLOPS, 1.02),
                  (HYBRID_ARCH, "decode_32k"): (HYBRID_DECODE_REFERENCE_FLOPS, 1.02),
-                 (GLU_ARCH, "train_4k"): (GLU_TRAIN_REFERENCE_FLOPS, 1.02)}
+                 (GLU_ARCH, "train_4k"): (GLU_TRAIN_REFERENCE_FLOPS, 1.02),
+                 (ENCDEC_ARCH, "decode_32k"): (ENCDEC_DECODE_REFERENCE_FLOPS, 1.02)}
 # (arch, shape) -> the most all-gather bytes a device: deepseek-moe-16b's
 # decode reads its caches in the layout they are placed in (ROADMAP C.6),
 # 10x below the 6.214e10 that resharding them every step moved (PERF.md)

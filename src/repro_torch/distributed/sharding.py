@@ -30,8 +30,12 @@ does its cotangent (where DTensor would pass a partial sum back), and
 tensor given to `constrain` is taken as a replicated value.  The reference
 requires annotated dims to divide the axis size, so every rule is guarded:
 a non-divisible dim degrades to replicated, and `placements_for` refuses an
-uneven shard, which DTensor itself would allow.  A spec that names one mesh axis twice raises
-`DuplicateSpecError`, as `NamedSharding` does.
+uneven shard, which DTensor itself would allow.  The one exception is a
+constraint that asks for DTensor's uneven shards (`uneven=True`):
+flash-decode's caches, whose slots the model axis need not divide
+(whisper's 1,500 frames on 16 ranks), each rank attending its own.  A spec
+that names one mesh axis twice raises `DuplicateSpecError`, as
+`NamedSharding` does.
 
 `rg_key` and `HashRing` map row groups to the fabric's pods
 (`datapath/fabric.py`), key for key as the reference's do: both hash with
@@ -143,9 +147,13 @@ def _axis_for(dim: Optional[str], ctx: ShardingCtx, activation: bool = False):
 
 
 def spec_for(dims: Sequence[Optional[str]], ctx: ShardingCtx,
-             shape: Optional[Sequence[int]] = None, activation: bool = False) -> Spec:
+             shape: Optional[Sequence[int]] = None, activation: bool = False,
+             uneven: bool = False) -> Spec:
     """The reference's PartitionSpec entries for logical dims, dropping
-    non-divisible annotations; () without a mesh."""
+    non-divisible annotations; () without a mesh.  With `uneven`, a
+    non-batch dim that its axis does not divide keeps the axis: DTensor
+    cuts it as torch.chunk does, ceil(size / n) a shard, the last ones
+    shorter or empty."""
     if not ctx.enabled:
         return ()
     entries = []
@@ -159,7 +167,8 @@ def spec_for(dims: Sequence[Optional[str]], ctx: ShardingCtx,
                     break
             ax = chosen
         elif ax is not None and shape is not None:
-            if shape[i] % ctx.axis_size(ax) != 0:
+            n = ctx.axis_size(ax)
+            if shape[i] % n != 0 and not uneven:
                 ax = None  # degrade to replicated
         entries.append(ax)
     return tuple(entries)
@@ -248,19 +257,25 @@ def like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return as_dtensor(t, x.device_mesh) if isinstance(x, DTensor) else t
 
 
-def to_spec(x: torch.Tensor, spec: Spec, mesh) -> DTensor:
-    """`x` (a plain tensor: a replicated value) redistributed to `spec`."""
+def to_spec(x: torch.Tensor, spec: Spec, mesh, uneven: bool = False) -> DTensor:
+    """`x` (a plain tensor: a replicated value) redistributed to `spec`
+    (in uneven shards where `uneven`)."""
     x = as_dtensor(x, mesh)
-    want = placements_for(spec, mesh, x.shape)
+    want = placements_for(spec, mesh, None if uneven else x.shape)
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
-def constrain(x: torch.Tensor, dims: Sequence[Optional[str]], ctx: ShardingCtx) -> torch.Tensor:
+def constrain(x: torch.Tensor, dims: Sequence[Optional[str]], ctx: ShardingCtx,
+              uneven: bool = False) -> torch.Tensor:
     """The reference's sharding constraint on logical dims: the identity
-    without a mesh, else `x` redistributed to the strategy-aware spec."""
+    without a mesh, else `x` redistributed to the strategy-aware spec.
+    With `uneven`, a dim that its axis does not divide is cut into DTensor's
+    uneven shards rather than left whole (`spec_for`): flash-decode's
+    caches, whose slots are then attended shard by shard."""
     if not ctx.enabled:
         return x
-    return to_spec(x, spec_for(dims, ctx, x.shape, activation=True), ctx.mesh)
+    spec = spec_for(dims, ctx, x.shape, activation=True, uneven=uneven)
+    return to_spec(x, spec, ctx.mesh, uneven)
 
 
 class _CotangentAs(torch.autograd.Function):
@@ -359,15 +374,18 @@ def local_grad(t: DTensor, x: DTensor, also: Sequence[int] = ()) -> torch.Tensor
 
 
 def local_range(x: DTensor, dim: int) -> Tuple[int, int]:
-    """(start, length) of this rank's shard along tensor dim `dim` of x
-    (even shards, major to minor over the mesh dims that shard it)."""
+    """(start, length) of this rank's shard along tensor dim `dim` of x,
+    major to minor over the mesh dims that shard it, each cut as DTensor
+    cuts it (torch.chunk's ceil(n / size) a shard, the last ones shorter
+    or empty where the size does not divide n)."""
     mesh = x.device_mesh
     coord = mesh.get_coordinate()
     start, n = 0, x.shape[dim]
     for m, p in enumerate(x.placements):
         if isinstance(p, Shard) and p.dim == dim:
-            n //= mesh.size(m)
-            start += coord[m] * n
+            chunk = -(-n // mesh.size(m))
+            start += coord[m] * chunk
+            n = max(0, min(chunk, n - coord[m] * chunk))
     return start, n
 
 

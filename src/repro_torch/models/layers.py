@@ -16,7 +16,9 @@ divisibility-driven, as in the reference:
   - head-parallel (Megatron TP) when n_heads and n_kv divide the model axis,
   - sequence-parallel otherwise (q sharded on Sq, K/V replicated),
   - decode (Sq == 1, tp > 1) outside head-parallel shards the KV cache on
-    Skv (flash-decode).
+    Skv (flash-decode); where the model axis does not divide Skv (whisper's
+    1,500 frames on 16 ranks), in DTensor's uneven shards, which the
+    reference drops to the batch alone.
 After the reference's constraints, each rank attends over its own shards
 (the body of a `shard_map`): heads and batch rows are independent, a q
 shard shifts its causal positions by its first row, and flash-decode
@@ -139,7 +141,9 @@ def attention(
     if not ctx.enabled:
         return _attend(q, k, v, q_offset=q_offset, **kw)
     qd, kd = attn_dims(q.shape[2], k.shape[2], q.shape[1], ctx)
-    q, k, v = constrain(q, qd, ctx), constrain(k, kd, ctx), constrain(v, kd, ctx)
+    # flash-decode's slots in uneven shards where the model axis does not
+    # divide them (`transformer._cache` places the caches so)
+    q, k, v = constrain(q, qd, ctx), constrain(k, kd, ctx, True), constrain(v, kd, ctx, True)
     q0, _ = local_range(q, 1)
     k0, _ = local_range(k, 1)
     # sequence-parallel: each rank's q rows read all of the replicated k and
@@ -185,7 +189,10 @@ def _attend(q, k, v, *, causal, window, scale, chunk, q_offset, kv_valid_len,
         if not groups:
             p = torch.softmax(s, dim=-1)
             return torch.einsum("bkrcs,bksd->bkrcd", p, vg)
-        mx = torch.amax(s, dim=-1, keepdim=True)
+        # a rank whose uneven shard of the keys is empty (60 frames on 16
+        # ranks: 15 shards of 4) takes no part in the maximum
+        mx = (torch.amax(s, dim=-1, keepdim=True) if Skv else
+              torch.full((*s.shape[:-1], 1), -1e30, device=s.device))
         for g in groups:
             dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
         p = torch.exp(s - mx)

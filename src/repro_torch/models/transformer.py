@@ -288,10 +288,11 @@ def layer_train(kind: str, h, lp, cfg, ctx, positions, window=None, enc_kv=None,
 def _cache(k: torch.Tensor, cfg, ctx, cache_len: Optional[int], ring: bool = False):
     """A prefill's keys or values as a decode cache: `_to_cache`, in the
     decode step's layout under a mesh (ring caches and the cross-attention's
-    `ck`/`cv` included)."""
+    `ck`/`cv` included; flash-decode's slots in uneven shards where the
+    model axis does not divide them, as the step reads them)."""
     k = _to_cache(k, cache_len, ring)
     try:
-        return constrain(k, attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1], ctx)
+        return constrain(k, attn_dims(cfg.n_heads, cfg.n_kv, 1, ctx)[1], ctx, uneven=True)
     except DuplicateSpecError:
         # fsdp's step layout names `model` twice (the widened batch and the
         # flash-decode slots): the step raises, as the reference's does, but

@@ -206,10 +206,13 @@ def _batched_zeros(c: torch.Tensor, n_slots: int, ctx: ShardingCtx) -> torch.Ten
     batch = placements_for(spec_for((None, "batch"), ctx, shape[:2], activation=True), mesh)
     if all(isinstance(b, Replicate) or isinstance(p, Replicate) for b, p in zip(batch, place)):
         place = [b if isinstance(b, Shard) else p for b, p in zip(batch, place)]
-    local = list(shape)
+    # every dim but the slots as c's own shard holds it (flash-decode's
+    # uneven slots among them)
+    local = list(c.to_local().shape)
+    local[1] = n_slots
     for m, p in enumerate(place):
-        if isinstance(p, Shard):
-            local[p.dim] //= mesh.size(m)
+        if isinstance(p, Shard) and p.dim == 1:
+            local[1] //= mesh.size(m)
     return from_local(torch.zeros(local, dtype=c.dtype, device=c.to_local().device), mesh, place,
                       shape)
 

@@ -45,8 +45,10 @@ def test_dryrun_phase_holds_a_cell_to_its_bound(tmp_path, capsys):
     assert chip_smoke.DRYRUN_BOUNDS["mamba2-370m", "decode_32k"] == (3.81599744e8, 1.02)
     assert chip_smoke.DRYRUN_BOUNDS["hymba-1.5b", "decode_32k"] == (2.000900096e9, 1.02)
     assert ("hymba-1.5b", "decode_32k", "ok") in chip_smoke.DRYRUN_CELLS
-    assert chip_smoke.DRYRUN_BOUNDS["gemma-7b", "train_4k"] == (2.8678e14, 1.02)
+    assert chip_smoke.DRYRUN_BOUNDS["gemma-7b", "train_4k"] == (2.86778837696512e14, 1.02)
+    assert chip_smoke.DRYRUN_BOUNDS["whisper-base", "decode_32k"] == (2.59825664e8, 1.02)
     assert ("gemma-7b", "train_4k", "ok") in chip_smoke.DRYRUN_CELLS
+    assert ("whisper-base", "decode_32k", "ok") in chip_smoke.DRYRUN_CELLS
 
 
 def test_dryrun_phase_holds_a_cell_to_its_all_gather_bound(tmp_path, capsys):

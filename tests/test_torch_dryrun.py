@@ -47,16 +47,25 @@ from tests.util import REPO, run_with_devices
 # shards rather than gather the weight, and every model rank ran all 661
 # columns, (128, 661) at K 40 over 4 layers, 2.707e7; with the columns on
 # the model axis (`ssm._inner_cols`) it runs (128, 42) at K 40, 1.015x.
+# whisper over 60 encoder frames, which the 16 model ranks do not divide
+# (as the full config's 1,500; the smoke config's 48 divide them): its
+# decode step's cross-attention caches in flash-decode's uneven shards of
+# the frames, 4 a rank and none on the last (ROADMAP C.9).  On the parent
+# of the repair its decode counted 1.027x the reference's FLOPs (8.8474e6
+# against 8.6170e6): the caches fell back to their rows, and every model
+# rank attended all 60 frames.
 MAMBA16, DEEPSEEK16 = "mamba2-370m/16-heads", "deepseek-moe-16b/16-heads"
-HYMBA5 = "hymba-1.5b/5-heads"
+HYMBA5, WHISPER60 = "hymba-1.5b/5-heads", "whisper-base/60-frames"
 VARIANTS = {MAMBA16: ("mamba2-370m", dict(ssm_heads=16, ssm_head_dim=8)),
             DEEPSEEK16: ("deepseek-moe-16b", dict(n_heads=16, n_kv=16)),
             HYMBA5: ("hymba-1.5b", dict(n_heads=5, n_kv=1, ssm_heads=5, d_model=640,
-                                        ssm_head_dim=64))}
+                                        ssm_head_dim=64)),
+            WHISPER60: ("whisper-base", dict(encoder_seq=60))}
 CELLS = (("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
          ("deepseek-moe-16b", "prefill_32k"), ("deepseek-moe-16b", "decode_32k"),
          ("mamba2-370m", "decode_32k"), ("hymba-1.5b", "decode_32k"),
-         (MAMBA16, "decode_32k"), (DEEPSEEK16, "decode_32k"), (HYMBA5, "decode_32k"))
+         (MAMBA16, "decode_32k"), (DEEPSEEK16, "decode_32k"), (HYMBA5, "decode_32k"),
+         (WHISPER60, "decode_32k"))
 TRAIN = ("qwen3-1.7b", "train_4k")
 # the training cells of ROADMAP C.8: the 16-head deepseek's head-parallel
 # attention and whisper's gelu MLP and sequence-parallel attention
@@ -133,12 +142,24 @@ TRAIN_MOST = {(MAMBA16, "train_4k"): 1.10}  # from 3.656x with every head on eac
 # and of the 5-head hymba's 81,920 against 5,120 (its conv state 16,128
 # against 1,008).  A decode step returns its caches, so its output bytes
 # part alike.
+# Whisper's cross-attention caches (L, 8 rows, Se, KV, hd) bf16 are placed
+# by the port in flash-decode's uneven shards of the frames (ROADMAP C.9),
+# by the reference on hd: 60 frames on 16 ranks give rank 0 4 frames of all
+# 16 hd where the reference's hold all 60 of one, 2 layers x 8 x 4 heads x
+# (64 - 60) x 2 bytes, +512 for each of ck and cv.
 ARG_PARTED = {
     ("mamba2-370m", "decode_32k"): 21600 + 184320,
     ("hymba-1.5b", "decode_32k"): 4 * (6480 + 30720),
     (MAMBA16, "decode_32k"): 21600,
     (HYMBA5, "decode_32k"): 4 * (15120 + 76800),
+    (WHISPER60, "decode_32k"): 2 * 512,
 }
+# rank 0's bytes of the leaves that a decode step never reads and that the
+# reference's `jax.jit` drops from its arguments (`keep_unused=False`):
+# whisper's encoder (its layer and final norms and projections) and the
+# decoder's cross-attention x_wk and x_wv, whose keys and values the step
+# reads from ck and cv, 1,152 + 128 bytes
+UNREAD = {(WHISPER60, "decode_32k"): 1152 + 128}
 
 # XLA's `output_size_in_bytes` counts the output tuple's table, 8 bytes a
 # leaf, besides the leaves themselves: the logits and the stacked caches
@@ -150,6 +171,7 @@ OUT_LEAVES = {
     ("deepseek-moe-16b", "prefill_32k"): 5, ("deepseek-moe-16b", "decode_32k"): 5,
     ("mamba2-370m", "decode_32k"): 3, ("hymba-1.5b", "decode_32k"): 13,
     (MAMBA16, "decode_32k"): 3, (DEEPSEEK16, "decode_32k"): 5, (HYMBA5, "decode_32k"): 13,
+    (WHISPER60, "decode_32k"): 5,
     TRAIN: 43, (MAMBA16, "train_4k"): 37, (DEEPSEEK16, "train_4k"): 79,
     ("whisper-base", "train_4k"): 79,
 }
@@ -248,6 +270,9 @@ COLLECTIVES = {
     (DEEPSEEK16, "decode_32k"): {  # all-gather 805,438,208 before C.6: the caches resharded
         "all-gather": (107264, 110592), "all-reduce": (14592, 565248),
         "reduce-scatter": (4096, 0), "collective-permute": (0, 288), "all-to-all": (0, 6291584)},
+    (WHISPER60, "decode_32k"): {  # all-reduce 23,552 before C.9: the frames whole
+        "all-gather": (51712, 560640), "all-reduce": (32768, 53760),
+        "collective-permute": (0, 1312), "all-to-all": (0, 384)},
     (HYMBA5, "decode_32k"): {  # all-gather 3,108,352 and reduce-scatter 44,352 before C.7
         "all-gather": (3151360, 1468928), "all-reduce": (289280, 559872),
         "reduce-scatter": (4736, 0), "collective-permute": (0, 26016), "all-to-all": (0, 1280)},
@@ -379,7 +404,7 @@ def test_prefill_and_decode_cells_against_the_reference(records, cell):
     assert (port["arch"], port["shape"], port["mesh"], port["strategy"]) == \
         (ref["arch"], ref["shape"], ref["mesh"], ref["strategy"])
     assert port["memory"]["argument_bytes"] == \
-        ref["memory"]["argument_bytes"] + ARG_PARTED.get(cell, 0)
+        ref["memory"]["argument_bytes"] + ARG_PARTED.get(cell, 0) + UNREAD.get(cell, 0)
     ratio = port["flops"] / ref["flops"]
     if cell in PARTED:
         assert ratio == pytest.approx(PARTED[cell], rel=1e-9), ratio
@@ -485,6 +510,17 @@ def test_repaired_products_run_on_rank_0s_share(records):
             # onto the tied embedding's `d` shards, at the same FLOPs)
             rows, d = (B, D // dp) if cell == (HYMBA5, "decode_32k") else (B // dp, D)
             assert shape == (rows, vocab // tp) and k == d, (cell, shape, k)
+    # whisper's cross-attention in a decode step, its two products on rank
+    # 0's uneven shard of the encoder's frames (ROADMAP C.9): 4 of 60, never
+    # all 60
+    cfg, cell = _config(WHISPER60), (WHISPER60, "decode_32k")
+    frames, share = cfg.encoder_seq, -(-cfg.encoder_seq // tp)
+    got = _at(products, cell, "forward", "attend", "torch.einsum")
+    assert all(frames not in (*shape, k) for shape, k, _ in got), got
+    n = SHAPES["decode_32k"]["batch"] // dp * cfg.n_heads  # rank 0's rows x heads
+    cross = [(shape, k) for shape, k, _ in got if share in (shape[-1], k)]
+    assert sorted(cross) == sorted([((n, 1, cfg.head_dim), share),
+                                    ((n, 1, share), cfg.head_dim)]), got
     # mamba2's in_proj on rank 0's rows of a decode step
     B = SHAPES["decode_32k"]["batch"]
     for shape, k, _ in _at(products, ("mamba2-370m", "decode_32k"), "forward",

@@ -15,7 +15,10 @@ prompts longer than its window of 32 so that the ring wraps (4 heads, 2 KV:
 the head-parallel arm), and a variant with 5 heads, 1 KV and 5 SSM heads
 (the sequence-parallel arm and flash-decode, an `in_proj` of 341 that the
 model axis does not divide, as full-width hymba's 25 heads, 5 KV and 6,457
-do); whisper-base (2 encoder and 2 decoder layers over 48 frames);
+do); whisper-base (2 encoder and 2 decoder layers over 48 frames), and a
+variant with 3 heads over 45 frames, which the model axis divides neither
+(the sequence-parallel arm, and flash-decode over uneven shards of the
+frames, as full-width whisper's 8 heads and 1,500 frames on 16);
 llava-next-34b at 2 layers.
 
 Tolerances: prefill logits within atol/rtol 1e-5 (float32 sums in other
@@ -54,6 +57,7 @@ FAMILIES = {
     "hymba_seq": ("hymba-1.5b", dict(F32, n_layers=2, global_layers=(0,), n_heads=5, n_kv=1,
                                      ssm_heads=5)),
     "whisper": ("whisper-base", F32),
+    "whisper_seq": ("whisper-base", dict(F32, n_heads=3, n_kv=3, encoder_seq=45)),
     "llava": ("llava-next-34b", dict(F32, n_layers=2)),
 }
 FSDP_RAISES = ("hymba", "whisper")  # their decode's flash-decode spec names `model` twice
@@ -223,6 +227,9 @@ def _cases(d):
         out[name, "in_proj"] = sorted(cols)
         out[name, "cache placements"] = [{k: str(c.placements) for k, c in seg.items()}
                                          for seg in eng.caches]
+        if cfg.is_encdec:  # the rank's frames of the cross-attention's caches
+            out[name, "cross frames"] = [tuple(eng.caches[-1][k].to_local().shape)
+                                         for k in ("ck", "cv")]
         batch = tensors(inp["prefill", name])
         logits, _ = model.prefill(eng.params, batch, cfg, tp, cache_len=PREFILL_CACHE)
         out[name, "prefill"] = _full(logits).numpy()
@@ -241,6 +248,9 @@ def _cases(d):
                                    for i, seg in enumerate(c_t) for n in seg))
         del eng, c_p, c_t
 
+        if name == "whisper_seq":  # the same model without a mesh
+            one = ServeEngine(params, cfg, n_slots=SLOTS, max_len=MAX_LEN, device="cpu")
+            out[name, "unsharded"] = _served(one, inp["prompts"])
         if name == "mamba2":  # no attention: its decode serves under fsdp
             one = ServeEngine(params, cfg, n_slots=SLOTS, max_len=MAX_LEN, device="cpu")
             out[name, "unsharded"] = _served(one, inp["prompts"])
@@ -384,7 +394,17 @@ CACHE_PLACEMENTS = {
     "hymba": [{"k": _HEADS, "v": _HEADS, "conv": _SLOTS, "state": _SSM_HEADS}] * 2,
     "hymba_seq": [{"k": _FLASH, "v": _FLASH, "conv": _SLOTS, "state": _SLOTS}] * 2,
     "whisper": [{}, {"k": _HEADS, "v": _HEADS, "ck": _HEADS, "cv": _HEADS}],
+    "whisper_seq": [{}, {"k": _FLASH, "v": _FLASH, "ck": _FLASH, "cv": _FLASH}],
     "llava": [{"k": _HEADS, "v": _HEADS}],
+}
+# the cross-attention's ck and cv (L, slots, frames, KV, hd) on each rank
+# (ROADMAP C.9): whisper_seq's 45 frames cut into DTensor's uneven shards
+# over `model`, 23 on model rank 0 and 22 on model rank 1, where the model
+# axis does not divide them (the reference leaves them whole on each rank);
+# the slots over `data`; whisper's 4 heads over `model`, its 48 frames whole
+CROSS_FRAMES = {
+    "whisper": lambda m: [(2, 2, 48, 2, 16)] * 2,
+    "whisper_seq": lambda m: [(2, 2, (23, 22)[m], 3, 16)] * 2,
 }
 
 
@@ -395,6 +415,24 @@ def test_caches_are_placed_in_the_decode_steps_layout(mesh_results, name):
     them."""
     ranks, _ = mesh_results
     assert _same_on_every_rank(ranks, (name, "cache placements")) == CACHE_PLACEMENTS[name]
+
+
+@pytest.mark.parametrize("name", list(CROSS_FRAMES))
+def test_cross_attention_caches_hold_each_model_ranks_frames(mesh_results, name):
+    ranks, _ = mesh_results
+    for rank, got in enumerate(ranks):  # rank r is model rank r % 2 of the (2, 2) mesh
+        assert got[name, "cross frames"] == CROSS_FRAMES[name](rank % 2), rank
+
+
+def test_whisper_over_uneven_frame_shards_serves_as_without_a_mesh(mesh_results):
+    """3 heads over 45 frames under 2x2 tp: the sequence-parallel arm, and
+    a decode step whose cross-attention each model rank runs over its own
+    uneven shard of the frames, combined by flash-decode: the tokens and
+    ticks of the same model without a mesh, and of the reference's engine
+    under its mesh."""
+    ranks, ref = mesh_results
+    served = _same_on_every_rank(ranks, ("whisper_seq", "served"))
+    assert served == ranks[0]["whisper_seq", "unsharded"] == ref["whisper_seq", "served"]
 
 
 # in_proj (D, C) as the engine's decode steps read it under 2x2 tp (ROADMAP
