@@ -167,8 +167,7 @@ def spec_for(dims: Sequence[Optional[str]], ctx: ShardingCtx,
                     break
             ax = chosen
         elif ax is not None and shape is not None:
-            n = ctx.axis_size(ax)
-            if shape[i] % n != 0 and not uneven:
+            if not uneven and shape[i] % ctx.axis_size(ax) != 0:
                 ax = None  # degrade to replicated
         entries.append(ax)
     return tuple(entries)

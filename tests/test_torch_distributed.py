@@ -155,7 +155,9 @@ def _inputs(d):
                                   lp, xs)
     rng_a = np.random.default_rng(1)
     for arm, (B, Sq, H, KV, Skv) in {"head": (2, 24, 4, 2, 24), "seq": (2, 24, 4, 1, 24),
-                                     "flash_decode": (2, 1, 4, 1, 32)}.items():
+                                     "flash_decode": (2, 1, 4, 1, 32),
+                                     "flash_decode_uneven": (2, 1, 4, 1, 33),
+                                     "flash_decode_empty": (2, 1, 4, 1, 3)}.items():
         inp["attn", arm] = tuple(rng_a.standard_normal(s).astype(np.float32)
                                  for s in ((B, Sq, H, 16), (B, Skv, KV, 16), (B, Skv, KV, 16)))
     with open(os.path.join(d, "inputs.tmp"), "wb") as f:
@@ -275,6 +277,20 @@ def _cases(d):
         want = layers.attention(q, k, v, local_ctx(), chunk=8, **kw)
         got = layers.attention(q, k, v, tp, chunk=8, **kw)
         out["attn", arm] = (_full(got).numpy(), want.numpy(), str(got.placements))
+    # flash-decode over slots that the model axis does not divide (ROADMAP
+    # C.9): 33 on the 2 model ranks, and 3 on a (1, 4) mesh's 4, whose last
+    # rank holds none
+    wide = ShardingCtx(mesh=make_mesh((1, 4), ("data", "model"), device="cpu"), strategy="tp")
+    for arm, ctx in (("flash_decode_uneven", tp), ("flash_decode_empty", wide)):
+        q, k, v = (torch.from_numpy(a) for a in inp["attn", arm])
+        kd = layers.attn_dims(q.shape[2], k.shape[2], 1, ctx)[1]
+        k, v = (sharding.constrain(t, kd, ctx, uneven=True) for t in (k, v))
+        valid = k.shape[1] - 1
+        want = layers.attention(_full(q), _full(k), _full(v), local_ctx(), causal=False,
+                                kv_valid_len=valid)
+        got = layers.attention(q, k, v, ctx, causal=False, kv_valid_len=valid)
+        out["attn", arm] = (_full(got).numpy(), want.numpy(), str(k.placements),
+                            sharding.local_range(k, 1))
 
     # moe_ffn's mesh arms; the row-sharded 2D arm with the resident budget at 0
     for strategy in ("tp", "fsdp_ep"):
@@ -450,6 +466,21 @@ def test_attention_arms_match_no_mesh(mesh_results, arm, placement):
         got, want, place = r["attn", arm]
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
         assert place == placement
+
+
+@pytest.mark.parametrize("arm,placement,ranges", [
+    ("flash_decode_uneven", "(Shard(dim=0), Shard(dim=1))", ((0, 17), (17, 16))),
+    ("flash_decode_empty", "(Replicate(), Shard(dim=1))", ((0, 1), (1, 1), (2, 1), (3, 0)))])
+def test_flash_decode_attends_uneven_key_shards(mesh_results, arm, placement, ranges):
+    """Keys placed in DTensor's uneven shards of the slots (a rank's true
+    start from `local_range`, the last rank's shard empty where there are
+    fewer slots than ranks) give the attention of no mesh."""
+    ranks, _, _ = mesh_results
+    for rank, r in enumerate(ranks):
+        got, want, place, keys = r["attn", arm]
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+        # rank r is model rank r % 2 of the (2, 2) mesh, r of the (1, 4) one
+        assert place == placement and keys == ranges[rank % len(ranges)], (rank, keys)
 
 
 def _bf16_close(got, want):

@@ -2,20 +2,22 @@
 configs on the 16x16 mesh.  Each side runs in a subprocess of its own (the
 reference on 512 placeholder host devices, the port as rank 0 of torch's
 `fake` process group), with `get_config` patched to `get_smoke_config` and
-to three variants of it (`VARIANTS`: mamba2 with 16 SSM heads, deepseek with
-16 heads and 16 KV heads, hymba with 5 heads at d 640).
+to four variants of it (`VARIANTS`: mamba2 with 16 SSM heads, deepseek with
+16 heads and 16 KV heads, hymba with 5 heads at d 640, whisper over 60
+frames).
 
 Prefill and decode: the same status, `memory.argument_bytes` equal but where
-the two place the SSM's decode caches differently (`ARG_PARTED`, ROADMAP
-C.6), and per-device `flops` within 2% of the reference's trip-aware count,
-or the ratio pinned in `PARTED` with the products that part them (ROADMAP
-C.5).  Training: status ok and the FLOPs ratio pinned (`TRAIN_PARTED`).
-Every cell: `memory.output_bytes` equal but for XLA's output tuple table
-(`OUT_LEAVES`) and the caches a decode returns, and the collective bytes by
-kind pinned on both sides (`COLLECTIVES`) with the collectives that part
-them.  The port's products, listed by site in its subprocess (`_LISTING`),
-show that the sites C.5 and C.7 repaired run on rank 0's share, the SSD
-mixer's on its own heads."""
+the two place a decode's caches differently (`ARG_PARTED`, ROADMAP C.6 and
+C.9) or the reference drops leaves the step never reads (`UNREAD`), and
+per-device `flops` within 2% of the reference's trip-aware count, or the
+ratio pinned in `PARTED` with the products that part them (ROADMAP C.5).
+Training: status ok and the FLOPs ratio within 2%, or pinned
+(`TRAIN_PARTED`).  Every cell: `memory.output_bytes` equal but for XLA's
+output tuple table (`OUT_LEAVES`) and the caches a decode returns, and the
+collective bytes by kind pinned on both sides (`COLLECTIVES`) with the
+collectives that part them.  The port's products, listed by site in its
+subprocess (`_LISTING`), show that the sites C.5, C.7, C.8 and C.9
+repaired run on rank 0's share, the SSD mixer's on its own heads."""
 
 from __future__ import annotations
 
