@@ -4107,8 +4107,8 @@ def main(argv=None) -> int:
     # phase R
     t0 = time.perf_counter()
     log(f"[R] the multi-pod dry run on the CPU beside {card_line()}: {LM_ARCH}, {SSM_ARCH}, "
-        f"{HYBRID_ARCH} and {MOE_ARCH} on the 16x16 mesh over a fake process group, nothing "
-        "computed")
+        f"{HYBRID_ARCH}, {MOE_ARCH}, {GLU_ARCH} and {ENCDEC_ARCH} on the 16x16 mesh over a fake "
+        "process group, nothing computed")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
         dryrun_phase(d)
     log(f"      phase R took {time.perf_counter() - t0:.1f} s; the script so far "
