@@ -164,11 +164,12 @@ F. the scan fabric on each file order, after phase S, every launch count
    device memory and, from torch.profiler, one decode tick's idle share;
    (c) the config cut to 2 layers at float32 (TF32 off), the card against
    the CPU; (d) `ops.flash_attention` on layer 0's q, k, v of (a)'s prompt in
-   bf16 (the wgmma route) and float32 (the CUDA-core route; the route tally
-   must show one launch each) against `ref.mha` and the model's own
-   `layers.attention`, then the kernel timed as phase 3 times one at that
-   shape, at a stack of 4 prompts, in float32 and at gemma-7b's head dim
-   (B 1, 16 heads, S 2048, D 256, bf16, random from --seed), each with its
+   bf16 (the wgmma route) and float32 (the tf32x3 route: mma.sync in three
+   TF32 passes; the route tally must show one launch each) against
+   `ref.mha` and the model's own `layers.attention`, then the kernel timed
+   as phase 3 times one at that shape, at a stack of 4 prompts, in float32,
+   at gemma-7b's head dim (B 1, 16 heads, S 2048, D 256, bf16, random from
+   --seed) and at D 32 (the same, bf16 on the tf32x3 route), each with its
    route, beside its bound (and the share of it), `ref.mha` and, as a
    yardstick the port never calls, torch's scaled_dot_product_attention (and
    the kernel's time over it);
@@ -2045,7 +2046,11 @@ PACKED_LEN = 4096  # one packed block of k = 18-bit token ids
 CHECK_LAYERS, CHECK_LEN = 2, 256  # (c): the config cut to 2 layers, float32
 STACK_BATCH = 4  # flash_attention's stack: 4 prompts of PACKED_LEN at layer 0
 BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# float32 work at float32 accuracy: three TF32 passes on the H100 SXM's
+# tensor cores (495 TFLOP/s dense) split each operand into two TF32 parts and
+# hold float32's tolerance, so 495 / 3, above the 67 TFLOP/s of float32 FMAs
+# on the CUDA cores, is the least time the card could take
+F32_FLOPS_PER_S = 495e12 / 3
 # (b) decode logits at S against the (S+1)-token prefill, in bfloat16 at 28
 # layers: the two paths round their bf16 activations at different places
 # (a one-row step against 1,025-row products), so they agree to the bf16
@@ -2138,7 +2143,7 @@ def lm_serving(seed: int, device: str = "cuda"):
 
     # the counted window: (a), (b)'s first engine, and (d)'s entry-point calls
     ops.reset_kernel_launches()
-    flash_attention.ROUTE_LAUNCHES.update(wgmma=0, cuda_cores=0)
+    flash_attention.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
     l_packed, c_packed = model.prefill(params, {"packed": packed_t}, cfg)
     l_tokens, c_tokens = model.prefill(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
@@ -2161,9 +2166,9 @@ def lm_serving(seed: int, device: str = "cuda"):
     launches = ops.kernel_launches()
     routes = dict(flash_attention.ROUTE_LAUNCHES)
     log(f"      launches on the LM path: {launches}; flash_attention by route: {routes}")
-    if routes != {"wgmma": 1, "cuda_cores": 1}:
+    if routes != {"wgmma": 1, "tf32x3": 1}:
         raise AssertionError("the bf16 flash_attention call did not take the wgmma route, or "
-                             f"the float32 one the CUDA-core route: {routes}")
+                             f"the float32 one the tf32x3 route: {routes}")
 
     # (a) packed prompt == tokens, bit for bit, through bitunpack
     if not torch.equal(l_packed, l_tokens) or any(
@@ -2264,18 +2269,20 @@ def lm_serving(seed: int, device: str = "cuda"):
                                   .astype(np.int32)).to(device)
     stack = layer0_qkv(params, cfg, stack_toks)
     D = 256  # gemma-7b's head dim: B 1, 16 heads, MHA, S 2048, random from the seed
-    wide = tuple(torch.from_numpy(rng.standard_normal((1, 16, 2048, D)).astype(np.float32))
-                 .to(device, torch.bfloat16) for _ in range(3))
-    rec = flash_cases(qkv, stack, wide, cfg)
+    wide, narrow = (tuple(torch.from_numpy(rng.standard_normal((1, 16, 2048, d))
+                                           .astype(np.float32)).to(device, torch.bfloat16)
+                          for _ in range(3)) for d in (D, 32))
+    rec = flash_cases(qkv, stack, wide, narrow, cfg)
     rec["launches_by_route"] = routes
     return launches, rec
 
 
-def flash_cases(path, stack, wide, cfg) -> dict:
+def flash_cases(path, stack, wide, narrow, cfg) -> dict:
     """flash_attention timed as phase 3 times a kernel: at the path's shape
-    (one qwen3 layer at S = 4096, bf16), the stack (4 prompts), float32, and
-    gemma-7b's head dim (D 256, bf16), each on the route its dtype and head
-    dim give, with its share of the bound and its time over SDPA's."""
+    (one qwen3 layer at S = 4096, bf16), the stack (4 prompts), float32,
+    gemma-7b's head dim (D 256, bf16) and D 32 (bf16, the tf32x3 kernel's
+    bf16 instantiation), each on the route its dtype and head dim give, with
+    its share of the bound and its time over SDPA's."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=path[0].device)
     rec = {"max_abs_err": 0.0, "cases": []}
     for label, (q, k, v), scale in (("path: layer 0, bf16", path, cfg.attn_scale),
@@ -2283,7 +2290,8 @@ def flash_cases(path, stack, wide, cfg) -> dict:
                                      cfg.attn_scale),
                                     ("path: layer 0, float32", tuple(t.float() for t in path),
                                      cfg.attn_scale),
-                                    ("D 256: 16 heads, S 2048, bf16", wide, None)):
+                                    ("D 256: 16 heads, S 2048, bf16", wide, None),
+                                    ("D 32: 16 heads, S 2048, bf16", narrow, None)):
         B, H, S, D = q.shape
         kw = dict(causal=True, scale=scale)
         way = flash_attention.route(q.dtype, D)

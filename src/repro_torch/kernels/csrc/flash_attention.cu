@@ -13,33 +13,68 @@
 // Sk keys, as softmax over Sk equal logits does; the output is rounded once
 // from float32 to q's dtype.
 //
-// Bound: operations at the model's shape. The two products take
-// 4 * B * H * D * (sum over rows of the keys each row sees) operations; for
-// one qwen3-1.7b layer at S = 4096 (B = 1, H = 16, D = 128, causal) that is
-// 68.7 GFLOP, about 69 us at the H100's 989 TFLOP/s in bf16 on tensor cores,
-// against about 15 us for the 50 MB it must move at 3.35 TB/s.
+// Bound: operations.  The two products take 4 * B * H * D * (sum over rows
+// of the keys each row sees) operations: 68.7 GFLOP for one qwen3-1.7b layer
+// at S = 4096 (B = 1, H = 16, D = 128, causal), against 50 MB to move.  Done
+// at float32 accuracy they cannot run faster than three TF32 passes on the
+// tensor cores, 495 / 3 = 165 TFLOP/s on an H100 SXM: about 417 us.
 //
-// Design (simple and right first; this version runs far from that bound):
-// one CTA of 8 warps per (64-row query tile, head, batch). The q tile and, in
-// turn, each 64-key tile of K and V are staged in dynamic shared memory as
-// float32 (209 KiB at D = 256; the launcher raises the CTA's opt-in limit).
-// Each warp owns 8 query rows; lane t scores keys t and t + 32 of the tile
-// against them with float32 FMAs on the CUDA cores (float4 reads: the q row
-// is a broadcast, the K rows are padded by 4 floats so 8 lanes hit 8
-// distinct bank groups), takes the tile's row maximum and sum by warp
-// shuffles, and rescales its running max, sum and accumulator (kept in
-// registers, float32) as the online softmax does. The probabilities go
-// through a per-warp slice of shared memory into P V, where lane t owns
-// output columns t, t + 32, ... so the V reads and the final stores are
-// coalesced. The key loop is trimmed to the union of the tile's rows'
-// visible ranges, unless a row of the tile sees no key: that row needs all
-// Sk keys (at -1e30 each), so the loop then runs over all of them. Keys past
-// Sk (the ragged last tile) get -inf, which gives them exactly zero weight
-// against a running max that is always finite (it starts at -1e30). exp is
-// expf, the accurate one, so float32 inputs agree with mha to ~1e-6.
-// No tensor cores: TF32 would not reach the float32 tolerance of the tests
-// (3e-5).  bfloat16 at D 64, 128 and 256 runs on them instead, in
-// csrc/flash_attention_wgmma.cu (wgmma fed by TMA).
+// Design: both products on the tensor cores in 3xTF32, FlashAttention-2's
+// split of the work, K and V by cp.async in two stages.
+// - Arithmetic.  mma.sync m16n8k8 with TF32 operands and float32 sums.  Each
+//   float32 operand x is split into hi, x rounded to TF32 (to nearest, ties
+//   away from zero), and lo = x - hi, which the tensor cores read as TF32 by
+//   ignoring its 13 low bits; a product is hi*hi plus lo*hi + hi*lo, which
+//   drops ~2^-21 of it.  The rounding is two integer operations (add half a
+//   TF32 step to the bits, clear the 13 low ones; operands are finite):
+//   cvt.rna.tf32.f32, which also handles inf and NaN, compiles to four on
+//   sm_90a, and the splits outnumber the products, so they set much of the
+//   kernel's time.  One TF32 pass would be ~1e-3 off at S 1,024 (tests/
+//   test_torch_attention.py pins both).  A bf16 operand widened to float32
+//   is exact in TF32: its lo is 0 and the passes that read it are skipped
+//   (Q K takes one pass, P V two).
+// - Sums.  The tensor cores truncate each sum, so an accumulator that takes
+//   many products drifts toward zero: one accumulator for all three passes
+//   over D put the logits several times further from float64 than cuBLAS's
+//   float32 ones on an H100, at inputs of standard deviation 2 and 3, and
+//   broke the float32 tolerance at D 256.  So every sum is short: the scores
+//   start at 0 for each key tile, the hi*hi products alternate between two
+//   accumulators by k-step and the small products go to a third, and each
+//   tile's P V goes to fresh hi*hi and small accumulators, 4 n8 tiles at a
+//   time, added to the running output on the CUDA cores.  The logits then
+//   sit as close to float64 as cuBLAS's float32 ones.
+// - Work split.  One CTA of 4 warps per (64-row query tile, head, batch);
+//   warp w owns rows 16w..16w+15, the instruction's m16.  Its 16 x 32
+//   scores stay in accumulator fragments (lane l holds rows g = l/4 and
+//   g + 8, keys 2t and 2t + 1 of each n8 tile, t = l%4); the row max and sum
+//   take two quad shuffles (the sum only once, at the end: each lane keeps
+//   its partial sum, rescaled with the row).  P goes from the score fragment
+//   straight into P V's A fragment: the accumulator's columns {2t, 2t + 1} of
+//   an n8 tile serve as the A fragment's columns {t, t + 4}, and V's B
+//   fragment reads rows 2t and 2t + 1 to match, which is exact, since P V
+//   sums over keys.  Heavy tiles go first: row tile gridDim.x - 1 - blockIdx.x
+//   takes the most keys under `causal`.
+// - Copies.  Q (once) and each 32-key tile of K and V go to dynamic shared
+//   memory by cp.async, 4 elements a copy (16 bytes of float32, 8 of bf16;
+//   rows past Sq or Sk are zero-filled), with the next tile's copies in
+//   flight while the current one is multiplied (two stages).  Rows are padded
+//   by 16 bytes, which makes the fragment reads conflict-free: bank 4g + t
+//   for Q and K, 8t + g for V's rows 2t, 2t + 1.  32 keys, not 64: at D 128 a
+//   CTA then takes 99 KiB and two fit an SM (64 keys, 165 KiB and one CTA
+//   an SM, ran slower at the float32 path's shape); D 256 takes 195 KiB.
+// - Q's fragments.  For D <= 64 a lane splits its Q fragments once into
+//   registers (D / 8 steps x 8 registers, 64 at D = 64).  At D 128 and 256
+//   that would take 128 and 256 registers beside the output's 64 and 128, so
+//   they are read from shared memory and split again at each key tile (4
+//   loads and 4 splits a k-step, shared by 4 n8 tiles of keys).
+// - Semantics as above: masked logits -1e30, keys past Sk -inf (no weight
+//   against a running max that starts at -1e30), the key loop trimmed to the
+//   union of the tile's rows' visible ranges unless a row sees no key (then
+//   all Sk keys), masks skipped on a tile that every row of the warp sees
+//   whole.  exp is 2^x by ex2.approx.ftz on logits scaled by scale *
+//   log2(e) (the max, the mask value and the sums are taken on those): it
+//   holds the float32 tolerance on the card, and ran faster than expf and
+//   exp2f at the float32 path's shape.
 //
 // A launch the card refuses (too much shared memory, a grid too large) is
 // reported by cudaGetLastError(), which rt_flash_attention returns.
@@ -51,78 +86,134 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kRows = 64;                  // query rows per CTA
-constexpr int kKeys = 64;                  // keys per shared-memory tile
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;                  // 16 rows each
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr int kKeys = 32;                  // keys per stage
+constexpr int kGroup = 4;                  // n8 tiles of P V summed apart
 constexpr float kMasked = -1e30f;          // ref.mha's masked logit
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float store(float x) { return x; }
+template <typename T, int D>
+struct Tiles {
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
+  static constexpr int kStride = D + 16 / int(sizeof(T));    // padded row, elements
+  static constexpr int kTile = kKeys * kStride;              // one K or V stage
+  // Q, then stages 0 and 1 of K and V
+  static constexpr size_t kSmem = size_t(kRows * kStride + 4 * kTile) * sizeof(T);
 };
 
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-  }
-};
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  // round to nearest even, as torch's .to()
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 4 elements from global to shared memory, or 4 zeros where !ok.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(rt::smem_u32(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(rt::smem_u32(smem)),
+               "l"(gmem), "r"(ok ? 8 : 0)
+               : "memory");
 }
 
-// Shared memory of one CTA, in floats: the q tile, the K tile (rows padded
-// by 4), the V tile and the probabilities of the 64 rows.
-template <int D>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(kRows) * D + static_cast<size_t>(kKeys) * (D + 4) +
-         static_cast<size_t>(kKeys) * D + static_cast<size_t>(kRows) * kKeys;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Returns once at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [0, ROWS) of a (rows, D) array into a tile of padded rows; the rows
+// from `valid` on are zero-filled.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void copy_rows(T* tile, const T* src, int valid, int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int idx = tid; idx < ROWS * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks * 4;
+    const bool ok = r < valid;
+    cp_async4(tile + r * Tiles<T, D>::kStride + c, ok ? src + size_t(r) * D + c : src, ok);
+  }
+}
+
+// x = hi + lo, hi the TF32 nearest x (ties away from zero) and lo = x - hi,
+// read as TF32 by the tensor cores; an EXACT operand (a widened bf16) is its
+// own hi.
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(x);
+  } else {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 2^x by the SFU's approximation (~2 ulp), with results below 2^-126, which
+// weigh nothing against a row's largest term, flushed to zero.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out, int H,
                            int Hkv, int Sq, int Sk, int causal, int has_window,
                            int window, float scale) {
-  static_assert(D % 4 == 0 && D <= 256, "head dim");
-  constexpr int KS = D + 4;               // padded K row
-  constexpr int NJ = (D + 31) / 32;       // output columns per lane
-  constexpr int Q4 = D / 4;               // float4 per row
+  using Tl = Tiles<T, D>;
+  constexpr int KEYS = kKeys, RS = Tl::kStride;
+  constexpr int NT = KEYS / 8;              // n8 tiles of scores, k8 steps of P V
+  constexpr int DK = D / 8;                 // k8 steps of Q K, n8 tiles of the output
+  constexpr int NG = DK < kGroup ? DK : kGroup;
+  constexpr bool kExact = std::is_same_v<T, __nv_bfloat16>;
+  constexpr bool kQRegs = D <= 64;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kRows * D;
-  float* Vs = Ks + kKeys * KS;
-  float* Ps = Vs + kKeys * D;
+  T* Qs = reinterpret_cast<T*>(smem4);
+  // stage s: K at kv(s), V at kv(s) + kTile
+  auto kv = [Qs](int s) { return Qs + kRows * RS + s * 2 * Tl::kTile; };
   __shared__ int key_range[2];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.x * kRows;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const long long off = static_cast<long long>(Sk) - Sq;  // row i sits at i + off
@@ -130,12 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
   const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
 
-  for (int idx = tid; idx < kRows * Q4; idx += kThreads) {
-    const int r = idx / Q4, c = (idx % Q4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i0 + r < Sq) x = Io<T>::load4(qb + static_cast<size_t>(i0 + r) * D + c);
-    *reinterpret_cast<float4*>(Qs + r * D + c) = x;
-  }
+  copy_rows<T, D, kRows>(Qs, qb + static_cast<size_t>(i0) * D, Sq - i0, tid);
   if (tid == 0) {
     // the keys the tile's rows see: [lo, hi), or all Sk when one sees none
     long long lo = Sk, hi = 0;
@@ -153,119 +239,182 @@ __global__ void __launch_bounds__(kThreads)
     key_range[1] = empty ? Sk : static_cast<int>(hi);
   }
   __syncthreads();
-  const int lo = key_range[0], hi = key_range[1];
-
-  const int row0 = warp * kRowsPerWarp;   // this warp's first row in the tile
-  float acc[kRowsPerWarp][NJ];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kMasked;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
+  const int kbeg = key_range[0] / KEYS * KEYS;
+  const int ntiles = (key_range[1] - kbeg + KEYS - 1) / KEYS;
+  // copy group i holds key tile i (group 0 Q too); one group is committed a
+  // tile, empty or not, so that waiting for all but the newest is exact
+  for (int s = 0; s < 2; ++s) {
+    const int k0 = kbeg + s * KEYS;
+    if (s < ntiles) {
+      copy_rows<T, D, KEYS>(kv(s), kb + static_cast<size_t>(k0) * D, Sk - k0, tid);
+      copy_rows<T, D, KEYS>(kv(s) + Tl::kTile, vb + static_cast<size_t>(k0) * D, Sk - k0, tid);
+    }
+    cp_async_commit();
   }
 
-  for (int k0 = lo / kKeys * kKeys; k0 < hi; k0 += kKeys) {
-    __syncthreads();  // every warp is done with the previous K, V tile
-    for (int idx = tid; idx < kKeys * Q4; idx += kThreads) {
-      const int r = idx / Q4, c = (idx % Q4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < Sk) {
-        const size_t at = static_cast<size_t>(k0 + r) * D + c;
-        kx = Io<T>::load4(kb + at);
-        vx = Io<T>::load4(vb + at);
-      }
-      *reinterpret_cast<float4*>(Ks + r * KS + c) = kx;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vx;
-    }
-    __syncthreads();
+  const int r0 = warp * 16 + g;                      // this lane's rows r0, r0 + 8
+  const long long pos[2] = {i0 + r0 + off, i0 + r0 + 8 + off};
+  const long long wlo = i0 + warp * 16 + off;        // the warp's first and last rows
+  const long long whi = wlo + 15;
+  const float scale2 = scale * kLog2e;
+  float o[DK][4];
+#pragma unroll
+  for (int n = 0; n < DK; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  uint32_t qh[kQRegs ? DK : 1][4], ql[kQRegs ? DK : 1][4];
 
-    // scores of the warp's rows against keys k0 + lane and k0 + lane + 32
-    float s[kRowsPerWarp][2];
+  // the A fragment of Q K's k-step kk: rows r0, r0 + 8 by columns t, t + 4
+  auto q_frag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const T* p = Qs + r0 * RS + kk * 8 + t;
+    split<kExact>(widen(p[0]), ah[0], al[0]);
+    split<kExact>(widen(p[8 * RS]), ah[1], al[1]);
+    split<kExact>(widen(p[4]), ah[2], al[2]);
+    split<kExact>(widen(p[8 * RS + 4]), ah[3], al[3]);
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kbeg + it * KEYS;
+    const T* Kt = kv(it & 1);
+    const T* Vt = Kt + Tl::kTile;
+    cp_async_wait<1>();
+    __syncthreads();  // tile `it` (and Q) landed for every thread's copies
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka = Ks + lane * KS;
-    const float* kc = Ks + (lane + 32) * KS;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(ka + d);
-      const float4 x1 = *reinterpret_cast<const float4*>(kc + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (row0 + r) * D + d);
-        s[r][0] = fmaf(qv.x, x0.x, s[r][0]);
-        s[r][0] = fmaf(qv.y, x0.y, s[r][0]);
-        s[r][0] = fmaf(qv.z, x0.z, s[r][0]);
-        s[r][0] = fmaf(qv.w, x0.w, s[r][0]);
-        s[r][1] = fmaf(qv.x, x1.x, s[r][1]);
-        s[r][1] = fmaf(qv.y, x1.y, s[r][1]);
-        s[r][1] = fmaf(qv.z, x1.z, s[r][1]);
-        s[r][1] = fmaf(qv.w, x1.w, s[r][1]);
+        for (int kk = 0; kk < DK; ++kk) q_frag(kk, qh[kk], ql[kk]);
       }
     }
 
-    // mask, then the online softmax of each row
+    // S = Q K^T over the tile: hi*hi by k-step parity, the small products
+    // apart, each from zero
+    float sb[2][NT][4], sl[NT][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const long long pos = i0 + row0 + r + off;
-      float x[2];
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + lane + 32 * c;
-        if (key >= Sk) {
-          x[c] = -INFINITY;  // past the end: no weight, not even in an empty row
-        } else {
-          const bool seen = (!causal || key <= pos) && (!has_window || key > pos - window);
-          x[c] = seen ? s[r][c] * scale : kMasked;
+      for (int e = 0; e < 4; ++e) sb[0][j][e] = sb[1][j][e] = sl[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ah[e] = qh[kk][e], al[e] = ql[kk][e];
+      } else {
+        q_frag(kk, ah, al);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // B = K^T: column g is key 8j + g, rows t and t + 4 its dims
+        const T* p = Kt + (j * 8 + g) * RS + kk * 8 + t;
+        uint32_t bh[2], bl[2];
+        split<kExact>(widen(p[0]), bh[0], bl[0]);
+        split<kExact>(widen(p[4]), bh[1], bl[1]);
+        if constexpr (!kExact) {
+          mma(sl[j], al, bh);
+          mma(sl[j], ah, bl);
         }
+        mma(sb[kk & 1][j], ah, bh);
       }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(x[0], x[1])));
-      const float p0 = expf(x[0] - m_new), p1 = expf(x[1] - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[r][j] *= alpha;
-      Ps[(row0 + r) * kKeys + lane] = p0;
-      Ps[(row0 + r) * kKeys + lane + 32] = p1;
     }
-    __syncwarp();
 
-    // acc += P V over the tile's keys
-    for (int c = 0; c < kKeys; c += 4) {
-      float4 pr[kRowsPerWarp];
+    // scale into log2's domain, mask, then the online softmax of rows r0
+    // and r0 + 8
+    const bool whole = k0 + KEYS <= Sk && (!causal || k0 + KEYS - 1 <= wlo) &&
+                       (!has_window || k0 > whi - window);
+    float s[NT][4], mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(Ps + (row0 + r) * kKeys + c);
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = Vs + (c + cc) * D;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = lane + 32 * j;
-          const float vj = (D % 32 == 0 || d < D) ? vrow[d] : 0.f;
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float p = cc == 0 ? pr[r].x : cc == 1 ? pr[r].y : cc == 2 ? pr[r].z : pr[r].w;
-            acc[r][j] = fmaf(p, vj, acc[r][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = (sb[0][j][e] + sb[1][j][e] + sl[j][e]) * scale2;
+        if (!whole) {
+          const int key = k0 + j * 8 + 2 * t + (e & 1);
+          const long long p = pos[e >> 1];
+          if (key >= Sk) {
+            x = -INFINITY;  // past the end: no weight, not even in an empty row
+          } else if ((causal && key > p) || (has_window && key <= p - window)) {
+            x = kMasked;
           }
         }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    __syncwarp();
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    // P as P V's A fragments: a0 = (r0, key 2t), a1 = (r0 + 8, 2t),
+    // a2 = (r0, 2t + 1), a3 = (r0 + 8, 2t + 1) of each k8 step j
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p0 = exp2_approx(s[j][0] - mx[0]), p1 = exp2_approx(s[j][1] - mx[0]);
+      const float p2 = exp2_approx(s[j][2] - mx[1]), p3 = exp2_approx(s[j][3] - mx[1]);
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      split<false>(p0, ph[j][0], pl[j][0]);
+      split<false>(p2, ph[j][1], pl[j][1]);
+      split<false>(p1, ph[j][2], pl[j][2]);
+      split<false>(p3, ph[j][3], pl[j][3]);
+    }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+
+    // O = O alpha + P V: the tile's P V from zero, kGroup n8 tiles at a
+    // time, hi*hi and the small products apart
+#pragma unroll
+    for (int n0 = 0; n0 < DK; n0 += NG) {
+      float cb[NG][4], cs[NG][4];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cb[n][e] = cs[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          // B = V: column g is dim 8(n0 + n) + g, rows t and t + 4 keys
+          // 8j + 2t and 8j + 2t + 1
+          const T* p = Vt + (j * 8 + 2 * t) * RS + (n0 + n) * 8 + g;
+          uint32_t bh[2], bl[2];
+          split<kExact>(widen(p[0]), bh[0], bl[0]);
+          split<kExact>(widen(p[RS]), bh[1], bl[1]);
+          mma(cs[n], pl[j], bh);
+          if constexpr (!kExact) mma(cs[n], ph[j], bl);
+          mma(cb[n], ph[j], bh);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n0 + n][e] = fmaf(o[n0 + n][e], alpha[e >> 1], cb[n][e] + cs[n][e]);
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < ntiles) {
+      const int kn = k0 + 2 * KEYS;
+      copy_rows<T, D, KEYS>(kv(it & 1), kb + static_cast<size_t>(kn) * D, Sk - kn, tid);
+      copy_rows<T, D, KEYS>(kv(it & 1) + Tl::kTile, vb + static_cast<size_t>(kn) * D, Sk - kn,
+                            tid);
+    }
+    cp_async_commit();
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = i0 + row0 + r;
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const int i = i0 + r0 + 8 * r;
     if (i >= Sq) continue;
-    T* o = out + (static_cast<size_t>(b) * H + h) * Sq * D + static_cast<size_t>(i) * D;
+    T* dst = out + ((static_cast<size_t>(b) * H + h) * Sq + i) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (D % 32 == 0 || d < D) o[d] = Io<T>::store(acc[r][j] / l[r]);
-    }
+    for (int n = 0; n < DK; ++n) store2(dst + n * 8, o[n][2 * r] / lr, o[n][2 * r + 1] / lr);
   }
 }
 
@@ -274,7 +423,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
                    int H, int Hkv, int Sq, int Sk, int causal, int has_window,
                    int window, float scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
+  constexpr size_t smem = Tiles<T, D>::kSmem;
   // once per instantiation: the port drives one card per process
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -12,10 +12,12 @@ operands' device.
 
 The route is a rule on dtype and head dim, decided before the launch:
 bfloat16 operands with D in WGMMA_HEAD_DIMS (64, 128, 256: rows that are whole
-128-byte swizzle atoms) go to the tensor-core kernel (`wgmma` fed by TMA);
-float32 operands, whose 3e-5 tolerance rules out TF32, and D in (16, 32) stay
-on the CUDA-core kernel.  A launch that fails raises on either route.
-`KERNEL.launches` counts both; `ROUTE_LAUNCHES` counts each.
+128-byte swizzle atoms) go to the `wgmma` kernel fed by TMA; float32 operands,
+and bfloat16 at D in (16, 32), go to the "tf32x3" kernel, whose `mma.sync`
+products split each float32 operand into two TF32 parts and add three TF32
+passes, which holds float32's 3e-5 tolerance where one TF32 pass does not.
+A launch that fails raises on either route.  `KERNEL.launches` counts both;
+`ROUTE_LAUNCHES` counts each.
 """
 
 from __future__ import annotations
@@ -27,22 +29,22 @@ import torch
 from repro_torch.kernels import build
 
 SOURCES = {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
-           "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+           "tf32x3": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 # the record names the source of the route a model's bf16 layer takes
 KERNEL = build.Kernel("flash_attention", SOURCES["wgmma"],
                       "src/repro/kernels/flash_attention.py:82")
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the two routes take together
 WGMMA_HEAD_DIMS = (64, 128, 256)  # the tensor-core kernel's, bfloat16 only
-ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535  # the grid's y (heads) and z (batch) extents
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes operands of `dtype` and `head_dim`: "wgmma" for
-    bfloat16 with D in WGMMA_HEAD_DIMS, else "cuda_cores"."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "cuda_cores"
+    bfloat16 with D in WGMMA_HEAD_DIMS, else "tf32x3"."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "tf32x3"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

@@ -107,7 +107,7 @@ def test_flash_attention_is_the_twelfth_kernel_and_counts_no_dispatch():
     assert kern.replaces == "src/repro/kernels/flash_attention.py:82"
     assert kern.source == cu_flash.SOURCES["wgmma"]
     assert cu_flash.SOURCES == {"wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
-                                "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+                                "tf32x3": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     q, k, v = (torch.from_numpy(x) for x in _qkv(0, 1, 2, 1, 64, 64, 16))
     ops.reset_dispatch_count()
     launches = kern.launches
@@ -199,10 +199,115 @@ def test_bf16_probabilities_stay_within_one_bf16_step(B, H, Hkv, Sq, Sk, D, caus
     assert ratio.max() <= 1.0, ratio.max()
 
 
+def _tf32(x, rounded=True):
+    """x as a TF32 operand (10 mantissa bits): rounded to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds (half a step added to the
+    magnitude's bits, then the 13 low ones cleared), or truncated, as the
+    tensor cores read a float32 register they are given as TF32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if rounded else bits) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """x = hi + lo as csrc/flash_attention.cu splits a float32 operand: hi =
+    cvt.rna.tf32(x), lo = x - hi, read as TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi, rounded=False)
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b of split operands (a = (hi, lo)) as the kernel multiplies them:
+    hi*hi plus the small products lo*hi + hi*lo summed apart (passes=3), or
+    hi*hi alone (passes=1, one TF32 pass)."""
+    if passes == 1:
+        return a[0] @ b[0]
+    return a[0] @ b[0] + (a[1] @ b[0] + a[0] @ b[1])
+
+
+def _tf32x3_model(q, k, v, causal=True, window=None, scale=None, passes=3):
+    """The arithmetic of csrc/flash_attention.cu on float32 operands, tile by
+    tile over its 32-key tiles, in plain torch: each tile's Q K^T from zero
+    in TF32 passes, scaled into the log2 domain (times scale * log2 e) and
+    masked (-1e30); the running max m from -1e30, P = 2^(x - m) summed into
+    l; the tile's P V from zero in TF32 passes, added to O rescaled by
+    2^(m_old - m); O / l.  Every tile is visited (a tile the kernel skips adds
+    exactly nothing, as in _wgmma_model), and a short last tile stands for
+    the kernel's -inf keys."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qs = _split(q)
+    kts = _split(k.repeat_interleave(H // Hkv, dim=1).transpose(2, 3))
+    vs = _split(v.repeat_interleave(H // Hkv, dim=1))
+    scale_log2 = torch.tensor((scale if scale is not None else D ** -0.5), dtype=torch.float32)
+    scale_log2 = scale_log2 * torch.tensor(LOG2E, dtype=torch.float32)
+    pos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, 32):
+        kt = tuple(x[..., k0:k0 + 32] for x in kts)
+        vt = tuple(x[:, :, k0:k0 + 32] for x in vs)
+        keys = torch.arange(k0, k0 + kt[0].shape[-1])[None, :]
+        x = _tf32_mm(qs, kt, passes) * scale_log2
+        seen = torch.ones((Sq, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            seen &= keys <= pos
+        if window is not None:
+            seen &= pos - keys < window
+        x = torch.where(seen, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        p = torch.exp2(x - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + _tf32_mm(_split(p), vt, passes)
+        m = m_new
+    return o / l
+
+
+# The shapes past qwen3's are those of the tests above, so that the JAX side
+# reuses what it compiled for them (a new shape costs it ~1.4 s).
+TF32X3_CASES = [
+    (1, 16, 8, 1024, 1024, 128, True, None, 1.0),   # qwen3's widths
+    (1, 16, 8, 1024, 1024, 128, True, None, 2.0),
+    (1, 2, 2, 256, 256, 256, True, None, 1.0),       # gemma-7b's head dim
+    (2, 4, 2, 70, 70, 32, True, 5, 2.0),             # a window smaller than a tile
+    (2, 4, 2, 96, 320, 32, True, None, 1.0),         # Sq < Sk
+    (2, 4, 2, 320, 96, 32, True, None, 2.0),         # Sq > Sk: 224 rows see no key
+]
+
+
+def _float32_case(B, H, Hkv, Sq, Sk, D, std):
+    rng = np.random.default_rng(Sq * 17 + Sk + D + int(std))
+    return [rng.standard_normal(s).astype(np.float32) * std
+            for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,win,std", TF32X3_CASES)
+def test_tf32x3_products_hold_the_float32_tolerance(B, H, Hkv, Sq, Sk, D, causal, win, std):
+    """Three TF32 passes a product (the tf32x3 kernel's arithmetic) stay
+    within the float32 rule of the card tests, atol 3e-5 / rtol 1e-4, of the
+    JAX package's ref.mha."""
+    arrays = _float32_case(B, H, Hkv, Sq, Sk, D, std)
+    want = _jax(jref.mha, *arrays, causal=causal, window=win)
+    got = _port(_tf32x3_model, *arrays, causal=causal, window=win)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_one_tf32_pass_breaks_the_float32_tolerance():
+    """The same arithmetic with hi*hi alone, one TF32 pass a product, misses
+    atol 3e-5 / rtol 1e-4 at qwen3's widths by far: why the kernel takes
+    three."""
+    arrays = _float32_case(1, 16, 8, 1024, 1024, 128, 1.0)
+    want = _jax(jref.mha, *arrays, causal=True)
+    got = _port(_tf32x3_model, *arrays, causal=True, passes=1)
+    ratio = np.abs(got - want) / (ATOL + RTOL * np.abs(want))
+    assert ratio.max() > 5.0, ratio.max()
+
+
 @pytest.mark.parametrize("dtype,D,way", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 16, "cuda_cores"), (torch.bfloat16, 32, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
-    (torch.float32, 256, "cuda_cores")])
+    (torch.bfloat16, 16, "tf32x3"), (torch.bfloat16, 32, "tf32x3"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 256, "tf32x3")])
 def test_route_is_a_rule_on_dtype_and_head_dim(dtype, D, way):
     assert cu_flash.route(dtype, D) == way

@@ -154,7 +154,7 @@ def test_kernels_line_counts_every_window():
     case = {"blocks": 16, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes",
             "library_ms": None, "stage_ms": None}
     records = {n: {"max_abs_err": 0.0, "cases": [case, case]} for n in names}
-    records["flash_attention"].update(launches_by_route={"wgmma": 1, "cuda_cores": 1},
+    records["flash_attention"].update(launches_by_route={"wgmma": 1, "tf32x3": 1},
                                       cases=[dict(case, label="x", shape=[1], route="wgmma",
                                                   share=0.5, over_library=1.0)] * 2)
     zero = dict.fromkeys(names, 0)

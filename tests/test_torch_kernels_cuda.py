@@ -712,13 +712,42 @@ def test_flash_attention_wgmma_route(dev, B, H, Hkv, Sq, Sk, D, causal, win, std
 @pytest.mark.parametrize("D,dtype", [(16, torch.bfloat16), (32, torch.bfloat16),
                                      (64, torch.float32), (128, torch.float32),
                                      (256, torch.float32)])
-def test_flash_attention_cuda_core_route(dev, D, dtype):
-    """float32 operands and D in (16, 32) stay on the CUDA-core kernel."""
+def test_flash_attention_tf32x3_route(dev, D, dtype):
+    """float32 operands, and bfloat16 at D in (16, 32), take the 3xTF32 kernel."""
     q = torch.randn((1, 2, 96, D), device=dev).to(dtype)
     routes = dict(cu_flash.ROUTE_LAUNCHES)
     cu_flash.flash_attention(q, q, q)
     torch.cuda.synchronize()
-    assert cu_flash.ROUTE_LAUNCHES == {**routes, "cuda_cores": routes["cuda_cores"] + 1}
+    assert cu_flash.ROUTE_LAUNCHES == {**routes, "tf32x3": routes["tf32x3"] + 1}
+
+
+# float32 cases for the 3xTF32 kernel at its edges, at inputs of standard
+# deviation 1 and 2 (peakier softmax rows, larger logits): qwen3's heads at S
+# 4096, a ragged Sk, Sq < Sk and Sq > Sk (rows that see no key), a window
+# smaller than a tile, D 16 and D 256 (32-key stages), non-causal
+TF32X3_CASES = [(1, 16, 8, 4096, 4096, 128, True, None), (1, 4, 2, 200, 200, 128, True, None),
+                (1, 4, 2, 96, 320, 128, True, None), (1, 4, 2, 320, 96, 64, True, None),
+                (1, 4, 4, 300, 300, 128, True, 5), (2, 4, 2, 130, 77, 16, False, None),
+                (1, 4, 1, 517, 517, 16, True, 100), (1, 2, 2, 300, 300, 256, True, None),
+                (1, 2, 1, 257, 191, 256, False, 40)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,win", TF32X3_CASES)
+@pytest.mark.parametrize("std", [1.0, 2.0])
+def test_flash_attention_tf32x3_route_float32(dev, B, H, Hkv, Sq, Sk, D, causal, win, std):
+    """The 3xTF32 products hold the float32 tolerance of test_flash_attention,
+    atol 3e-5 / rtol 1e-4 against ref.mha (TF32 off), where one TF32 pass
+    would not."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq * 41 + Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * std).to(dev)
+               for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    routes = dict(cu_flash.ROUTE_LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert cu_flash.ROUTE_LAUNCHES == {**routes, "tf32x3": routes["tf32x3"] + 1}
+    torch.testing.assert_close(got, ref.mha(q, k, v, causal=causal, window=win),
+                               atol=3e-5, rtol=1e-4)
 
 
 def test_flash_attention_wgmma_route_needs_16_byte_alignment(dev):
